@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA H100 (needs one CUDA card).
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code 1; no result line is printed):
+
+1. print the card's name and power limit; build every CUDA kernel of the
+   port from the sources in this checkout (one nvcc per source, in parallel);
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes and at edge shapes (TF32 off), and time both;
+3. hold the flagship eval forward on the card against the same model with
+   the same weights on the CPU at 1x64x128 in fp32;
+4. serve: ``get_network`` + ``make_forward_fn`` (bf16 policy) at full width
+   (sdnet_mini_ext, densenet121, 512x960, batches of 16 stereo pairs,
+   random weights from a seed), check the outputs and the on-device
+   metrics, and check that every kernel of the path was launched once per
+   batch.
+
+The second-to-last line of stdout is a JSON object with one record per
+kernel; the last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+PORT = "pmt_learning_for_semantic_segmentation_and_disparity_torch"
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+# dense peak operations per second by input type (H100 SXM data sheet):
+# bf16 on the tensor cores, fp32 outside them
+H100_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+BATCH, H, W = 16, 512, 960          # the serving shape of the JAX package's bench
+CORR_SHAPE = (BATCH, H // 8, W // 8, 352)  # a_py2 / b_py2 at 512x960
+SERVE_BATCHES = 4                   # the first is a warm-up, not timed
+SMALL = (1, 64, 128, 3)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_build():
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    paths = _kernels.build()
+    print(f"[build] {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(p.name for p in paths.values()), flush=True)
+
+
+def phase_kernels():
+    """corr1d against correlation_plain; returns the kernel's JSON record
+    (without the main path's launch count)."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.ops.correlation import (
+        correlation1d_cuda,
+        correlation_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(CORR_SHAPE, torch.float32), (CORR_SHAPE, torch.bfloat16),
+             ((1, 3, 9, 20), torch.float32),      # W < 17, B = 1
+             ((2, 5, 70, 37), torch.bfloat16),    # W not a multiple of the 64-column tile,
+             ((2, 5, 70, 37), torch.float32),     # C not a multiple of the 32-channel chunk
+             ((1, 4, 130, 352), torch.float32),   # three tiles, the last of 2 columns
+             ((1, 2, 16, 8), torch.bfloat16)]     # C below one chunk
+    # fp32: summation order only; bf16: the output's bf16 rounding (the plain
+    # version also rounds each product to bf16)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    record = {}
+    for shape, dtype in cases:
+        f1 = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        f2 = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        out = correlation1d_cuda(f1, f2, 17)
+        torch.cuda.synchronize()
+        ref = correlation_plain(f1, f2, (1, 17))
+        check(out.shape == ref.shape and out.dtype == dtype, f"corr1d {shape} shape/dtype")
+        err = (out.float() - ref.float()).abs().max().item()
+        bound = tol[dtype] * ref.float().abs().max().item()
+        print(f"[corr1d] {tuple(shape)} {str(dtype)[6:]}: max|d| = {err:.6g} "
+              f"(tolerance {bound:.6g} = {tol[dtype]:g} * max|ref|)", flush=True)
+        check(err <= bound, f"corr1d {shape} {dtype}: max|d| {err} > {bound}")
+        if shape != CORR_SHAPE:
+            continue
+        ms = cuda_time_ms(lambda: correlation1d_cuda(f1, f2, 17), iters=50)
+        plain_ms = cuda_time_ms(lambda: correlation_plain(f1, f2, (1, 17)), iters=5, warmup=1)
+        nbytes = (f1.numel() + f2.numel() + out.numel()) * f1.element_size()
+        ops = 2 * out.numel() * shape[-1]
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_PEAK_OPS[dtype] * 1e3
+        print(f"[corr1d] {tuple(shape)} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)",
+              flush=True)
+        if dtype == torch.bfloat16:  # the serving path's dtype
+            record = {"name": "corr1d", "route": "cuda",
+                      "source": f"{PORT}/csrc/corr1d.cu",
+                      "replaces": "pmt_learning_for_semantic_segmentation_and_disparity_tpu/"
+                                  "ops/correlation.py:159",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": None}
+    return record
+
+
+def phase_small_forward():
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
+
+    cfg = PMTConfig()
+    g = torch.Generator().manual_seed(1)
+    left, right = torch.randn(SMALL, generator=g), torch.randn(SMALL, generator=g)
+    with torch.inference_mode():
+        ref = models.get_network(cfg, device="cpu", seed=0)(left, right)
+        got = models.get_network(cfg, device="cuda", seed=0)(left.cuda(), right.cuda())
+    for k in ("seg1", "seg2", "disp1"):
+        err = (got[k].cpu() - ref[k]).abs().max().item()
+        bound = 1e-3 * ref[k].abs().max().item()
+        print(f"[forward 1x64x128 fp32] {k}: card vs CPU max|d| = {err:.6g} "
+              f"(tolerance {bound:.6g} = 1e-3 * max|ref|)", flush=True)
+        check(err <= bound, f"small forward {k}: {err} > {bound}")
+
+
+def phase_serve(kernels):
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
+        compute_metrics,
+        make_forward_fn,
+    )
+
+    cfg = PMTConfig()
+    cfg.parallel.bf16 = True
+    model = models.get_network(cfg, seed=0)
+    forward = make_forward_fn(cfg, model)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batches = []
+    for _ in range(SERVE_BATCHES):
+        labels = torch.randint(0, 2, (BATCH, H, W), device="cuda", generator=g)
+        batches.append({
+            "left": torch.randn((BATCH, H, W, 3), device="cuda", generator=g),
+            "right": torch.randn((BATCH, H, W, 3), device="cuda", generator=g),
+            "seg": torch.nn.functional.one_hot(labels, 3).float(),
+            "disp": torch.rand((BATCH, H, W, 1), device="cuda", generator=g) * 0.9 + 0.1,
+        })
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    times = []
+    with torch.inference_mode():
+        for batch in batches:
+            t0 = time.perf_counter()
+            out = forward(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for k, shape in (("seg1", 2), ("seg2", 2), ("disp1", 1), ("disp2", 1)):
+                check(tuple(out[k].shape) == (BATCH, H, W, shape) and out[k].dtype == torch.float32,
+                      f"serve: {k} has shape {tuple(out[k].shape)} {out[k].dtype}")
+                check(bool(torch.isfinite(out[k]).all()), f"serve: {k} is not finite")
+            metrics = compute_metrics(cfg, out, batch)
+    launches = {k.__name__: k.launches for k in kernels}
+    for name, n in launches.items():
+        check(n == SERVE_BATCHES, f"serve: {name} launched {n} times in {SERVE_BATCHES} batches")
+    metrics = {k: v.tolist() for k, v in metrics.items()}
+    check(metrics["conf1"] and sum(map(sum, metrics["conf1"])) == BATCH * H * W,
+          "serve: confusion matrix does not count every pixel")
+    check(all(torch.isfinite(torch.tensor(v)).all() for v in metrics.values()),
+          "serve: a metric is not finite")
+    timed = times[1:]
+    ms = 1e3 * sum(timed) / len(timed)
+    print(f"[serve] metrics of the last batch: {json.dumps(metrics)}", flush=True)
+    print(f"[serve] sdnet_mini_ext densenet121 bf16, {BATCH} pairs of {H}x{W}: "
+          f"{ms:.2f} ms/batch, {BATCH / ms * 1e3:.2f} pairs/s over {len(timed)} batches "
+          f"(per batch: {', '.join(f'{1e3 * t:.2f}' for t in times)} ms, the first a warm-up); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
+        return 2
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.ops.correlation import (
+        correlation1d_cuda,
+    )
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        phase_build()
+        record = phase_kernels()
+        phase_small_forward()
+        launches = phase_serve([correlation1d_cuda])
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    record["launches"] = launches["correlation1d_cuda"]
+    print(json.dumps({"kernels": [record]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
