@@ -1,4 +1,5 @@
-"""Model zoo + factory (the ported part: ``sdnet_mini_ext`` on densenet121)."""
+"""Model zoo + factory (the ported part: ``sdnet_mini_ext`` with 1dcorr or
+2dcorr, ``sdnet_mini``, ``sdnet`` and ``sdnetv2``, all on densenet121)."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -12,10 +13,19 @@ from ..core.registry import BACKBONES, MODELS  # noqa: F401
 # importing registers the factories
 from . import densenet  # noqa: F401
 from . import sdnet  # noqa: F401
-from .blocks import Conv2DownUp, ConvBN, ConvOut, DeconvBN, init_parameters  # noqa: F401
+from . import sdnet_legacy  # noqa: F401
+from .blocks import (  # noqa: F401
+    Conv2DownUp,
+    ConvBN,
+    ConvOut,
+    DeconvBN,
+    SameConvTranspose2d,
+    init_parameters,
+)
 from .jax_weights import load_jax_variables  # noqa: F401
-from .pyramid import PiramidNet2  # noqa: F401
-from .sdnet import MiniDSNetExt, SegNetHead  # noqa: F401
+from .pyramid import PiramidNet2, PiramidNetV1  # noqa: F401
+from .sdnet import MiniDSNet, MiniDSNetExt, SegNetHead  # noqa: F401
+from .sdnet_legacy import DSNet, DSNetV2  # noqa: F401
 
 
 def get_network(cfg: PMTConfig, device: Optional[Union[str, torch.device]] = None,

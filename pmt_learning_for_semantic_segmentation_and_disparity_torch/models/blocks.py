@@ -9,7 +9,10 @@ names follow the flax modules (``conv``/``deconv``/``bn``, ``c1``..``d5``) so
 * BatchNorm has eps 1e-5 and torch's momentum 0.1 (flax momentum 0.9);
 * the stride-1 ``DeconvBN`` is a SAME convolution, as in the JAX package
   (a stride-1 'same' transposed conv is a conv with a flipped kernel, and the
-  JAX package stores the kernel already in conv form).
+  JAX package stores the kernel already in conv form);
+* the stride-2 ``DeconvBN`` (``deconv_ba1``/``deconv_ba2`` of the legacy
+  nets) is flax's ``nn.ConvTranspose(padding="SAME")``, see
+  ``SameConvTranspose2d``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,37 @@ def conv2d(cin: int, cout: int, kernel: int, *, stride: int = 1, dilation: int =
                      bias=False)
     conv.init_rule = init
     return conv
+
+
+class SameConvTranspose2d(nn.Conv2d):
+    """flax ``nn.ConvTranspose(features, (k, k), strides=s, padding="SAME",
+    use_bias=False)``: output = s x input, bias-free.
+
+    The weight is kept in the conv layout (O, I, kh, kw), which is what
+    ``load_jax_variables`` makes of flax's (kh, kw, I, O) kernel and what
+    ``init_parameters`` reads its fan-out (kh*kw*O) from, as flax does. flax
+    dilates the input by s and correlates it with the kernel unflipped, with
+    lax's SAME transpose padding (pad_a before); torch's ``conv_transpose2d``
+    scatters with the kernel flipped. So this runs ``conv_transpose2d`` with
+    the weight as (I, O, kh, kw), flipped in space, and keeps s*H x s*W of
+    its output from row and column k - 1 - pad_a on, copied back to
+    channels_last (the crop is a strided view, which the layers after it
+    would otherwise run in NCHW)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int):
+        if kernel % 2 == 0 or kernel < stride:
+            raise ValueError("SameConvTranspose2d takes an odd kernel no smaller than the stride")
+        super().__init__(cin, cout, kernel, bias=False)
+        self.init_rule = "he_fan_out"
+        self.up = stride
+        pad_a = kernel - 1 if stride > kernel - 1 else math.ceil((kernel + stride - 2) / 2)
+        self.offset = kernel - 1 - pad_a
+
+    def forward(self, x):
+        h, w = x.shape[-2:]
+        s, o = self.up, self.offset
+        y = F.conv_transpose2d(x, self.weight.transpose(0, 1).flip(-2, -1), stride=s)
+        return y[..., o:o + s * h, o:o + s * w].contiguous(memory_format=torch.channels_last)
 
 
 def batch_norm(c: int) -> nn.BatchNorm2d:
@@ -101,9 +135,15 @@ class ConvBN(nn.Module):
 
 
 class DeconvBN(ConvBN):
-    """deconvbn (dsnet_t2.py:48-77) at stride 1: a SAME conv named ``deconv``."""
+    """deconvbn (dsnet_t2.py:48-77), its conv named ``deconv``: at stride 1 a
+    SAME conv, at a larger stride the SAME transposed conv."""
 
     conv_name = "deconv"
+
+    def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1, **kw):
+        super().__init__(cin, features, kernel, **kw)
+        if stride != 1:
+            self.deconv = SameConvTranspose2d(cin, features, kernel, stride)
 
 
 class ConvOut(nn.Module):

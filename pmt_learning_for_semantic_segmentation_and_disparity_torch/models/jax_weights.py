@@ -9,6 +9,13 @@ The port's child names follow the flax module names, so a flax leaf at
     batch_stats/.../mean            -> running_mean
     batch_stats/.../var             -> running_var
 
+A flax ``nn.ConvTranspose`` kernel (the stride-2 ``DeconvBN`` of the legacy
+nets) is also (kh,kw,I,O) and lands in the same (O,I,kh,kw) layout:
+``blocks.SameConvTranspose2d`` keeps its weight as a conv's and transposes
+and flips it for ``conv_transpose2d`` itself. (torch's ``ConvTranspose2d``
+layout (I,O,kh,kw) would load a square 32->32 kernel without a shape error
+and compute another function.)
+
 The JAX package's variables are the same with ``s2d_heads`` on or off
 (``PhaseBatchNorm`` owns the plain (C,) variables), so either model's tree
 loads. Takes plain nested dicts of numpy arrays; imports nothing of JAX.

@@ -1,12 +1,14 @@
-"""The flagship SDNet model, ``sdnet_mini_ext`` (MiniDSNetExt), eval forward.
+"""The SDNet models of the JAX package's ``models/sdnet.py``, eval forward:
+the flagship ``sdnet_mini_ext`` (MiniDSNetExt) and ``sdnet_mini`` (MiniDSNet).
 
-Counterpart of the JAX package's ``models/sdnet.py`` for the variant "ext"
-with aspp 0, 1-D correlation and the cross-task attention gates, on its plain
-(non space-to-depth) path, which computes the same function as the JAX
-package's s2d heads. The public forward keeps the JAX layout: NHWC images
-in, a dict of NHWC outputs (seg1, disp1, seg2, disp2). Inside, the modules
-run in NCHW with channels_last memory, so the NHWC views that the
-correlation kernel takes and returns cost no copy.
+Counterpart of the JAX package's ``models/sdnet.py`` for the flagship variant
+"ext" with aspp 0, the cross-task attention gates and either correlation
+(``1dcorr``: the 1-D (1, 17) patch; ``2dcorr``: the 17x17 patch, normalized
+by the channel count), on its plain (non space-to-depth) path, which computes
+the same function as the JAX package's s2d heads. The public forward keeps
+the JAX layout: NHWC images in, a dict of NHWC outputs (seg1, disp1, seg2,
+disp2). Inside, the modules run in NCHW with channels_last memory, so the
+NHWC views that the correlation kernels take and return cost no copy.
 """
 from __future__ import annotations
 
@@ -20,9 +22,35 @@ from ..core.registry import MODELS
 from ..ops.correlation import correlation
 from ..ops.resize import resize_bilinear, resize_nearest, upsample_nearest
 from .blocks import Conv2DownUp, ConvBN, ConvOut
-from .pyramid import PiramidNet2
+from .pyramid import PiramidNet2, PiramidNetV1
 
-_CORR_PATCH = (1, 17)
+
+def corr_patch(m: ModelConfig) -> Tuple[int, int]:
+    """The correlation patch of ``-corrType``, as the JAX models choose it."""
+    return (1, 17) if m.corr_type == "1dcorr" else (17, 17)
+
+
+def eval_only(model: nn.Module) -> None:
+    if model.training:
+        raise NotImplementedError("the train-mode forward (per-view BatchNorm statistics) "
+                                  "comes with the training slice, ROADMAP.md queue 1, item 6")
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+def nchw_channels_last(t: torch.Tensor) -> torch.Tensor:
+    """An NHWC input as the NCHW channels_last tensor the modules take."""
+    return t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def cost_volume(a: torch.Tensor, b: torch.Tensor, patch: Tuple[int, int],
+                normalize: bool) -> torch.Tensor:
+    """The correlation of two NCHW feature maps, as NCHW (B, ph*pw, H, W);
+    the NHWC views in and out are free for channels_last tensors."""
+    return correlation(nhwc(a).contiguous(), nhwc(b).contiguous(), patch,
+                       normalize=normalize).permute(0, 3, 1, 2)
 
 
 class SegNetHead(nn.Module):
@@ -49,8 +77,6 @@ class SegNetHead(nn.Module):
 def _unported(m: ModelConfig) -> str:
     if m.backbone != "densenet":
         return f"backbone {m.backbone!r} (ROADMAP.md queue 1, item 12.6)"
-    if m.corr_type != "1dcorr":
-        return f"corrType {m.corr_type!r} (ROADMAP.md queue 2, item 2)"
     if m.aspp:
         return f"aspp {m.aspp} (ROADMAP.md queue 1, item 12.3)"
     if m.hanet:
@@ -69,8 +95,9 @@ def _unported(m: ModelConfig) -> str:
 
 
 class MiniDSNetExt(nn.Module):
-    """minidsnetExt (dsnet_t2.py:941-1299), variant "ext", aspp 0, 1dcorr,
-    attention gates on. Eval forward only in this slice."""
+    """minidsnetExt (dsnet_t2.py:941-1299), variant "ext", aspp 0, attention
+    gates on, 1dcorr or 2dcorr (normalized, as ``sdnet.py:206-208``). Eval
+    forward only in this slice."""
 
     def __init__(self, cfg: ModelConfig, labels: int = 2):
         super().__init__()
@@ -78,6 +105,8 @@ class MiniDSNetExt(nn.Module):
         if missing:
             raise NotImplementedError(f"sdnet_mini_ext with {missing} is not ported yet")
         d = cfg.dropout
+        self.patch = corr_patch(cfg)
+        self.normalize = cfg.corr_type != "1dcorr"
         self.features = PiramidNet2(cfg.backbone)
         taps = self.features.out_channels
         c4, c_py1 = taps[4], taps[6]
@@ -85,7 +114,7 @@ class MiniDSNetExt(nn.Module):
         # of the reference's four 3 -> 1 convs; channel 3 is unused)
         self.conv2d_ba = ConvBN(3, 4, 5, dilation=2, relu=True)
         self.segNet = SegNetHead(2 * c4, labels, dropout=d)
-        self.corrConv2d = ConvBN(_CORR_PATCH[0] * _CORR_PATCH[1], 128, 1, batchnorm=False,
+        self.corrConv2d = ConvBN(self.patch[0] * self.patch[1], 128, 1, batchnorm=False,
                                  relu=True)
         self.cdu3 = Conv2DownUp(32, 128, 3, dropout=d)
         self.cdu4 = Conv2DownUp(256, 64, 3, dropout=d)
@@ -105,12 +134,8 @@ class MiniDSNetExt(nn.Module):
         self.cdu11_out = ConvOut(32, labels, 3)
 
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("the train-mode forward (per-view BatchNorm statistics) "
-                                      "comes with the training slice, ROADMAP.md queue 1, item 6")
-        cl = torch.channels_last
-        left = input_a.permute(0, 3, 1, 2).contiguous(memory_format=cl)
-        right = input_b.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+        eval_only(self)
+        left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
         full_hw = tuple(left.shape[-2:])
         nb = left.shape[0]
 
@@ -127,10 +152,8 @@ class MiniDSNetExt(nn.Module):
         # head 1: coarse seg decoder on the concatenated deepest features
         x, x1, seg_branch = self.segNet(torch.cat([a4, b4], dim=1), full_hw, xleft0)
 
-        # cost volume at 1/8 on the pyramid-enriched tap 2 (NHWC views)
-        y = correlation(a_py2.permute(0, 2, 3, 1).contiguous(),
-                        b_py2.permute(0, 2, 3, 1).contiguous(), _CORR_PATCH)
-        y = self.corrConv2d(y.permute(0, 3, 1, 2))
+        # cost volume at 1/8 on the pyramid-enriched tap 2
+        y = self.corrConv2d(cost_volume(a_py2, b_py2, self.patch, self.normalize))
         y1 = resize_bilinear(self.cdu3(x1), y.shape[-2:])
         y = self.cdu4(torch.cat([y1, y], dim=1))
 
@@ -155,11 +178,67 @@ class MiniDSNetExt(nn.Module):
         s2 = torch.cat([resize_nearest(s2, xleft1.shape[-2:]), xleft1], dim=1)
         seg_branch2 = self.cdu11_out(self.cdu11(self.conv1d_5(s2)))
 
-        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return {"seg1": nhwc(seg_branch), "disp1": nhwc(disp_out),
                 "seg2": nhwc(seg_branch2), "disp2": nhwc(disp_out)}
+
+
+class MiniDSNet(nn.Module):
+    """minidsnet (dsnet_t2.py:825-912), registered as ``sdnet_mini``: one seg
+    and one disparity head, outputs duplicated (seg2 = seg1, disp2 = disp1),
+    on the original piramidNet (``PiramidNetV1``), 1dcorr or 2dcorr (the
+    latter normalized). Eval forward only in this slice."""
+
+    def __init__(self, cfg: ModelConfig, labels: int = 2):
+        super().__init__()
+        if cfg.edges:
+            raise NotImplementedError("sdnet_mini with edges is not ported yet "
+                                      "(ROADMAP.md queue 1, item 12.7)")
+        self.patch = corr_patch(cfg)
+        self.normalize = cfg.corr_type != "1dcorr"
+        self.features = PiramidNetV1()
+        taps = self.features.out_channels
+        # the JAX package's merge of the reference's image convs: channel 0
+        # feeds the seg head, channel 1 the disparity head
+        self.conv2d_ba = ConvBN(3, 2, 5, dilation=2, relu=True)
+        self.segNet = SegNetHead(2 * taps[4], labels)
+        self.corrConv2d = ConvBN(self.patch[0] * self.patch[1], 128, 1, batchnorm=False,
+                                 relu=True)
+        self.cdu3 = Conv2DownUp(32, 128, 3)
+        self.cdu4 = Conv2DownUp(256, 64, 3)
+        self.conv1d_2 = ConvBN(64 + 1, 64, 1, batchnorm=False, relu=True)
+        self.cdu5 = Conv2DownUp(64, 64, 5, last_layer=False)
+        self.dispoutConv = ConvOut(64, 1, 5)
+
+    def forward(self, input_a: torch.Tensor, input_b: torch.Tensor) -> Dict[str, torch.Tensor]:
+        eval_only(self)
+        left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
+        full_hw = tuple(left.shape[-2:])
+        nb = left.shape[0]
+        # eval: the separate L and R passes of the JAX model equal one stacked pass
+        both = self.features(torch.cat([left, right], dim=0))
+        a4, a_py2 = both[4][:nb], both[5][:nb]
+        b4, b_py2 = both[4][nb:], both[5][nb:]
+
+        xleft_all = self.conv2d_ba(left)
+        x, x1, seg_branch = self.segNet(torch.cat([a4, b4], dim=1), full_hw, xleft_all[:, 0:1])
+
+        y = self.corrConv2d(cost_volume(a_py2, b_py2, self.patch, self.normalize))
+        y1 = resize_bilinear(self.cdu3(x1), y.shape[-2:])
+        y = self.cdu4(torch.cat([y1, y], dim=1))
+
+        y2 = upsample_nearest(y, 8)
+        xl2 = resize_bilinear(xleft_all[:, 1:2], y2.shape[-2:])
+        disp = self.dispoutConv(self.cdu5(self.conv1d_2(torch.cat([y2, xl2], dim=1))))
+        disp_out = resize_bilinear(disp, full_hw)
+        return {"seg1": nhwc(seg_branch), "disp1": nhwc(disp_out),
+                "seg2": nhwc(seg_branch), "disp2": nhwc(disp_out)}
 
 
 @MODELS.register("sdnet_mini_ext")
 def _make_ext(cfg: ModelConfig, labels: int) -> MiniDSNetExt:
     return MiniDSNetExt(cfg, labels=labels)
+
+
+@MODELS.register("sdnet_mini")
+def _make_mini(cfg: ModelConfig, labels: int) -> MiniDSNet:
+    return MiniDSNet(cfg, labels=labels)

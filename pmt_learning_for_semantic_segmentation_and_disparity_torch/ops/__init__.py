@@ -1,6 +1,7 @@
 from .correlation import (  # noqa: F401
     correlation,
     correlation1d_cuda,
+    correlation2d_cuda,
     correlation_plain,
 )
 from .resize import (  # noqa: F401

@@ -3,9 +3,10 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, at first use, into
 ``build/`` beside the package (listed in ``.gitignore``). The library's name
-carries a hash of its source, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time: the CPU tests
-import every module on a machine without ``nvcc``.
+carries a hash of its source and of the shared headers (``csrc/*.cuh``), so
+an edited source is rebuilt and a stale library is never loaded. Nothing here
+runs at import time: the CPU tests import every module on a machine without
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"corr1d": "corr1d.cu"}
+SOURCES = {"corr1d": "corr1d.cu", "corr2d": "corr2d.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -43,8 +44,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    inputs = [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in inputs)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}_{digest}.so"
 
 

@@ -9,12 +9,15 @@ channel count.
 
 * ``correlation_plain``  -- shift-multiply-sum in plain PyTorch, the
   counterpart of ``correlation_lax``. It runs on CPU tensors and is the
-  reference the CUDA kernel is held against on the card.
-* ``correlation1d_cuda`` -- the hand-written Hopper kernel for the 1-D case
-  (``csrc/corr1d.cu``), counterpart of ``correlation1d_pallas``.
+  reference the CUDA kernels are held against on the card.
+* ``correlation1d_cuda`` -- the hand-written Hopper kernel for the 1-D
+  (1, 17) patch (``csrc/corr1d.cu``), counterpart of ``correlation1d_pallas``.
+* ``correlation2d_cuda`` -- the hand-written Hopper kernel for the 2-D
+  (17, 17) patch (``csrc/corr2d.cu``), counterpart of ``correlation2d_pallas``.
 * ``correlation``        -- the dispatcher: CPU tensors take the plain
-  version, CUDA tensors with ``ph == 1`` the kernel (it raises if the kernel
-  cannot be built or launched; there is no fallback on the card).
+  version, any other tensor the kernel of its patch (``ph == 1``: corr1d,
+  else corr2d), which raises if the tensors are not on the card or the kernel
+  cannot be built or launched; there is no fallback on the card.
 
 The CUDA path is inference-only for now: its backward raises
 ``NotImplementedError`` until the training slice ports the backward as
@@ -30,8 +33,8 @@ import torch.nn.functional as F
 
 from . import _kernels
 
-CORR2D_ROADMAP = ("the CUDA 2-D correlation (_corr2d_kernel) is not ported yet: "
-                  "ROADMAP.md queue 2, item 2")
+# the patch each kernel is compiled for
+KERNEL_PATCH = {"corr1d": (1, 17), "corr2d": (17, 17)}
 
 
 def correlation_plain(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int],
@@ -51,50 +54,69 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int]
     return out
 
 
-def _launch_corr1d(f1: torch.Tensor, f2: torch.Tensor, pw: int) -> torch.Tensor:
+def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
+    """Check the inputs, then run the ``csrc/<name>.cu`` kernel on the
+    current stream. Everything is checked before the kernel is built."""
     if f1.device.type != "cuda" or f2.device != f1.device:
-        raise ValueError(f"correlation1d_cuda needs both inputs on one CUDA device, "
+        raise ValueError(f"{name} needs both inputs on one CUDA device, "
                          f"got {f1.device} and {f2.device}")
     if f1.dtype not in (torch.float32, torch.bfloat16) or f2.dtype != f1.dtype:
-        raise ValueError(f"correlation1d_cuda takes fp32 or bf16, got {f1.dtype}, {f2.dtype}")
+        raise ValueError(f"{name} takes fp32 or bf16, got {f1.dtype}, {f2.dtype}")
     if f1.dim() != 4 or f1.shape != f2.shape:
-        raise ValueError(f"correlation1d_cuda needs two equal (B,H,W,C) shapes, "
+        raise ValueError(f"{name} needs two equal (B,H,W,C) shapes, "
                          f"got {tuple(f1.shape)} and {tuple(f2.shape)}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
-        raise ValueError("correlation1d_cuda needs contiguous NHWC inputs")
+        raise ValueError(f"{name} needs contiguous NHWC inputs")
+    ph, pw = patch
+    if (ph, pw) != KERNEL_PATCH[name]:
+        raise ValueError(f"{name} is built for the patch {KERNEL_PATCH[name]}, got {(ph, pw)}")
     b, h, w, c = f1.shape
-    if min(b, h, w, c) == 0 or max(b, h) > 65535 or f1.numel() >= 2**31:
-        raise ValueError(f"correlation1d_cuda: unsupported shape {tuple(f1.shape)}")
-    lib = _kernels.load("corr1d")
-    fn = lib.corr1d_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    if min(b, h, w, c) == 0 or max(b, h) > 65535 or max(f1.numel(), b * h * w * ph * pw) >= 2**31:
+        raise ValueError(f"{name}: unsupported shape {tuple(f1.shape)}")
+    fn = getattr(_kernels.load(name), f"{name}_forward")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.corr1d_patch_width.restype = ctypes.c_int
-    if pw != lib.corr1d_patch_width():
-        raise ValueError(f"correlation1d_cuda is built for pw={lib.corr1d_patch_width()}, got {pw}")
-    out = torch.empty((b, h, w, pw), dtype=f1.dtype, device=f1.device)
+    out = torch.empty((b, h, w, ph * pw), dtype=f1.dtype, device=f1.device)
+    # 16-byte vector loads need whole vectors per pixel and aligned rows
     vec = (c % (16 // f1.element_size()) == 0
            and f1.data_ptr() % 16 == 0 and f2.data_ptr() % 16 == 0)
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c, pw,
+        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c, ph, pw,
                  int(f1.dtype == torch.bfloat16), int(vec), stream)
     if err != 0:
-        raise RuntimeError(f"corr1d kernel launch failed: cudaError {err}")
-    correlation1d_cuda.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
+
+
+def _no_backward(name: str):
+    raise NotImplementedError(
+        f"the CUDA {name} correlation has no backward yet (training slice, ROADMAP.md "
+        "queue 2, item 1); run training on the CPU path or wait for that slice")
 
 
 class _Corr1dCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f1, f2, pw):
-        return _launch_corr1d(f1, f2, pw)
+        out = _launch("corr1d", f1, f2, (1, pw))
+        correlation1d_cuda.launches += 1
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the CUDA 1-D correlation has no backward yet (training slice, ROADMAP.md "
-            "queue 2, item 1); run training on the CPU path or wait for that slice")
+        _no_backward("1-D")
+
+
+class _Corr2dCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f1, f2, patch):
+        out = _launch("corr2d", f1, f2, patch)
+        correlation2d_cuda.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        _no_backward("2-D")
 
 
 def correlation1d_cuda(f1: torch.Tensor, f2: torch.Tensor, pw: int) -> torch.Tensor:
@@ -104,20 +126,30 @@ def correlation1d_cuda(f1: torch.Tensor, f2: torch.Tensor, pw: int) -> torch.Ten
     return _Corr1dCuda.apply(f1, f2, pw)
 
 
+def correlation2d_cuda(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
+    """2-D patch correlation on the card with the ``csrc/corr2d.cu`` kernel;
+    NHWC in, (B,H,W,ph*pw) out. ``correlation2d_cuda.launches`` counts the
+    kernel's launches."""
+    return _Corr2dCuda.apply(f1, f2, tuple(patch))
+
+
 correlation1d_cuda.launches = 0
+correlation2d_cuda.launches = 0
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int],
                 normalize: bool = False) -> torch.Tensor:
     """Dispatch by where the tensors lie: plain PyTorch on the CPU, the
-    hand-written kernel on the card."""
+    hand-written kernel of the patch on the card."""
     ph, pw = patch
+    if f1.dtype != f2.dtype or f1.device != f2.device:
+        raise ValueError(f"correlation takes two tensors of one dtype on one device, got "
+                         f"{f1.dtype} on {f1.device} and {f2.dtype} on {f2.device}")
     if f1.device.type == "cpu":
         return correlation_plain(f1, f2, patch, normalize=normalize)
-    if ph > 1:
-        raise NotImplementedError(CORR2D_ROADMAP)
-    out = correlation1d_cuda(f1, f2, pw)
+    out = correlation1d_cuda(f1, f2, pw) if ph == 1 else correlation2d_cuda(f1, f2, patch)
     if normalize:
-        # a scalar scale, kept outside the kernel as in the JAX package
+        # a scalar scale in the output dtype, kept outside the kernel as in
+        # the JAX package
         out = out / f1.shape[-1]
     return out

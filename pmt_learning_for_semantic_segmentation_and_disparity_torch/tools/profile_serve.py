@@ -1,11 +1,12 @@
 """Where the serving forward's device time goes, on one CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.profile_serve \
-        [--out report.json]
+        [--net sdnet_mini_ext] [--out report.json]
 
-Runs the flagship eval forward (``get_network`` + ``make_forward_fn`` with the
-bf16 policy, random weights from a seed) on 16 stereo pairs of 512x960, the
-serving shape of ``chip_smoke.py``, twice as a warm-up, then ``ITERS``
+Runs the eval forward of one net of the port (the flagship ``sdnet_mini_ext``
+by default; ``get_network`` + ``make_forward_fn`` with the bf16 policy, random
+weights from a seed) on 16 stereo pairs of 512x960, the serving shape of
+``chip_smoke.py``, twice as a warm-up, then ``ITERS``
 batches under ``torch.profiler``. Prints the device time of the kernels by
 family and the heaviest kernels by name, the device busy share of the window
 (kernel time over the host's wall time of the window), and, with ``--out``,
@@ -26,7 +27,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..core import PMTConfig
-from ..models import get_network
+from ..models import MODELS, get_network
 from ..training import make_forward_fn
 
 BATCH, H, W = 16, 512, 960
@@ -35,6 +36,7 @@ ITERS = 2
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
     ("corr1d", ("corr1d",)),
+    ("corr2d", ("corr2d",)),
     ("batch_norm", ("batch_norm", "bn_fw", "batchnorm")),
     ("concatenate", ("catarray",)),
     ("resize", ("upsample",)),
@@ -55,6 +57,8 @@ def family(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--net", default="sdnet_mini_ext", choices=sorted(MODELS.keys()),
+                    help="the net to serve (default: the flagship)")
     ap.add_argument("--out", default=None, help="write the report as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,6 +68,7 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
     cfg = PMTConfig()
+    cfg.model.net = args.net
     cfg.parallel.bf16 = True
     forward = make_forward_fn(cfg, get_network(cfg, seed=0))
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -92,6 +97,7 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     report = {
         "card": card, "device": torch.cuda.get_device_name(0),
+        "net": args.net,
         "shape": [BATCH, H, W], "dtype": "bf16", "iters": ITERS,
         "wall_ms_per_batch": wall_ms / ITERS,
         "kernel_ms_per_batch": kernel_ms / ITERS,
@@ -101,7 +107,7 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": n[:160], "ms_per_batch": ms / ITERS,
                          "calls_per_batch": c / ITERS} for n, (ms, c) in top],
     }
-    print(f"[profile] {BATCH}x{H}x{W} bf16: wall {report['wall_ms_per_batch']:.3f} ms/batch, "
+    print(f"[profile] {args.net} {BATCH}x{H}x{W} bf16: wall {report['wall_ms_per_batch']:.3f} ms/batch, "
           f"kernels {report['kernel_ms_per_batch']:.3f} ms/batch, "
           f"device busy {report['device_busy_share']}", flush=True)
     for fam, ms in report["by_family_ms_per_batch"].items():

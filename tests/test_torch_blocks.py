@@ -1,6 +1,7 @@
 """The port's building blocks against the flax modules of the JAX package,
 with the same randomised variables (BatchNorm statistics included) carried
 across by ``load_jax_variables``; fp32 on the CPU."""
+import flax.linen as nn
 import jax
 import numpy as np
 import pytest
@@ -8,11 +9,13 @@ import torch
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import blocks as tb
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import densenet as td
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import pyramid as tp
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.jax_weights import (
     load_jax_variables,
 )
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import blocks as jb
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import densenet as jd
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import pyramid as jp
 
 # max |port - jax| <= REL * max |jax| (fp32, summation order only)
 REL = 1e-5
@@ -60,6 +63,42 @@ def test_deconvbn(kernel):
     check(jb.DeconvBN(6, kernel, relu=True), tb.DeconvBN(4, 6, kernel, relu=True), _x(4))
 
 
+# (cin, features, kernel, input hw); 32 -> 32 is square, so a kernel loaded
+# in torch's ConvTranspose2d layout (I, O, kh, kw) would fit its shape and
+# compute another function
+STRIDE2_CASES = [(6, 4, 3, (4, 6)), (32, 32, 3, (5, 7)), (64, 32, 3, (6, 9)), (8, 6, 5, (5, 7))]
+
+
+@pytest.mark.parametrize("cin,features,kernel,hw", STRIDE2_CASES)
+def test_same_conv_transpose_matches_flax(cin, features, kernel, hw):
+    """The bare stride-2 transposed conv against flax ``nn.ConvTranspose``
+    with SAME padding and its own random init (outputs of order 1), abs 1e-5."""
+    x = _x(cin, hw=hw)
+    jm = nn.ConvTranspose(features, (kernel, kernel), strides=(2, 2), padding="SAME",
+                          use_bias=False)
+    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(2), x))
+    ref = np.asarray(jm.apply(v, x))
+    tm = tb.SameConvTranspose2d(cin, features, kernel, 2)
+    load_jax_variables(tm, v["params"], {})
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == ref.shape == (2, 2 * hw[0], 2 * hw[1], features)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,features,kernel,hw", STRIDE2_CASES)
+def test_deconvbn_stride2(cin, features, kernel, hw):
+    check(jb.DeconvBN(features, kernel, stride=2, relu=True),
+          tb.DeconvBN(cin, features, kernel, stride=2, relu=True), _x(cin, hw=hw))
+
+
+def test_same_conv_transpose_init_fan_out_is_flax():
+    """He-normal on fan-out kh*kw*O, as flax reads a ConvTranspose kernel."""
+    tm = tb.SameConvTranspose2d(16, 64, 3, 2)
+    tb.init_parameters(tm, torch.Generator().manual_seed(0))
+    assert abs(tm.weight.std().item() / (2.0 / (9 * 64)) ** 0.5 - 1) < 0.05
+
+
 @pytest.mark.parametrize("kernel", [3, 5])
 def test_convout(kernel):
     check(jb.ConvOut(2, kernel), tb.ConvOut(8, 2, kernel), _x(8))
@@ -87,3 +126,23 @@ def test_densenet_taps():
         got = got.permute(0, 2, 3, 1).numpy()
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() <= REL * np.abs(ref).max()
+
+
+def test_piramidnet_v1():
+    """The original piramidNet (densenet121, 5 branches on tap 0, 3 named
+    branch1_k on tap 2) against flax at 1x64x64: every tap and enriched map,
+    with the JAX init's variables. 121 layers of fp32 in another summation
+    order: bound 1e-4 * max|ref|."""
+    jm, tm = jp.PiramidNetV1(), tp.PiramidNetV1()
+    x = _x(3, hw=(64, 64))[:1]
+    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), x))
+    refs = [np.asarray(t) for t in jm.apply(v, x)]
+    load_jax_variables(tm, v["params"], v["batch_stats"])
+    with torch.no_grad():
+        outs = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert len(outs) == len(refs) == 7
+    assert tm.out_channels == tuple(r.shape[-1] for r in refs) == (64, 128, 256, 512, 1024, 352, 224)
+    for got, ref in zip(outs, refs):
+        got = got.permute(0, 2, 3, 1).numpy()
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()

@@ -1,12 +1,16 @@
 """The port's correlation (plain PyTorch path) against the JAX package's
-``correlation_lax`` and its Pallas kernel in interpret mode, fp32, abs 1e-5.
-The CUDA kernel itself is checked on the card by ``chip_smoke.py``."""
+``correlation_lax`` and its Pallas kernels in interpret mode, fp32, abs 1e-5,
+and the checks its CUDA wrappers make before a kernel is built. The CUDA
+kernels themselves are checked on the card by ``chip_smoke.py``."""
 import importlib
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.ops import _kernels
 
 # the packages' ops/__init__ re-export the function ``correlation`` over the module name
 tcorr = importlib.import_module(
@@ -66,16 +70,74 @@ def test_dispatcher_on_cpu_matches_jax_dispatcher(patch, normalize):
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 
-def test_dispatcher_sends_2d_off_the_cpu_to_the_roadmap():
-    # a tensor that is not on the CPU takes the kernel route; the 2-D kernel
-    # is not ported, so it must raise rather than fall back to the plain path
+@pytest.mark.parametrize("patch,normalize", [
+    ((17, 17), True), ((17, 17), False), ((5, 5), True), ((5, 5), False)])
+@pytest.mark.parametrize("shape", [
+    (1, 8, 12, 4),     # H, W < 17: the halo is larger than the map
+    (2, 8, 20, 6),
+])
+def test_corr2d_plain_matches_pallas_interpret(shape, patch, normalize):
+    f1, f2 = _pair(5, shape)
+    ref = np.asarray(jcorr.correlation2d_pallas(jnp.asarray(f1), jnp.asarray(f2), patch,
+                                                normalize=normalize, h_tile=4, interpret=True))
+    got = tcorr.correlation_plain(torch.from_numpy(f1), torch.from_numpy(f2), patch,
+                                  normalize=normalize).numpy()
+    assert got.shape == ref.shape == shape[:3] + (patch[0] * patch[1],)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Any attempt to build or load a kernel fails the test."""
+    def refuse(*_, **__):
+        raise AssertionError("a kernel build was attempted")
+    monkeypatch.setattr(_kernels, "build", refuse)
+    monkeypatch.setattr(_kernels, "load", refuse)
+
+
+def test_dispatcher_sends_2d_off_the_cpu_to_the_roadmap(no_build):
+    # a tensor that is not on the CPU takes the kernel route: the 2-D kernel
+    # wrapper must raise for a device that is not CUDA rather than fall back
+    # to the plain path
     f = torch.empty((1, 4, 12, 16), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcorr.correlation(f, f, (5, 5))
-
-
-def test_kernel_wrapper_rejects_cpu_tensors():
-    f1, f2 = _pair(4, (1, 2, 8, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        tcorr.correlation1d_cuda(torch.from_numpy(f1), torch.from_numpy(f2), 17)
-    assert tcorr.correlation1d_cuda.launches == 0
+        tcorr.correlation(f, f, (17, 17), normalize=True)
+    assert tcorr.correlation2d_cuda.launches == 0
+
+
+@pytest.mark.parametrize("patch", [(1, 17), (17, 17)])
+@pytest.mark.parametrize("case", ["meta device", "dtypes differ", "devices differ"])
+def test_dispatcher_raises_before_any_build(no_build, patch, case):
+    shape = (1, 4, 12, 16)
+    f1 = torch.zeros(shape, device="meta" if case == "meta device" else "cpu")
+    f2 = {"meta device": f1, "dtypes differ": f1.to(torch.bfloat16),
+          "devices differ": torch.zeros(shape, device="meta")}[case]
+    with pytest.raises(ValueError):
+        tcorr.correlation(f1, f2, patch)
+
+
+@pytest.mark.parametrize("wrapper,arg", [("correlation1d_cuda", 17), ("correlation2d_cuda", (17, 17))])
+def test_kernel_wrapper_rejects_cpu_tensors(no_build, wrapper, arg):
+    f1, f2 = _pair(4, (1, 2, 8, 4))
+    fn = getattr(tcorr, wrapper)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(torch.from_numpy(f1), torch.from_numpy(f2), arg)
+    assert fn.launches == 0
+
+
+def test_every_kernel_has_a_source_and_a_patch():
+    assert set(_kernels.SOURCES) == set(tcorr.KERNEL_PATCH) == {"corr1d", "corr2d"}
+    for name, src in _kernels.SOURCES.items():
+        assert (_kernels.CSRC / src).is_file()
+        assert _kernels.library_path(name).parent == _kernels.BUILD
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    before = {n: _kernels.library_path(n) for n in _kernels.SOURCES}
+    header = csrc / "corr_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _kernels.library_path(n) for n in _kernels.SOURCES}
+    assert all(before[n] != after[n] for n in _kernels.SOURCES)

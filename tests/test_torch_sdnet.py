@@ -1,10 +1,12 @@
-"""The port's flagship eval forward (sdnet_mini_ext, densenet121, 1dcorr,
-aspp 0, attention gates) against the JAX model at 1x64x128, fp32 on the CPU.
+"""The port's flagship eval forward (sdnet_mini_ext, densenet121, aspp 0,
+attention gates, with 1dcorr and with 2dcorr) against the JAX model at
+1x64x128, fp32 on the CPU.
 
-One JAX init is shared by every case; its variables are carried into the
-port with ``load_jax_variables``. The JAX model runs with ``s2d_heads`` on
-and off (the same variables fit both). Random-init outputs reach ~2e4, so
-the bound is relative: max|port - jax| <= 1e-3 * max|jax| per output.
+One JAX init per correlation type is shared by its cases; its variables are
+carried into the port with ``load_jax_variables``. The JAX model runs with
+``s2d_heads`` on and off (the same variables fit both). Random-init outputs
+reach ~2e4, so the bound is relative: max|port - jax| <= 1e-3 * max|jax| per
+output.
 """
 import jax
 import numpy as np
@@ -31,8 +33,7 @@ SHAPE = (1, 64, 128, 3)
 OUTPUTS = ("seg1", "seg2", "disp1")
 
 
-@pytest.fixture(scope="module")
-def flagship():
+def run_against_jax(corr_type):
     rng = np.random.default_rng(0)
     left = rng.standard_normal(SHAPE, dtype=np.float32)
     right = rng.standard_normal(SHAPE, dtype=np.float32)
@@ -40,6 +41,7 @@ def flagship():
     variables = None
     for s2d in (True, False):
         cfg = JaxConfig()
+        cfg.model.corr_type = corr_type
         cfg.model.s2d_heads = s2d
         model = jmodels.get_network(cfg)
         if variables is None:
@@ -48,7 +50,9 @@ def flagship():
         out = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))(variables, left, right)
         refs[s2d] = {k: np.asarray(out[k]) for k in OUTPUTS}
     as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    port = tmodels.get_network(PMTConfig(), device="cpu")
+    cfg = PMTConfig()
+    cfg.model.corr_type = corr_type
+    port = tmodels.get_network(cfg, device="cpu")
     tmodels.load_jax_variables(port, as_np(variables["params"]), as_np(variables["batch_stats"]))
     with torch.inference_mode():
         got = port(torch.from_numpy(left), torch.from_numpy(right))
@@ -56,14 +60,35 @@ def flagship():
             "got": {k: v.numpy() for k, v in got.items()}}
 
 
-@pytest.mark.parametrize("s2d", [True, False])
-@pytest.mark.parametrize("key", OUTPUTS)
-def test_flagship_eval_forward_matches_jax(flagship, s2d, key):
-    ref = flagship["refs"][s2d][key]
-    got = flagship["got"][key]
+@pytest.fixture(scope="module")
+def flagship():
+    return run_against_jax("1dcorr")
+
+
+@pytest.fixture(scope="module")
+def flagship_2dcorr():
+    return run_against_jax("2dcorr")
+
+
+def check_against_jax(run, s2d, key):
+    ref = run["refs"][s2d][key]
+    got = run["got"][key]
     assert got.shape == ref.shape == SHAPE[:3] + ((1,) if key == "disp1" else (2,))
     assert np.isfinite(got).all()
     assert np.abs(got - ref).max() <= REL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("s2d", [True, False])
+@pytest.mark.parametrize("key", OUTPUTS)
+def test_flagship_eval_forward_matches_jax(flagship, s2d, key):
+    check_against_jax(flagship, s2d, key)
+
+
+@pytest.mark.parametrize("s2d", [True, False])
+@pytest.mark.parametrize("key", OUTPUTS)
+def test_flagship_2dcorr_eval_forward_matches_jax(flagship_2dcorr, s2d, key):
+    assert flagship_2dcorr["port"].corrConv2d.conv.in_channels == 289
+    check_against_jax(flagship_2dcorr, s2d, key)
 
 
 def test_forward_fn_fp32_is_the_model(flagship):
@@ -115,7 +140,7 @@ def test_entry_points_need_a_card_unless_told_cpu(flagship):
 
 @pytest.mark.parametrize("field,value", [
     ("aspp", 1), ("hanet", True), ("multaskloss", 1), ("conv_deconv_out", 1), ("edges", True),
-    ("corr_type", "2dcorr"), ("backbone", "dn169"),
+    ("use_att", False), ("ablation", ("no_dec1",)), ("backbone", "dn169"),
 ])
 def test_unported_options_raise(field, value):
     cfg = PMTConfig()
