@@ -6,7 +6,8 @@
 Phases, each fatal on failure (exit code 1; no result line is printed):
 
 1. print the card's name and power limit; build every CUDA kernel of the
-   port from the sources in this checkout (one nvcc per source, in parallel);
+   port from the sources in this checkout (one nvcc per source, in parallel)
+   and count the tensor-core instructions (HMMA) in each library's SASS;
 2. hold each kernel (corr1d, corr2d) against its plain PyTorch version on
    the card at the main path's shape in fp32 and bf16 and at edge shapes
    (TF32 off), and time both at the main shape;
@@ -24,15 +25,24 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
 The third-to-last line of stdout is a JSON object with one record per
 kernel, the second-to-last the card's name and power limit, and the last
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --serve sdnet
+
+only serves one net (phase 4 or 5, with 10 batches) and prints its time:
+copied into the root of another checkout, it times that checkout's code the
+same way, so two commits can be compared in turns in one call.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import importlib
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -46,9 +56,18 @@ H100_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BATCH, H, W = 16, 512, 960          # the serving shape of the JAX package's bench
 CORR_SHAPE = (BATCH, H // 8, W // 8, 352)  # a_py2 / b_py2 at 512x960
 SMALL = (1, 64, 128, 3)
+# net served -> (batches, each kernel's launches per batch): each path's own
+# kernel once per batch, the other never
+SERVE = {"sdnet_mini_ext": (4, {"corr1d": 1, "corr2d": 0}),
+         "sdnet": (3, {"corr2d": 1, "corr1d": 0})}
+SERVE_BATCHES = 10  # batches --serve serves, the first a warm-up
 
 # kernel -> (wrapper in ops/correlation.py, the TPU kernel it replaces, edge
-# shapes with their dtypes); its patch is ops/correlation.py's KERNEL_PATCH
+# shapes with their dtypes, and an element offset of both inputs' storage
+# where it is not 0); its patch is ops/correlation.py's KERNEL_PATCH. fp32
+# runs corr_tile.cuh's row tile, bf16 corr_band.cuh's tensor-core band tile
+# (64-column tiles, 64-channel boxes of 16-channel mma steps; corr2d two rows
+# a block).
 KERNELS = {
     "corr1d": ("correlation1d_cuda", f"{TPU_CORR}:159", [
         ((1, 3, 9, 20), torch.float32),      # W < 17, B = 1
@@ -56,6 +75,15 @@ KERNELS = {
         ((2, 5, 70, 37), torch.float32),     # C not a multiple of the 32-channel chunk
         ((1, 4, 130, 352), torch.float32),   # three tiles, the last of 2 columns
         ((1, 2, 16, 8), torch.bfloat16),     # C below one chunk
+        ((1, 3, 16, 64), torch.bfloat16),    # W = 16, 17, 64, 65, 120 against the
+        ((1, 3, 17, 64), torch.bfloat16),    # 64-column tile and its halo
+        ((1, 3, 64, 64), torch.bfloat16),
+        ((1, 3, 65, 64), torch.bfloat16),
+        ((1, 3, 120, 64), torch.bfloat16),
+        ((2, 3, 40, 16), torch.bfloat16),    # C = one mma step
+        ((2, 3, 40, 24), torch.bfloat16),    # C = a step and a half
+        ((1, 3, 70, 360), torch.bfloat16),   # C = 360: a last box of 40 channels
+        ((2, 3, 70, 352), torch.bfloat16, 2),  # misaligned inputs: element staging
     ]),
     "corr2d": ("correlation2d_cuda", f"{TPU_CORR}:221", [
         ((1, 5, 9, 20), torch.float32),      # H, W < 17, B = 1 (vector loads)
@@ -65,6 +93,18 @@ KERNELS = {
         ((2, 5, 70, 37), torch.bfloat16),
         ((1, 20, 130, 352), torch.float32),  # three tiles, rows in and out of reach
         ((1, 3, 16, 8), torch.bfloat16),     # C below one chunk
+        ((1, 5, 16, 64), torch.bfloat16),    # W = 16, 17, 64, 65, 120 against the
+        ((1, 5, 17, 64), torch.bfloat16),    # 64-column tile and its halo
+        ((1, 5, 64, 64), torch.bfloat16),
+        ((1, 5, 65, 64), torch.bfloat16),
+        ((1, 5, 120, 64), torch.bfloat16),
+        ((1, 17, 40, 32), torch.bfloat16),   # H = 17, 18 against the pair of rows
+        ((1, 18, 40, 32), torch.bfloat16),   # a block owns and the 17 shifts
+        ((2, 6, 40, 16), torch.bfloat16),    # C = one mma step
+        ((2, 6, 40, 24), torch.bfloat16),    # C = a step and a half
+        ((1, 20, 70, 360), torch.bfloat16),  # C = 360: a last box of 40 channels
+        ((1, 6, 40, 1000), torch.bfloat16),  # f1 too large to stay resident
+        ((1, 18, 70, 352), torch.bfloat16, 2),  # misaligned inputs: element staging
     ]),
 }
 
@@ -107,9 +147,28 @@ def phase_build():
     paths = _kernels.build()
     print(f"[build] {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()), flush=True)
+    # tensor-core instructions in each library's machine code: the bf16 band
+    # tile's mma.sync compiles to HMMA
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_kernels._nvcc()).parent / "cuobjdump")
+    hmma = {}
+    for name, path in paths.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        hmma[name] = sum("HMMA" in line or "HGMMA" in line for line in sass.splitlines())
+        print(f"[sass] {name}: {hmma[name]} HMMA/HGMMA instructions ({path.name})", flush=True)
+        check(hmma[name] > 0, f"{name}: no tensor-core instruction in {path.name}")
+    return hmma
 
 
-def phase_kernel(name: str):
+def inputs(shape, dtype, g, offset: int = 0):
+    """A contiguous random tensor whose storage starts ``offset`` elements
+    into its allocation (offset 2 of a bf16 tensor: 4 bytes off 16-byte
+    alignment)."""
+    n = torch.Size(shape).numel()
+    return torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:].view(shape)
+
+
+def phase_kernel(name: str, sass_hmma: dict):
     """One kernel against correlation_plain; returns its JSON record
     (without the main path's launch count)."""
     correlation = correlation_module()
@@ -124,18 +183,18 @@ def phase_kernel(name: str):
     # version also rounds each product to bf16)
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     record = {}
-    for shape, dtype in cases:
-        f1 = torch.randn(shape, device="cuda", generator=g).to(dtype)
-        f2 = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    for shape, dtype, *offset in cases:
+        f1, f2 = (inputs(shape, dtype, g, *offset) for _ in range(2))
         out = fn(f1, f2, arg)
         torch.cuda.synchronize()
         ref = correlation_plain(f1, f2, patch)
         check(out.shape == ref.shape and out.dtype == dtype, f"{name} {shape} shape/dtype")
         err = (out.float() - ref.float()).abs().max().item()
         bound = tol[dtype] * ref.float().abs().max().item()
-        print(f"[{name}] {tuple(shape)} {str(dtype)[6:]}: max|d| = {err:.6g} "
+        where = f" at element offset {offset[0]}" if offset else ""
+        print(f"[{name}] {tuple(shape)} {str(dtype)[6:]}{where}: max|d| = {err:.6g} "
               f"(tolerance {bound:.6g} = {tol[dtype]:g} * max|ref|)", flush=True)
-        check(err <= bound, f"{name} {shape} {dtype}: max|d| {err} > {bound}")
+        check(err <= bound, f"{name} {shape} {dtype}{where}: max|d| {err} > {bound}")
         if shape != CORR_SHAPE:
             continue
         ms = cuda_time_ms(lambda: fn(f1, f2, arg), iters=50)
@@ -143,15 +202,17 @@ def phase_kernel(name: str):
         nbytes = (f1.numel() + f2.numel() + out.numel()) * f1.element_size()
         ops = 2 * out.numel() * shape[-1]
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_PEAK_OPS[dtype] * 1e3
+        bound_ms = max(t_bytes, t_ops)
         print(f"[{name}] {tuple(shape)} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)",
-              flush=True)
+              f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
+              f"{bound_ms / ms:.1%} of the bound", flush=True)
         if dtype == torch.bfloat16:  # the serving path's dtype
             record = {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{name}.cu",
                       "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_ms": bound_ms,
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "library_ms": None}
+                      "library_ms": None, "share_of_bound": bound_ms / ms,
+                      "sass_hmma": sass_hmma[name]}
         del out, ref
     return record
 
@@ -249,6 +310,9 @@ def phase_serve(net: str, n_batches: int, expect: dict):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net and time it")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
         return 2
@@ -259,17 +323,21 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.serve:
+        try:
+            phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
     try:
-        phase_build()
-        records = {name: phase_kernel(name) for name in KERNELS}
+        hmma = phase_build()
+        records = {name: phase_kernel(name, hmma) for name in KERNELS}
         for net, corr_type in (("sdnet_mini_ext", "1dcorr"), ("sdnet", "2dcorr"),
                                ("sdnet_mini_ext", "2dcorr")):
             phase_small_forward(net, corr_type)
-        # each path's own kernel once per batch, the other never
-        records["corr1d"]["launches"] = phase_serve(
-            "sdnet_mini_ext", 4, {"corr1d": 1, "corr2d": 0})["corr1d"]
-        records["corr2d"]["launches"] = phase_serve(
-            "sdnet", 3, {"corr2d": 1, "corr1d": 0})["corr2d"]
+        for net, kernel in (("sdnet_mini_ext", "corr1d"), ("sdnet", "corr2d")):
+            records[kernel]["launches"] = phase_serve(net, *SERVE[net])[kernel]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

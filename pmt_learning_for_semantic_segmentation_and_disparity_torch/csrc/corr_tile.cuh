@@ -1,4 +1,5 @@
-// The row tile shared by the correlation kernels (corr1d.cu, corr2d.cu).
+// The fp32 row tile shared by the correlation kernels (corr1d.cu, corr2d.cu);
+// bf16 inputs take the tensor-core band tile of corr_band.cuh instead.
 //
 // One block of kThreads threads computes, for one row r1 of f1 and one row
 // r2 of f2 (both of one image, NHWC), kTX = 64 output columns x kPW = 17
@@ -6,9 +7,10 @@
 //
 //   out[x, d] = sum_c r1[x, c] * r2[x + d - 8, c],  x in [x0, x0 + 64), d in [0, 17),
 //
-// zero where x + d - 8 falls outside [0, W); products and sums in fp32,
-// stored in the input dtype (fp32 or bf16). The 1-D kernel takes r2 = r1's
-// row of f2; the 2-D kernel takes r2 = row y + i - 8 for a vertical shift i.
+// zero where x + d - 8 falls outside [0, W); products and sums in fp32 on the
+// CUDA cores (TF32 tensor cores would not hold fp32's tolerance). The 1-D
+// kernel takes r2 = r1's row of f2; the 2-D kernel takes r2 = row y + i - 8
+// for a vertical shift i.
 //
 // Design. The block walks the channels in chunks of kCC: each chunk of f1's
 // 64 columns and of f2's 64 + 16 columns (the 8-column halo on each side,
@@ -21,11 +23,10 @@
 // end. The row stride kS = kCC + 2 keeps the shared-memory reads of a warp
 // free of bank conflicts (4 column groups at row distance 4 land 8 banks
 // apart; the 8 channel lanes fill the gaps).
-// Not yet done: double-buffered staging (cp.async / TMA) to overlap the next
-// chunk's loads with this chunk's products.
+// Not yet done for this fp32 tile: double-buffered staging (cp.async / TMA)
+// to overlap the next chunk's loads with this chunk's products.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,9 +42,7 @@ constexpr int kS = kCC + 2;              // shared-memory row stride in floats
 constexpr int kF2Rows = kTX + kPW - 1;   // f2 columns a block needs (with halo)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Stage columns [x_begin, x_begin + rows) x channels [c0, c0 + kCC) of one
 // image row into dst[r * kS + c] as fp32; zero outside [0, W) x [0, C).

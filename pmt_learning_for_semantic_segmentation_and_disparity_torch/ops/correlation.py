@@ -14,6 +14,11 @@ channel count.
   (1, 17) patch (``csrc/corr1d.cu``), counterpart of ``correlation1d_pallas``.
 * ``correlation2d_cuda`` -- the hand-written Hopper kernel for the 2-D
   (17, 17) patch (``csrc/corr2d.cu``), counterpart of ``correlation2d_pallas``.
+
+  Both kernels run bf16 inputs on the tensor cores (the band tile of
+  ``csrc/corr_band.cuh``) and fp32 inputs on the CUDA cores (the row tile of
+  ``csrc/corr_tile.cuh``); either takes any C, H and W the checks below let
+  through.
 * ``correlation``        -- the dispatcher: CPU tensors take the plain
   version, any other tensor the kernel of its patch (``ph == 1``: corr1d,
   else corr2d), which raises if the tensors are not on the card or the kernel
@@ -77,7 +82,8 @@ def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((b, h, w, ph * pw), dtype=f1.dtype, device=f1.device)
-    # 16-byte vector loads need whole vectors per pixel and aligned rows
+    # 16-byte vector loads need whole vectors per pixel and aligned rows;
+    # otherwise the kernels stage the same layout with element loads
     vec = (c % (16 // f1.element_size()) == 0
            and f1.data_ptr() % 16 == 0 and f2.data_ptr() % 16 == 0)
     with torch.cuda.device(f1.device):

@@ -1,0 +1,278 @@
+"""Where the bf16 correlation kernels' time goes, on one CUDA card.
+
+    python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.probe_band \
+        [--out report.json]
+
+Builds the bf16 band kernels of ``csrc/`` (corr1d, corr2d) as they are and in
+variants with one part cut out, each from a copy of the sources under
+``build/probe/``, and times every variant at the main path's shape,
+f1 = f2 = (16, 64, 120, 352) bf16, with CUDA events (50 launches, after a
+warm-up; variants in turns, twice over):
+
+* ``kernel``      -- the sources as they are;
+* ``no-products`` -- the tensor-core loop runs no step: staging, stores and
+  barriers only, so its time is what moving the bytes takes;
+* ``no-loads``    -- no f2 window is copied (f1's tile still is, once per
+  block): products, stores and barriers only, on whatever the shared
+  memory holds;
+* ``half-copies`` -- only the first half of each stage's f2 boxes is copied
+  (f1 stays resident at this shape): half the bytes from L2, the same
+  products and hand-offs;
+* ``no-mma``      -- each tensor-core product becomes one fp32 add (the
+  fragments are still loaded with ``ldmatrix``);
+* ``no-ldmatrix`` -- the fragments are register moves instead of
+  ``ldmatrix`` reads of shared memory (the products still run);
+* ``no-stores``   -- the bands are not written out (a test of the sums
+  that never holds keeps the products alive);
+* ``one-row``     -- corr2d with one output row per block instead of two,
+  which stages every f2 window twice as often (twice the bytes re-read from
+  L2);
+* ``one-box``, ``three-box`` -- corr2d with stages of one or three
+  64-channel boxes instead of six (a whole f2 row at C = 352): more, smaller
+  stages in the ring, and more hand-offs per f2 row.
+
+The variants above are wrong by construction; only their times count. The
+ones below compute the same outputs another way, and their max|d| against
+``kernel`` says whether they do:
+
+* ``cp-async``    -- no tensor map: the producer warp stages every box with
+  16-byte ``cp.async`` (zero-filled outside the image) into the same
+  swizzled layout, completing on the same ``mbarrier``s;
+* ``output-tile`` -- the bands are collected in a shared-memory output tile
+  (taken from the ring's budget) and written as one span per row with
+  16-byte stores, instead of straight from the accumulators;
+* ``unroll-boxes`` -- corr1d with one-box stages and ``#pragma unroll 3``
+  over the boxes of a stage: the same arithmetic in the source, but nvcc
+  unrolls the loop with no remainder (its machine code runs three boxes for
+  every test of the loop's bound), so its max|d| is the size of that fault.
+
+Each variant's tensor-core instructions (HMMA) are counted in its
+library's machine code (``cuobjdump -sass``); the libraries stay under
+``build/probe/<variant>/`` for a closer reading.
+
+Prints the card's name and power limit, the nvcc release and one JSON
+line, and writes the JSON to ``--out``. Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ..ops import _kernels
+
+SHAPE = (16, 64, 120, 352)
+PATCH = {"corr1d": (1, 17), "corr2d": (17, 17)}
+STEPS = "const int ksteps = (min(kCC, C - kq * kCC) + 15) / 16;"
+F2_COPY = "tma_load(st + x * kF2Box, tm2, (q0 + x) * kCC, x0 - kPW / 2, r, b, &full[s]);"
+F2_BYTES = "mbar_expect_tx(&full[s], n * (kF2Box + (f1_res ? 0 : nr * kF1Box)));"
+MMA = '"mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "'
+LDMATRIX = '"ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\\n"'
+STORE = "if (d >= 0 && d < kPW && g + m < ncols)"
+BOX_LOOP = "      for (int x = 0; x < n; ++x) {\n        const int kq = q0 + x;"
+# cp-async: 16-byte cp.async of 8 channels in place of copy_box's element loads
+ELEMENT_COPY = """  for (int k = lane; k < cols * kCC; k += 32) {
+    const int n = k / kCC;
+    const int c = k % kCC;
+    const int x = xb + n;
+    *reinterpret_cast<bf16*>(dst + swz(n, c)) =
+        (x >= 0 && x < W && c0 + c < C) ? row[(size_t)x * C + c0 + c] : __float2bfloat16(0.f);
+  }"""
+CP_ASYNC_COPY = """  for (int k = lane; k < cols * (kCC / 8); k += 32) {
+    const int n = k / (kCC / 8);
+    const int c = (k % (kCC / 8)) * 8;
+    const int x = xb + n;
+    const bool in = x >= 0 && x < W && c0 + c < C;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(smem_u32(dst + swz(n, c))),
+                 "l"(row + (in ? (size_t)x * C + c0 + c : 0)), "r"(in ? 16 : 0) : "memory");
+  }"""
+
+
+def _cp_async_arrive(bar: str) -> tuple:
+    # each lane's copies complete on the barrier, then the phase's one arrival
+    return ("corr_band.cuh", f"if (!kTma && lane == 0) mbar_arrive({bar});",
+            f'asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\\n" '
+            f'::"r"(smem_u32({bar})) : "memory"); __syncwarp(); '
+            f"if (lane == 0) mbar_arrive({bar});")
+
+
+def _tile_launch(src: str, plan: str, tile: str) -> tuple:
+    # the output tile's bytes come out of the ring's budget and onto the launch
+    return ((src, plan, plan.replace(");", f" - ({tile}));")),
+            (src, "(int)p.smem);", f"(int)(p.smem + {tile}));"),
+            (src, "p.smem, stream>>>", f"p.smem + {tile}, stream>>>"))
+
+
+TILE1 = "band::kTX * band::kPW * 2 + 16"
+TILE2 = "kRows * band::kTX * kPatch * 2 + 16"
+OUTPUT_TILE = (
+    ("corr_band.cuh", "  uint64_t* f1bar = empty + kMaxStages;\n",
+     "  uint64_t* f1bar = empty + kMaxStages;\n"
+     "  bf16* otile = reinterpret_cast<bf16*>(f1bar + 2);  // kR x 64 pixels x P\n"),
+    ("corr_band.cuh", "  __syncthreads();\n\n  if (warp == kConsumers) {",
+     "  for (int k = threadIdx.x; k < kR * kTX * P; k += kThreads) otile[k] = __float2bfloat16(0.f);\n"
+     "  __syncthreads();\n\n  if (warp == kConsumers) {"),
+    ("corr_band.cuh", "out[((size_t)(y0 + a) * W + x0 + g + m) * P + i * kPW + d] =",
+     "otile[(a * kTX + g + m) * P + i * kPW + d] ="),
+    ("corr_band.cuh", "\n}\n\n}  // namespace band",
+     """
+  __syncthreads();
+  for (int a = 0; a < nr; ++a) {  // each row's band: one span of the output
+    bf16* o = out + ((size_t)(y0 + a) * W + x0) * P;
+    const bf16* t = otile + a * kTX * P;
+    const int len = ncols * P, vec = W % 8 == 0 ? len / 8 : 0;
+    for (int k = threadIdx.x; k < vec; k += kThreads)
+      reinterpret_cast<uint4*>(o)[k] = reinterpret_cast<const uint4*>(t)[k];
+    for (int k = 8 * vec + threadIdx.x; k < len; k += kThreads) o[k] = t[k];
+  }
+}
+
+}  // namespace band"""),
+)
+# variant -> kernels it applies to, and (file, text, replacement) edits
+VARIANTS = {
+    "kernel": (("corr1d", "corr2d"), ()),
+    "no-products": (("corr1d", "corr2d"),
+                    (("corr_band.cuh", STEPS, "const int ksteps = 0;"),)),
+    "no-loads": (("corr1d", "corr2d"), (("corr_band.cuh", F2_COPY, ";"),
+                                        ("corr_band.cuh", F2_BYTES, "mbar_arrive(&full[s]);"))),
+    "half-copies": (("corr1d", "corr2d"),
+                    (("corr_band.cuh", F2_COPY, "if (x < n / 2) " + F2_COPY),
+                     ("corr_band.cuh", F2_BYTES, "mbar_expect_tx(&full[s], (n / 2) * kF2Box);"))),
+    # the rest of the asm line becomes a comment; the fragments stay live
+    "no-mma": (("corr1d", "corr2d"), (("corr_band.cuh", MMA, '"add.f32 %0, %0, %1; // "'),)),
+    "no-ldmatrix": (("corr1d", "corr2d"),
+                    (("corr_band.cuh", LDMATRIX,
+                      '"mov.b32 %0, %4; mov.b32 %1, %4; mov.b32 %2, %4; mov.b32 %3, %4;\\n"'),)),
+    "no-stores": (("corr1d", "corr2d"),
+                  (("corr_band.cuh", STORE, STORE[:-1] + " && acc[a][t][e] == 1.5e-38f)"),)),
+    "one-row": (("corr2d",), (("corr2d.cu", "constexpr int kRows = 2;",
+                               "constexpr int kRows = 1;"),)),
+    "one-box": (("corr2d",), (("corr2d.cu", "constexpr int kBoxes = 6;",
+                               "constexpr int kBoxes = 1;"),)),
+    "three-box": (("corr2d",), (("corr2d.cu", "constexpr int kBoxes = 6;",
+                                 "constexpr int kBoxes = 3;"),)),
+    "cp-async": (("corr1d", "corr2d"), (
+        ("corr_band.cuh", ELEMENT_COPY, CP_ASYNC_COPY),
+        _cp_async_arrive("f1bar"), _cp_async_arrive("&full[s]"),
+        ("corr1d.cu", "auto kernel = vec ? corr1d_band_kernel<true> : corr1d_band_kernel<false>;",
+         "auto kernel = corr1d_band_kernel<false>;"),
+        ("corr2d.cu", "auto kernel = vec ? corr2d_band_kernel<true> : corr2d_band_kernel<false>;",
+         "auto kernel = corr2d_band_kernel<false>;"))),
+    "output-tile": (("corr1d", "corr2d"), OUTPUT_TILE
+                    + _tile_launch("corr1d.cu", "band::plan(C, 1, kBoxes, kSmemBudget);", TILE1)
+                    + _tile_launch("corr2d.cu", "band::plan(C, kRows, kBoxes, band::kSmemMax);",
+                                   TILE2)),
+    "unroll-boxes": (("corr1d",), (
+        ("corr1d.cu", "constexpr int kBoxes = 3;", "constexpr int kBoxes = 1;"),
+        ("corr_band.cuh", BOX_LOOP, "#pragma unroll 3\n" + BOX_LOOP))),
+}
+
+
+def build_variants() -> dict:
+    """(variant, kernel) -> loaded library; one nvcc per library, all at once."""
+    root = _kernels.BUILD / "probe"
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for name, (kernels, edits) in VARIANTS.items():
+        src = root / name
+        shutil.copytree(_kernels.CSRC, src)
+        for fname, text, repl in edits:
+            path = src / fname
+            body = path.read_text()
+            if text not in body:
+                raise RuntimeError(f"variant {name}: {fname} no longer has {text!r}")
+            path.write_text(body.replace(text, repl))
+        for k in kernels:
+            lib = src / f"lib{k}.so"
+            cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(lib), str(src / _kernels.SOURCES[k])]
+            procs[(name, k)] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"build of {key} failed:\n{log}")
+        libs[key] = (ctypes.CDLL(str(lib)), lib)
+    return libs
+
+
+def sass(lib: Path) -> str:
+    """A library's machine code."""
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_kernels._nvcc()).parent / "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="write the JSON report here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("probe_band: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    nvcc = subprocess.run([_kernels._nvcc(), "--version"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[-2]
+    print(nvcc, flush=True)
+    libs = build_variants()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    f1 = torch.randn(SHAPE, device="cuda", generator=g).bfloat16()
+    f2 = torch.randn(SHAPE, device="cuda", generator=g).bfloat16()
+    b, h, w, c = SHAPE
+    stream = torch.cuda.current_stream().cuda_stream
+    outs, times = {}, {}
+    for _ in range(2):
+        for (name, k), (lib, _) in libs.items():
+            fn = getattr(lib, f"{k}_forward")
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            ph, pw = PATCH[k]
+            out = outs.setdefault((name, k), torch.zeros((b, h, w, ph * pw), dtype=torch.bfloat16,
+                                                         device="cuda"))
+
+            def call():
+                err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c, ph, pw, 1, 1,
+                         stream)
+                if err != 0:
+                    raise RuntimeError(f"{name} {k}: cudaError {err}")
+
+            times.setdefault(f"{k} {name}", []).append(time_ms(call))
+    # how far each variant's output lies from the kernel's (NaN where a
+    # variant leaves garbage in shared memory)
+    diff = {f"{k} {name}": (out.float() - outs[("kernel", k)].float()).abs().max().item()
+            for (name, k), out in outs.items()}
+    hmma = {f"{k} {name}": sass(path).count("HMMA") for (name, k), (_, path) in libs.items()}
+    report = {"card": card, "nvcc": nvcc, "shape": list(SHAPE), "dtype": "bfloat16", "ms": times,
+              "max_abs_diff_vs_kernel": diff, "hmma": hmma}
+    for key, ms in times.items():
+        print(f"[probe_band] {key}: {', '.join(f'{t:.4f}' for t in ms)} ms, max|d| vs kernel "
+              f"{diff[key]:.4g}, {hmma[key]} HMMA", flush=True)
+    print(json.dumps(report), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

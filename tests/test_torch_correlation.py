@@ -60,6 +60,19 @@ def test_corr2d_plain_normalized_matches_lax(patch):
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("patch", [(1, 17), (17, 17)])
+def test_plain_bf16_matches_lax_bf16(patch):
+    # the bf16 reference the tensor-core kernels are held against on the card,
+    # with the card's bf16 tolerance: 1e-2 * max|ref|
+    f1, f2 = (torch.from_numpy(a).bfloat16() for a in _pair(6, (1, 4, 20, 24)))
+    ref = np.asarray(jcorr.correlation_lax(jnp.asarray(f1.float().numpy(), jnp.bfloat16),
+                                           jnp.asarray(f2.float().numpy(), jnp.bfloat16),
+                                           patch), np.float32)
+    got = tcorr.correlation_plain(f1, f2, patch)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 4, 20, patch[0] * patch[1])
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=1e-2 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("patch,normalize", [((1, 17), False), ((1, 17), True), ((5, 5), True)])
 def test_dispatcher_on_cpu_matches_jax_dispatcher(patch, normalize):
     f1, f2 = _pair(3, (1, 4, 12, 16))
@@ -132,12 +145,14 @@ def test_every_kernel_has_a_source_and_a_patch():
         assert _kernels.library_path(name).parent == _kernels.BUILD
 
 
-def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+@pytest.mark.parametrize("header", sorted(p.name for p in _kernels.CSRC.glob("*.cuh")))
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch, header):
+    # an edit of any shared header renames (and so rebuilds) both libraries
     csrc = tmp_path / "csrc"
     shutil.copytree(_kernels.CSRC, csrc)
     monkeypatch.setattr(_kernels, "CSRC", csrc)
     before = {n: _kernels.library_path(n) for n in _kernels.SOURCES}
-    header = csrc / "corr_tile.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
     after = {n: _kernels.library_path(n) for n in _kernels.SOURCES}
     assert all(before[n] != after[n] for n in _kernels.SOURCES)
