@@ -11,16 +11,32 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
 2. hold each kernel (corr1d, corr2d) against its plain PyTorch version on
    the card at the main path's shape in fp32 and bf16 and at edge shapes
    (TF32 off), and time both at the main shape;
+   hold corr1d's backward kernel against ``correlation1d_vjp_plain`` the
+   same way, at the training shape per view, the serving shape and edge
+   shapes, and the gradients that ``torch.autograd.grad`` takes through
+   ``correlation`` (forward kernel, then backward kernel) at the training
+   shape;
 3. hold the eval forward on the card against the same model with the same
    weights on the CPU at 1x64x128 in fp32: the flagship (1dcorr), sdnet, and
-   the flagship with 2dcorr;
+   the flagship with 2dcorr; and one fp32 train step of the flagship (the
+   bench loss stack, Adam) from the same weights and batch: in train mode,
+   the loss and every updated BatchNorm running statistic within
+   1e-3 * max|ref|, the gradients within twice the devices' own fp32 noise;
+   with ``freeze_bn`` (BatchNorm on its running statistics) on images scaled
+   by 1e-2 and cuDNN off on the card, the loss and every gradient tensor
+   within 1e-3 * max|ref|;
 4. serve the flagship: ``get_network`` + ``make_forward_fn`` (bf16 policy) at
    full width and depth (sdnet_mini_ext, densenet121, 1dcorr, 512x960,
    batches of 16 stereo pairs, random weights from a seed), check the
    outputs and the on-device metrics, and check that corr1d was launched
    once per batch and corr2d never;
 5. serve sdnet the same way (densenet121, the 17x17 correlation), and check
-   that corr2d was launched once per batch and corr1d never.
+   that corr2d was launched once per batch and corr1d never;
+6. train the flagship: ``get_network`` + ``TrainState.create`` +
+   ``make_train_step`` (bf16 policy, CE + Lovász + MultiTversky + OHEM, Adam)
+   on batches of 8 stereo pairs of 256x512, 2 warm-up and 8 timed steps:
+   finite losses, corr1d's forward and backward kernels once per step each,
+   corr2d never; ms/step, pairs/s and peak memory.
 
 The third-to-last line of stdout is a JSON object with one record per
 kernel, the second-to-last the card's name and power limit, and the last
@@ -28,9 +44,11 @@ kernel, the second-to-last the card's name and power limit, and the last
 
     python3 chip_smoke.py --serve sdnet
 
-only serves one net (phase 4 or 5, with 10 batches) and prints its time:
-copied into the root of another checkout, it times that checkout's code the
-same way, so two commits can be compared in turns in one call.
+only serves one net (phase 4 or 5, with 10 batches) and prints its time,
+and ``python3 chip_smoke.py --train`` only trains (phase 6, 2 warm-up and
+10 timed steps): copied into the root of another checkout, it times that
+checkout's code the same way, so two commits can be compared in turns in
+one call.
 """
 from __future__ import annotations
 
@@ -61,6 +79,23 @@ SMALL = (1, 64, 128, 3)
 SERVE = {"sdnet_mini_ext": (4, {"corr1d": 1, "corr2d": 0}),
          "sdnet": (3, {"corr2d": 1, "corr1d": 0})}
 SERVE_BATCHES = 10  # batches --serve serves, the first a warm-up
+# training: the JAX package's bench (bench.py:192-198)
+TRAIN_BATCH, TRAIN_H, TRAIN_W = 8, 256, 512
+TRAIN_LOSSES = ("cross_entropy", "lovasz_loss", "tversky_loss", "ohm_loss")
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 352)  # a_py2 of one view
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+# corr1d's backward against correlation1d_vjp_plain: the training shape per
+# view (main path), the serving shape, and edge shapes (W against the
+# 32-column block and its 8-column halo, C against the 32-channel block, a
+# storage offset of 2 elements)
+BACKWARD_CASES = [
+    (TRAIN_SHAPE, torch.float32), (TRAIN_SHAPE, torch.bfloat16),
+    (CORR_SHAPE, torch.float32), (CORR_SHAPE, torch.bfloat16),
+    ((2, 3, 16, 64), torch.bfloat16), ((2, 3, 17, 64), torch.float32),
+    ((1, 3, 65, 64), torch.bfloat16), ((1, 2, 9, 20), torch.float32),
+    ((2, 3, 40, 24), torch.bfloat16), ((1, 3, 70, 360), torch.bfloat16),
+    ((2, 3, 70, 352), torch.bfloat16, 2), ((2, 3, 33, 37), torch.float32, 1),
+]
 
 # kernel -> (wrapper in ops/correlation.py, the TPU kernel it replaces, edge
 # shapes with their dtypes, and an element offset of both inputs' storage
@@ -217,6 +252,76 @@ def phase_kernel(name: str, sass_hmma: dict):
     return record
 
 
+def phase_backward(sass_hmma: dict):
+    """corr1d's backward kernel against correlation1d_vjp_plain; returns its
+    JSON record (without the main path's launch count), timed at the
+    training shape per view in bf16."""
+    correlation = correlation_module()
+    kernel, plain = correlation.correlation1d_backward_cuda, correlation.correlation1d_vjp_plain
+    pw = correlation.KERNEL_PATCH["corr1d"][1]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    # fp32: summation order only; bf16: the outputs' bf16 rounding (the plain
+    # version also rounds each product to bf16)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+    def hold(got, ref, what: str, shape, dtype):
+        errs = []
+        for k, a, b in (("df1", got[0], ref[0]), ("df2", got[1], ref[1])):
+            check(a.shape == b.shape == shape and a.dtype == dtype, f"{what} {k} shape/dtype")
+            err = (a.float() - b.float()).abs().max().item()
+            bound = tol[dtype] * b.float().abs().max().item()
+            print(f"{what} {k}: max|d| = {err:.6g} (tolerance {bound:.6g} = {tol[dtype]:g} * max|ref|)",
+                  flush=True)
+            check(err <= bound, f"{what} {k}: max|d| {err} > {bound}")
+            errs.append(err)
+        return errs
+
+    record = {}
+    for shape, dtype, *offset in BACKWARD_CASES:
+        f1, f2 = (inputs(shape, dtype, g, *offset) for _ in range(2))
+        grad = inputs(tuple(shape[:3]) + (pw,), dtype, g, *offset)
+        got = kernel(f1, f2, grad)
+        torch.cuda.synchronize()
+        where = f" at element offset {offset[0]}" if offset else ""
+        errs = hold(got, plain(f1, f2, grad, pw), f"[corr1d backward] {tuple(shape)} {str(dtype)[6:]}{where}",
+                    f1.shape, dtype)
+        if offset or shape not in (TRAIN_SHAPE, CORR_SHAPE):
+            continue
+        ms = cuda_time_ms(lambda: kernel(f1, f2, grad), iters=50)
+        plain_ms = cuda_time_ms(lambda: plain(f1, f2, grad, pw), iters=3, warmup=1)
+        # read f1, f2 and g once, write df1 and df2 once
+        nbytes = (4 * f1.numel() + grad.numel()) * f1.element_size()
+        ops = 2 * 2 * grad.numel() * shape[-1]
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_PEAK_OPS[torch.float32] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"[corr1d backward] {tuple(shape)} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} "
+              f"GFLOP on the CUDA cores), {bound_ms / ms:.1%} of the bound", flush=True)
+        if shape == TRAIN_SHAPE and dtype == torch.bfloat16:  # the training path's
+            record = {"name": "corr1d_backward", "route": "cuda",
+                      "source": f"{PORT}/csrc/corr1d.cu",
+                      "replaces": f"{TPU_CORR}:320", "max_abs_err": max(errs), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": None, "share_of_bound": bound_ms / ms,
+                      "sass_hmma": sass_hmma["corr1d"]}
+        del got
+    # the autograd wiring the train step runs: the gradients of the
+    # dispatcher the models call (corr1d's forward kernel, then the backward
+    # kernel from _Corr1dCuda.backward) against the plain VJP
+    for dtype in (torch.float32, torch.bfloat16):
+        f1, f2 = (inputs(TRAIN_SHAPE, dtype, g).requires_grad_() for _ in range(2))
+        grad = inputs(TRAIN_SHAPE[:3] + (pw,), dtype, g)
+        before = kernel.launches
+        got = torch.autograd.grad(correlation.correlation(f1, f2, (1, pw)), (f1, f2), grad)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, "autograd through correlation: the backward kernel "
+              f"was launched {kernel.launches - before} times, expected once")
+        hold(got, plain(f1.detach(), f2.detach(), grad, pw),
+             f"[corr1d autograd] {TRAIN_SHAPE} {str(dtype)[6:]}", f1.shape, dtype)
+    return record
+
+
 def config(net: str, corr_type: str = "1dcorr", bf16: bool = False):
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
 
@@ -242,6 +347,192 @@ def phase_small_forward(net: str, corr_type: str):
         print(f"[forward {net} {corr_type} 1x64x128 fp32] {k}: card vs CPU max|d| = {err:.6g} "
               f"(tolerance {bound:.6g} = 1e-3 * max|ref|)", flush=True)
         check(err <= bound, f"small forward {net} {corr_type} {k}: {err} > {bound}")
+
+
+def train_batch(shape, g, device):
+    """A random batch (images, one-hot roses labels, disparity) of ``shape``
+    (B, H, W) from the generator ``g``."""
+    labels = torch.randint(0, 2, shape, device=device, generator=g)
+    return {"left": torch.randn(shape + (3,), device=device, generator=g),
+            "right": torch.randn(shape + (3,), device=device, generator=g),
+            "seg": torch.nn.functional.one_hot(labels, 2).float(),
+            "disp": torch.rand(shape + (1,), device=device, generator=g)}
+
+
+def train_setup(device: str, bf16: bool, freeze_bn: bool = False):
+    """The flagship, its Adam train state and its train step on ``device``
+    (the same weights from seed 0 on every device)."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
+        TrainState,
+        build_optimizer,
+        make_train_step,
+    )
+
+    cfg = config("sdnet_mini_ext", bf16=bf16)
+    cfg.loss.losses = TRAIN_LOSSES
+    cfg.optim.freeze_bn = freeze_bn
+    model = models.get_network(cfg, device=device, seed=0)
+    state = TrainState.create(model, build_optimizer(cfg.optim, cfg.model.net, len(TRAIN_LOSSES)))
+    return model, state, make_train_step(cfg, model, device=device)
+
+
+def rel_l2(got: dict, ref: dict) -> float:
+    """||got - ref|| / ||ref|| over all tensors of two {name: tensor} dicts."""
+    num = sum(float(((got[n].double() - r.double()) ** 2).sum()) for n, r in ref.items())
+    return (num / sum(float((r.double() ** 2).sum()) for r in ref.values())) ** 0.5
+
+
+def grads_at_perturbed_weights(device: str, batch: dict) -> dict:
+    """The flagship's fp32 train-mode gradient on ``device`` at the seed-0
+    weights perturbed by a relative 1e-7 (the same perturbation on every
+    device): how far fp32 rounding alone moves the gradient."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_loss_fn
+
+    cfg = config("sdnet_mini_ext")
+    cfg.loss.losses = TRAIN_LOSSES
+    model = models.get_network(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=g))
+    loss, _ = make_loss_fn(cfg, model, device=device)(batch, True)
+    loss.backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def small_step(device: str, batch: dict, freeze_bn: bool = False):
+    """One fp32 train step of the flagship on ``device`` from the seed-0
+    weights: the loss, {name: gradient} and {name: BatchNorm running
+    statistic}, on the CPU."""
+    model, state, step = train_setup(device, bf16=False, freeze_bn=freeze_bn)
+    _, metrics = step(state, batch)
+    return (metrics["loss"].item(),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))})
+
+
+def hold_loss(tag: str, loss: float, ref: float) -> None:
+    err = abs(loss - ref)
+    print(f"{tag} loss card {loss:.8g} CPU {ref:.8g}: |d| = {err:.6g} "
+          f"(tolerance {1e-3 * abs(ref):.6g} = 1e-3 * |ref|)", flush=True)
+    check(err <= 1e-3 * abs(ref), f"{tag}: loss {loss} against {ref}")
+
+
+def worst_tensor(got: dict, ref: dict):
+    """(max|d| / max|ref|, name) of the tensor of ``got`` farthest from
+    ``ref``'s, relative to its own largest reference value."""
+    return max(((got[n] - r).abs().max().item() / (r.abs().max().item() or float("inf")), n)
+               for n, r in ref.items())
+
+
+def hold_tensors(tag: str, what: str, got: dict, ref: dict) -> None:
+    """Every tensor of ``got`` within 1e-3 * max|ref| of ``ref``'s."""
+    check(set(got) == set(ref), f"{tag}: {what} of other names")
+    for n, r in ref.items():
+        err, bound = (got[n] - r).abs().max().item(), 1e-3 * r.abs().max().item()
+        check(err <= bound, f"{tag}: {what} {n}: max|d| {err} > {bound}")
+    rel, name = worst_tensor(got, ref)
+    print(f"{tag} every {what} tensor ({len(ref)}) within 1e-3 * max|ref| of the CPU's; the "
+          f"closest to its bound: {name} at {rel / 1e-3:.3g} of it", flush=True)
+
+
+def phase_small_train():
+    """One fp32 train step of the flagship on the card against the CPU from
+    the same weights and batch (TF32 off).
+
+    In train mode: the loss and every updated BatchNorm running statistic
+    within 1e-3 * max|ref|, and the gradients within twice the two devices'
+    own fp32 noise. Train-mode BatchNorm makes this net's fp32 gradient
+    ill-conditioned: a 1e-7 relative change of the weights moves it by
+    percents, so no per-tensor bound of 1e-3 can hold there.
+
+    With ``freeze_bn`` (BatchNorm on its running statistics, its gradients
+    zeroed) the gradient is well-conditioned once no softmax or attention
+    gate saturates, so the images are scaled by 1e-2 (at random init and
+    scale 1 the eval-mode outputs reach ~1e4, and a saturated gate's
+    gradient is rounding noise): the loss and every gradient tensor within
+    1e-3 * max|ref|, with cuDNN off on the card (with cuDNN, the weight
+    gradient of the first conv on the image, a sum over every pixel that
+    mostly cancels, came 1.3e-3 off the CPU's on an H100; that distance is
+    printed, not held). The float64 CPU tests hold
+    the train-mode gradients against the JAX package per tensor."""
+    tag = "[train 1x64x128 fp32]"
+    batch = train_batch(SMALL[:3], torch.Generator().manual_seed(4), "cpu")
+    (ref_loss, ref_grads, ref_stats), (loss, grads, stats) = (small_step(d, batch) for d in ("cpu", "cuda"))
+    hold_loss(tag, loss, ref_loss)
+    hold_tensors(tag, "BN running statistic", stats, ref_stats)
+    noise = {}
+    for device in ("cpu", "cuda"):
+        noisy = grads_at_perturbed_weights(device, batch)
+        noise[device] = rel_l2({n: noisy[n] for n in ref_grads if n in noisy},
+                               {n: ref_grads[n] for n in ref_grads if n in noisy})
+    diff = rel_l2(grads, ref_grads)
+    print(f"{tag} gradients card vs CPU: ||d|| / ||ref|| = {diff:.4g} over {len(ref_grads)} "
+          f"tensors; fp32 noise (1e-7 weight perturbation): CPU {noise['cpu']:.4g}, card "
+          f"{noise['cuda']:.4g}; tolerance {2 * sum(noise.values()):.4g} = 2 * (CPU + card noise)",
+          flush=True)
+    check(diff <= 2 * sum(noise.values()),
+          f"small train step: gradients off the CPU's by {diff}, noise {noise}")
+
+    tag = "[train 1x64x128 fp32 freeze_bn, images x 1e-2]"
+    small = dict(batch, left=batch["left"] * 1e-2, right=batch["right"] * 1e-2)
+    ref_loss, ref_grads, _ = small_step("cpu", small, freeze_bn=True)
+    rel, name = worst_tensor(small_step("cuda", small, freeze_bn=True)[1], ref_grads)
+    print(f"{tag} with cuDNN: the gradient tensor farthest from the CPU's: {name} at max|d| = "
+          f"{rel:.3g} * max|ref| (not held)", flush=True)
+    with torch.backends.cudnn.flags(enabled=False):
+        loss, grads, _ = small_step("cuda", small, freeze_bn=True)
+    tag += " cuDNN off"
+    hold_loss(tag, loss, ref_loss)
+    hold_tensors(tag, "gradient", grads, ref_grads)
+
+
+def phase_train(n_warmup: int, n_steps: int, card: str):
+    """Train the flagship at full width (bf16 policy, the bench loss stack,
+    Adam); returns each kernel's launches in the timed steps."""
+    correlation = correlation_module()
+    kernels = {"corr1d": correlation.correlation1d_cuda,
+               "corr1d_backward": correlation.correlation1d_backward_cuda,
+               "corr2d": correlation.correlation2d_cuda}
+    expect = {"corr1d": 1, "corr1d_backward": 1, "corr2d": 0}
+    _, state, step = train_setup("cuda", bf16=True)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batches = [train_batch((TRAIN_BATCH, TRAIN_H, TRAIN_W), g, "cuda")
+               for _ in range(n_warmup + n_steps)]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        if i == n_warmup:
+            for k in kernels.values():
+                k.launches = 0
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+              f"train step {i}: a metric or loss is not finite: {metrics}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, per_step in expect.items():
+        check(launches[name] == per_step * n_steps,
+              f"train: {name} launched {launches[name]} times in {n_steps} steps, "
+              f"expected {per_step} per step")
+    timed = times[n_warmup:]
+    ms = 1e3 * sum(timed) / len(timed)
+    print(f"[train sdnet_mini_ext] densenet121 bf16, CE + Lovasz + MultiTversky + OHEM, Adam, "
+          f"{TRAIN_BATCH} pairs of {TRAIN_H}x{TRAIN_W}: {ms:.2f} ms/step, "
+          f"{TRAIN_BATCH / ms * 1e3:.2f} training pairs/s over {len(timed)} steps (per step: "
+          f"{', '.join(f'{1e3 * t:.2f}' for t in times)} ms, the first {n_warmup} warm-ups); "
+          f"losses {', '.join(f'{v:.5g}' for v in losses)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; {card}",
+          flush=True)
+    return launches
 
 
 def phase_serve(net: str, n_batches: int, expect: dict):
@@ -312,6 +603,7 @@ def phase_serve(net: str, n_batches: int, expect: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net and time it")
+    ap.add_argument("--train", action="store_true", help="only train the flagship and time it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -323,9 +615,12 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.serve:
+    if args.serve or args.train:
         try:
-            phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1])
+            if args.serve:
+                phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1])
+            else:
+                phase_train(TRAIN_WARMUP, 10, card)
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -333,15 +628,19 @@ def main() -> int:
     try:
         hmma = phase_build()
         records = {name: phase_kernel(name, hmma) for name in KERNELS}
+        records["corr1d_backward"] = phase_backward(hmma)
         for net, corr_type in (("sdnet_mini_ext", "1dcorr"), ("sdnet", "2dcorr"),
                                ("sdnet_mini_ext", "2dcorr")):
             phase_small_forward(net, corr_type)
+        phase_small_train()
         for net, kernel in (("sdnet_mini_ext", "corr1d"), ("sdnet", "corr2d")):
             records[kernel]["launches"] = phase_serve(net, *SERVE[net])[kernel]
+        launches = phase_train(TRAIN_WARMUP, TRAIN_STEPS, card)
+        records["corr1d_backward"]["launches"] = launches["corr1d_backward"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"kernels": [records[k] for k in ("corr1d", "corr1d_backward", "corr2d")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 from .config import (  # noqa: F401
     DATASET_N_LABELS,
     DataConfig,
+    LossConfig,
     ModelConfig,
+    OptimConfig,
     ParallelConfig,
     PMTConfig,
 )

@@ -54,6 +54,41 @@ class ModelConfig:
 
 
 @dataclass
+class LossConfig:
+    """Loss-stack config (-loss, -segWeight; multiLosses.py:8-157)."""
+
+    losses: Tuple[str, ...] = ("cross_entropy", "lovasz_loss")
+    seg_weight: bool = False
+
+
+@dataclass
+class OptimConfig:
+    """Optimizer config (torch_implementation.py:715-724, 599-609)."""
+
+    optim_type: str = "adam"  # adam | sgd
+    # None -> reference's rule: 5e-6 deeplab, 5e-4 if >2 losses, else 1.5e-3
+    learning_rate: Optional[float] = None
+    adam_eps: float = 1e-7
+    sgd_momentum: float = 0.9
+    sgd_weight_decay: float = 1e-4
+    poly_base_lr: float = 0.005
+    poly_epoch_horizon: int = 2400
+    accumulate_grad: int = 1  # -acmt_grad
+    freeze_bn: bool = False
+
+    def resolve_lr(self, net: str, n_losses: int) -> float:
+        if self.learning_rate is not None:
+            return self.learning_rate
+        if self.optim_type == "sgd":
+            return self.poly_base_lr
+        if net == "deeplab":
+            return 5e-6
+        if n_losses > 2:
+            return 5e-4
+        return 1.5e-3
+
+
+@dataclass
 class ParallelConfig:
     # mixed precision: fp32 master weights, bf16 compute
     bf16: bool = False
@@ -63,4 +98,6 @@ class ParallelConfig:
 class PMTConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)

@@ -6,7 +6,9 @@ names follow the flax modules (``conv``/``deconv``/``bn``, ``c1``..``d5``) so
 
 * every convolution is bias-free, stride 1 with an odd kernel, so TF-'SAME'
   padding is the symmetric ``dilation * (k - 1) // 2``;
-* BatchNorm has eps 1e-5 and torch's momentum 0.1 (flax momentum 0.9);
+* BatchNorm has eps 1e-5 and torch's momentum 0.1 (flax momentum 0.9); in
+  train mode it moves its running variance toward the biased batch
+  variance, as flax does (``BatchNorm2d``);
 * the stride-1 ``DeconvBN`` is a SAME convolution, as in the JAX package
   (a stride-1 'same' transposed conv is a conv with a flipped kernel, and the
   JAX package stores the kernel already in conv form);
@@ -81,8 +83,35 @@ class SameConvTranspose2d(nn.Conv2d):
         return y[..., o:o + s * h, o:o + s * w].contiguous(memory_format=torch.channels_last)
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode running update is flax's:
+
+        mean <- 0.9 * mean + 0.1 * batch mean
+        var  <- 0.9 * var  + 0.1 * biased batch variance
+
+    where torch's own update takes the unbiased variance, n/(n-1) times
+    larger for n pixels per channel (8/7 at the deepest taps of a 1x64x128
+    input). Train mode normalises by the batch statistics; eval mode by the
+    running ones. The running buffers are updated in place in their own
+    dtype, whatever the input's (fp32 under the bf16 policy)."""
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        # no running buffers in the op: autograd saves its inputs, and the
+        # buffers change in place below and in the next call of this layer
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
+                                                  0.0, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(invstd.pow(-2) - self.eps, alpha=m)
+        return y
+
+
+def batch_norm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 @torch.no_grad()

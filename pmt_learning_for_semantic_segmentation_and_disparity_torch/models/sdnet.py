@@ -1,5 +1,6 @@
-"""The SDNet models of the JAX package's ``models/sdnet.py``, eval forward:
-the flagship ``sdnet_mini_ext`` (MiniDSNetExt) and ``sdnet_mini`` (MiniDSNet).
+"""The SDNet models of the JAX package's ``models/sdnet.py``: the flagship
+``sdnet_mini_ext`` (MiniDSNetExt; eval and train forward) and ``sdnet_mini``
+(MiniDSNet; eval forward).
 
 Counterpart of the JAX package's ``models/sdnet.py`` for the flagship variant
 "ext" with aspp 0, the cross-task attention gates and either correlation
@@ -16,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..core.config import ModelConfig
 from ..core.registry import MODELS
@@ -32,8 +34,9 @@ def corr_patch(m: ModelConfig) -> Tuple[int, int]:
 
 def eval_only(model: nn.Module) -> None:
     if model.training:
-        raise NotImplementedError("the train-mode forward (per-view BatchNorm statistics) "
-                                  "comes with the training slice, ROADMAP.md queue 1, item 6")
+        raise NotImplementedError(f"the train-mode forward of {type(model).__name__} is not "
+                                  "ported yet (ROADMAP.md queue 1, item 6.3); only the "
+                                  "flagship sdnet_mini_ext trains")
 
 
 def nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -96,15 +99,20 @@ def _unported(m: ModelConfig) -> str:
 
 class MiniDSNetExt(nn.Module):
     """minidsnetExt (dsnet_t2.py:941-1299), variant "ext", aspp 0, attention
-    gates on, 1dcorr or 2dcorr (normalized, as ``sdnet.py:206-208``). Eval
-    forward only in this slice."""
+    gates on, 1dcorr or 2dcorr (normalized, as ``sdnet.py:206-208``).
+
+    In train mode the trunk runs once per view, left then right, so each
+    view normalises by its own batch statistics and the running statistics
+    move twice in that order (``sdnet.py:147-151``); dropout follows
+    ``cfg.dropout``. In eval mode one pass over L and R stacked in the batch
+    computes the same as two."""
 
     def __init__(self, cfg: ModelConfig, labels: int = 2):
         super().__init__()
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(f"sdnet_mini_ext with {missing} is not ported yet")
-        d = cfg.dropout
+        d = self.dropout = cfg.dropout
         self.patch = corr_patch(cfg)
         self.normalize = cfg.corr_type != "1dcorr"
         self.features = PiramidNet2(cfg.backbone)
@@ -133,18 +141,25 @@ class MiniDSNetExt(nn.Module):
         self.cdu11 = Conv2DownUp(32, 32, 3, last_layer=False, dropout=d)
         self.cdu11_out = ConvOut(32, labels, 3)
 
+    def gate_dropout(self, t: torch.Tensor) -> torch.Tensor:
+        if self.training and self.dropout > 0:
+            return F.dropout(t, self.dropout)
+        return t
+
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor) -> Dict[str, torch.Tensor]:
-        eval_only(self)
         left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
         full_hw = tuple(left.shape[-2:])
         nb = left.shape[0]
 
-        # eval: BN uses running statistics, so one pass over L and R stacked
-        # in the batch equals two passes
-        both = self.features(torch.cat([left, right], dim=0))
-        # the slice reads tap 4 and the enriched taps b2, b1 (indices 4, 5, 6)
-        a4, a_py2, a_py1 = (both[i][:nb] for i in (4, 5, 6))
-        b4, b_py2, b_py1 = (both[i][nb:] for i in (4, 5, 6))
+        # the net reads tap 4 and the enriched taps b2, b1 (indices 4, 5, 6)
+        if self.training:
+            a, b = self.features(left), self.features(right)
+            a4, a_py2, a_py1 = (a[i] for i in (4, 5, 6))
+            b4, b_py2, b_py1 = (b[i] for i in (4, 5, 6))
+        else:
+            both = self.features(torch.cat([left, right], dim=0))
+            a4, a_py2, a_py1 = (both[i][:nb] for i in (4, 5, 6))
+            b4, b_py2, b_py1 = (both[i][nb:] for i in (4, 5, 6))
 
         xleft_all = self.conv2d_ba(left)
         xleft0, xleft1, xleft2 = xleft_all[:, 0:1], xleft_all[:, 1:2], xleft_all[:, 2:3]
@@ -169,10 +184,10 @@ class MiniDSNetExt(nn.Module):
         s2_hw = s2.shape[-2:]
         y3 = resize_nearest(y, s2_hw)
         s2_d = self.cdu7(torch.cat([s2, y3], dim=1))
-        at_d = torch.sigmoid(self.conv1d_at_d(s2_d))
+        at_d = self.gate_dropout(torch.sigmoid(self.conv1d_at_d(s2_d)))
         x3 = resize_nearest(self.cdu8(x1), s2_hw)
         s2_s = self.cdu9(torch.cat([s2, x3], dim=1))
-        at_s = torch.sigmoid(self.conv1d_at_s(s2_s))
+        at_s = self.gate_dropout(torch.sigmoid(self.conv1d_at_s(s2_s)))
         s2 = self.cdu10(torch.cat([s2_d * at_s, s2_s * at_d], dim=1))
 
         s2 = torch.cat([resize_nearest(s2, xleft1.shape[-2:]), xleft1], dim=1)
@@ -186,7 +201,8 @@ class MiniDSNet(nn.Module):
     """minidsnet (dsnet_t2.py:825-912), registered as ``sdnet_mini``: one seg
     and one disparity head, outputs duplicated (seg2 = seg1, disp2 = disp1),
     on the original piramidNet (``PiramidNetV1``), 1dcorr or 2dcorr (the
-    latter normalized). Eval forward only in this slice."""
+    latter normalized). Eval forward only (train mode: ROADMAP.md queue 1,
+    item 6.3)."""
 
     def __init__(self, cfg: ModelConfig, labels: int = 2):
         super().__init__()

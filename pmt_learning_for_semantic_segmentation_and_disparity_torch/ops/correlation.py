@@ -9,9 +9,16 @@ channel count.
 
 * ``correlation_plain``  -- shift-multiply-sum in plain PyTorch, the
   counterpart of ``correlation_lax``. It runs on CPU tensors and is the
-  reference the CUDA kernels are held against on the card.
+  reference the CUDA kernels are held against on the card; autograd through
+  it is the CPU path's backward.
+* ``correlation1d_vjp_plain`` / ``correlation2d_vjp_plain`` -- the analytic
+  gradients (df1, df2) in plain PyTorch, counterparts of ``_corr1d_bwd_lax``
+  and ``_corr2d_bwd_lax``; the references of the backward kernel.
 * ``correlation1d_cuda`` -- the hand-written Hopper kernel for the 1-D
   (1, 17) patch (``csrc/corr1d.cu``), counterpart of ``correlation1d_pallas``.
+* ``correlation1d_backward_cuda`` -- the hand-written Hopper kernel for
+  corr1d's gradients (``corr1d_backward`` in ``csrc/corr1d.cu``), which
+  ``correlation1d_cuda``'s backward launches.
 * ``correlation2d_cuda`` -- the hand-written Hopper kernel for the 2-D
   (17, 17) patch (``csrc/corr2d.cu``), counterpart of ``correlation2d_pallas``.
 
@@ -24,9 +31,9 @@ channel count.
   else corr2d), which raises if the tensors are not on the card or the kernel
   cannot be built or launched; there is no fallback on the card.
 
-The CUDA path is inference-only for now: its backward raises
-``NotImplementedError`` until the training slice ports the backward as
-kernels (ROADMAP queue 2, item 1).
+On the card corr1d trains through its backward kernel; corr2d's backward
+raises ``NotImplementedError`` until its kernel is written (ROADMAP.md queue
+2, item 2).
 """
 from __future__ import annotations
 
@@ -59,9 +66,47 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int]
     return out
 
 
-def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
-    """Check the inputs, then run the ``csrc/<name>.cu`` kernel on the
-    current stream. Everything is checked before the kernel is built."""
+def _halo_views(h: int, w: int, i: int, j: int, rh: int, rw: int):
+    """For the shift (i, j): the (rows, cols) slices of an output map and of
+    the f2 map they read, where both lie inside the image (empty where the
+    shift is larger than the map)."""
+    oy, ox = i - rh, j - rw
+    out = (slice(max(0, -oy), max(0, h - oy)), slice(max(0, -ox), max(0, w - ox)))
+    src = (slice(max(0, oy), max(0, h + oy)), slice(max(0, ox), max(0, w + ox)))
+    return out, src
+
+
+def correlation2d_vjp_plain(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
+                            patch: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(df1, df2) of ``correlation_plain(f1, f2, patch)`` (no normalize) for
+    the output gradient ``g`` (B,H,W,ph*pw):
+
+        df1[b,y,x,c]  = sum_ij g[b,y,x,ij] * f2[b,y+i-rh,x+j-rw,c]
+        df2[b,y',x',c] = sum_ij g[b,y'-i+rh,x'-j+rw,ij] * f1[b,y'-i+rh,x'-j+rw,c]
+
+    with zero terms outside the image. Products in the input dtype, sums in
+    fp32, returned in the input dtype."""
+    ph, pw = patch
+    b, h, w, c = f1.shape
+    df1 = torch.zeros(f1.shape, dtype=torch.float32, device=f1.device)
+    df2 = torch.zeros_like(df1)
+    for i in range(ph):
+        for j in range(pw):
+            (oy, ox), (sy, sx) = _halo_views(h, w, i, j, ph // 2, pw // 2)
+            gd = g[:, oy, ox, i * pw + j, None]
+            df1[:, oy, ox] += gd * f2[:, sy, sx]
+            df2[:, sy, sx] += gd * f1[:, oy, ox]
+    return df1.to(f1.dtype), df2.to(f2.dtype)
+
+
+def correlation1d_vjp_plain(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
+                            pw: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(df1, df2) of the 1-D correlation with patch (1, pw): the reference
+    of ``correlation1d_backward_cuda``."""
+    return correlation2d_vjp_plain(f1, f2, g, (1, pw))
+
+
+def _check_pair(name: str, f1: torch.Tensor, f2: torch.Tensor) -> None:
     if f1.device.type != "cuda" or f2.device != f1.device:
         raise ValueError(f"{name} needs both inputs on one CUDA device, "
                          f"got {f1.device} and {f2.device}")
@@ -72,6 +117,12 @@ def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
                          f"got {tuple(f1.shape)} and {tuple(f2.shape)}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
         raise ValueError(f"{name} needs contiguous NHWC inputs")
+
+
+def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
+    """Check the inputs, then run the ``csrc/<name>.cu`` kernel on the
+    current stream. Everything is checked before the kernel is built."""
+    _check_pair(name, f1, f2)
     ph, pw = patch
     if (ph, pw) != KERNEL_PATCH[name]:
         raise ValueError(f"{name} is built for the patch {KERNEL_PATCH[name]}, got {(ph, pw)}")
@@ -95,10 +146,33 @@ def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
     return out
 
 
-def _no_backward(name: str):
-    raise NotImplementedError(
-        f"the CUDA {name} correlation has no backward yet (training slice, ROADMAP.md "
-        "queue 2, item 1); run training on the CPU path or wait for that slice")
+def correlation1d_backward_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                                g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(df1, df2) of the 1-D (1, 17) correlation on the card with the
+    ``corr1d_backward`` kernel of ``csrc/corr1d.cu``; ``g`` is the output
+    gradient (B,H,W,17). ``correlation1d_backward_cuda.launches`` counts the
+    kernel's launches. Everything is checked before the kernel is built."""
+    _check_pair("corr1d backward", f1, f2)
+    b, h, w, c = f1.shape
+    pw = KERNEL_PATCH["corr1d"][1]
+    if g.shape != (b, h, w, pw) or g.dtype != f1.dtype or g.device != f1.device:
+        raise ValueError(f"corr1d backward needs g of shape {(b, h, w, pw)} and dtype "
+                         f"{f1.dtype} on {f1.device}, got {tuple(g.shape)} {g.dtype} on {g.device}")
+    if min(b, h, w, c) == 0 or max(b, h) > 65535 or f1.numel() >= 2**31:
+        raise ValueError(f"corr1d backward: unsupported shape {tuple(f1.shape)}")
+    g = g.contiguous()
+    fn = _kernels.load("corr1d").corr1d_backward
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), df1.data_ptr(), df2.data_ptr(),
+                 b, h, w, c, int(f1.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"corr1d backward kernel launch failed: cudaError {err}")
+    correlation1d_backward_cuda.launches += 1
+    return df1, df2
 
 
 class _Corr1dCuda(torch.autograd.Function):
@@ -106,11 +180,14 @@ class _Corr1dCuda(torch.autograd.Function):
     def forward(ctx, f1, f2, pw):
         out = _launch("corr1d", f1, f2, (1, pw))
         correlation1d_cuda.launches += 1
+        ctx.save_for_backward(f1, f2)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        _no_backward("1-D")
+        f1, f2 = ctx.saved_tensors
+        df1, df2 = correlation1d_backward_cuda(f1, f2, grad)
+        return df1, df2, None
 
 
 class _Corr2dCuda(torch.autograd.Function):
@@ -122,7 +199,9 @@ class _Corr2dCuda(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        _no_backward("2-D")
+        raise NotImplementedError(
+            "the CUDA 2-D correlation has no backward kernel yet (2dcorr training, "
+            "ROADMAP.md queue 2, item 2); train 2dcorr nets on the CPU path")
 
 
 def correlation1d_cuda(f1: torch.Tensor, f2: torch.Tensor, pw: int) -> torch.Tensor:
@@ -140,6 +219,7 @@ def correlation2d_cuda(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
 
 
 correlation1d_cuda.launches = 0
+correlation1d_backward_cuda.launches = 0
 correlation2d_cuda.launches = 0
 
 

@@ -1,7 +1,8 @@
-"""Where the serving forward's device time goes, on one CUDA card.
+"""Where the serving forward's (or a train step's) device time goes, on one
+CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.profile_serve \
-        [--net sdnet_mini_ext] [--out report.json]
+        [--net sdnet_mini_ext] [--train] [--out report.json]
 
 Runs the eval forward of one net of the port (the flagship ``sdnet_mini_ext``
 by default; ``get_network`` + ``make_forward_fn`` with the bf16 policy, random
@@ -11,10 +12,16 @@ batches under ``torch.profiler``. Prints the device time of the kernels by
 family and the heaviest kernels by name, the device busy share of the window
 (kernel time over the host's wall time of the window), and, with ``--out``,
 writes the same as JSON there. Exits non-zero without a card.
+
+``--train`` profiles the flagship's train step instead (``make_train_step``
+with the bf16 policy, the loss stack CE + Lovász + MultiTversky + OHEM and
+Adam, on batches of 8 stereo pairs of 256x512, the training shape of the JAX
+package's bench): two warm-up steps, then ``ITERS`` steps.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -28,19 +35,24 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..core import PMTConfig
 from ..models import MODELS, get_network
-from ..training import make_forward_fn
+from ..training import TrainState, build_optimizer, make_forward_fn, make_train_step
 
 BATCH, H, W = 16, 512, 960
+TRAIN_BATCH, TRAIN_H, TRAIN_W = 8, 256, 512
+TRAIN_LOSSES = ("cross_entropy", "lovasz_loss", "tversky_loss", "ohm_loss")
 ITERS = 2
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
+    ("corr1d_backward", ("corr1d_bwd",)),
     ("corr1d", ("corr1d",)),
     ("corr2d", ("corr2d",)),
     ("batch_norm", ("batch_norm", "bn_fw", "batchnorm")),
     ("concatenate", ("catarray",)),
     ("resize", ("upsample",)),
     ("pooling", ("pool",)),
+    ("optimizer", ("multi_tensor", "adam")),
+    ("sort", ("sort", "radix")),
     ("copy_cast", ("copy_kernel", "direct_copy")),
     ("convolution", ("conv", "xmma", "implicit", "gemm", "cutlass", "fprop", "nvjet", "cudnn")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")),
@@ -59,6 +71,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--net", default="sdnet_mini_ext", choices=sorted(MODELS.keys()),
                     help="the net to serve (default: the flagship)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the flagship's train step instead of the serving forward")
     ap.add_argument("--out", default=None, help="write the report as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -70,24 +84,42 @@ def main(argv=None) -> int:
     cfg = PMTConfig()
     cfg.model.net = args.net
     cfg.parallel.bf16 = True
-    forward = make_forward_fn(cfg, get_network(cfg, seed=0))
     g = torch.Generator(device="cuda").manual_seed(2)
-    batch = {"left": torch.randn((BATCH, H, W, 3), device="cuda", generator=g),
-             "right": torch.randn((BATCH, H, W, 3), device="cuda", generator=g)}
-    with torch.inference_mode():
+    if args.train:
+        cfg.loss.losses = TRAIN_LOSSES
+        shape = (TRAIN_BATCH, TRAIN_H, TRAIN_W)
+        model = get_network(cfg, seed=0)
+        step = make_train_step(cfg, model)
+        state = TrainState.create(model, build_optimizer(cfg.optim, args.net, len(TRAIN_LOSSES)))
+        labels = torch.randint(0, cfg.data.n_labels, shape, device="cuda", generator=g)
+        batch = {"left": torch.randn(shape + (3,), device="cuda", generator=g),
+                 "right": torch.randn(shape + (3,), device="cuda", generator=g),
+                 "seg": torch.nn.functional.one_hot(labels, cfg.data.n_labels).float(),
+                 "disp": torch.rand(shape + (1,), device="cuda", generator=g)}
+        run, mode = (lambda: step(state, batch)), contextlib.nullcontext()
+    else:
+        shape = (BATCH, H, W)
+        forward = make_forward_fn(cfg, get_network(cfg, seed=0))
+        batch = {"left": torch.randn(shape + (3,), device="cuda", generator=g),
+                 "right": torch.randn(shape + (3,), device="cuda", generator=g)}
+        run, mode = (lambda: forward(batch)), torch.inference_mode()
+    with mode:
         for _ in range(2):
-            forward(batch)
+            run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(ITERS):
-                forward(batch)
+                run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: the rows of the CPU-side operators repeat their kernels' time
+    # kernels only: the rows of the CPU-side operators repeat their kernels'
+    # time, and so do the device rows of user annotations (the optimizer's
+    # "Optimizer.step#Adam.step" range)
     by_name = defaultdict(lambda: [0.0, 0])
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and not (
+                getattr(ev, "is_user_annotation", False) or ev.key.startswith("Optimizer.")):
             by_name[ev.key][0] += ev.self_device_time_total / 1e3
             by_name[ev.key][1] += ev.count
     kernel_ms = sum(ms for ms, _ in by_name.values())
@@ -97,8 +129,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     report = {
         "card": card, "device": torch.cuda.get_device_name(0),
-        "net": args.net,
-        "shape": [BATCH, H, W], "dtype": "bf16", "iters": ITERS,
+        "net": args.net, "mode": "train" if args.train else "serve",
+        "shape": list(shape), "dtype": "bf16", "iters": ITERS,
         "wall_ms_per_batch": wall_ms / ITERS,
         "kernel_ms_per_batch": kernel_ms / ITERS,
         "device_busy_share": kernel_ms / wall_ms if wall_ms > 0 else None,
@@ -107,7 +139,7 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": n[:160], "ms_per_batch": ms / ITERS,
                          "calls_per_batch": c / ITERS} for n, (ms, c) in top],
     }
-    print(f"[profile] {args.net} {BATCH}x{H}x{W} bf16: wall {report['wall_ms_per_batch']:.3f} ms/batch, "
+    print(f"[profile] {report['mode']} {args.net} {'x'.join(map(str, shape))} bf16: wall {report['wall_ms_per_batch']:.3f} ms/batch, "
           f"kernels {report['kernel_ms_per_batch']:.3f} ms/batch, "
           f"device busy {report['device_busy_share']}", flush=True)
     for fam, ms in report["by_family_ms_per_batch"].items():

@@ -1,11 +1,14 @@
 """The port's building blocks against the flax modules of the JAX package,
 with the same randomised variables (BatchNorm statistics included) carried
-across by ``load_jax_variables``; fp32 on the CPU."""
+across by ``load_jax_variables``; fp32 on the CPU. The trunks' flax init and
+apply are jitted: for a network one compile is cheaper on the CPU than
+flax's op-by-op dispatch (a single block is cheaper eagerly)."""
 import flax.linen as nn
 import jax
 import numpy as np
 import pytest
 import torch
+from torch_port import torch_threads  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import blocks as tb
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import densenet as td
@@ -21,10 +24,11 @@ from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import pyra
 REL = 1e-5
 
 
-def randomized_variables(jax_module, x, seed):
+def randomized_variables(jax_module, x, seed, jit=False):
     """flax init, then every leaf replaced by numpy noise (positive var)."""
     rng = np.random.default_rng(seed)
-    v = jax_module.init(jax.random.PRNGKey(seed), x)
+    init = jax.jit(jax_module.init) if jit else jax_module.init
+    v = init(jax.random.PRNGKey(seed), x)
 
     def noise(path, leaf):
         name = path[-1].key
@@ -56,6 +60,48 @@ def _x(cin, seed=0, hw=(12, 18)):
 def test_convbn(kernel, dilation, batchnorm, relu):
     check(jb.ConvBN(7, kernel, dilation=dilation, batchnorm=batchnorm, relu=relu),
           tb.ConvBN(5, 7, kernel, dilation=dilation, batchnorm=batchnorm, relu=relu), _x(5))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_convbn_train_mode_matches_flax(relu):
+    """Train-mode BatchNorm at 8 pixels a channel (2x2x2), where the biased
+    and the unbiased batch variance differ by 8/7: the output, the input and
+    parameter gradients for a random output gradient, and the new running
+    mean and variance against flax's ``mutable=["batch_stats"]`` apply
+    (momentum 0.9, biased variance). Bound 1e-5 * max|ref| (fp32)."""
+    jm, tm = jb.ConvBN(6, 3, relu=relu), tb.ConvBN(5, 6, 3, relu=relu)
+    x = _x(5, hw=(2, 2))
+    v = randomized_variables(jm, x, 3)
+    cot = np.random.default_rng(4).standard_normal((2, 2, 2, 6)).astype(np.float32)
+
+    def fwd(params, x):
+        y, mut = jm.apply({"params": params, "batch_stats": v["batch_stats"]}, x, train=True,
+                          mutable=["batch_stats"])
+        return y, mut["batch_stats"]
+
+    (ref, stats), pullback = jax.vjp(fwd, v["params"], x)
+    g_params, g_x = pullback((cot, jax.tree_util.tree_map(np.zeros_like, stats)))
+    load_jax_variables(tm, v["params"], v["batch_stats"])
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    got = tm.train()(xt)
+    got.backward(torch.from_numpy(cot).permute(0, 3, 1, 2))
+
+    def close(a, b):
+        b = np.asarray(b)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+    close(got.detach().permute(0, 2, 3, 1).numpy(), ref)
+    close(xt.grad.permute(0, 2, 3, 1).numpy(), g_x)
+    close(tm.conv.weight.grad.permute(2, 3, 1, 0).numpy(), g_params["conv"]["kernel"])
+    close(tm.bn.weight.grad.numpy(), g_params["bn"]["scale"])
+    close(tm.bn.bias.grad.numpy(), g_params["bn"]["bias"])
+    close(tm.bn.running_mean.numpy(), stats["bn"]["mean"])
+    close(tm.bn.running_var.numpy(), stats["bn"]["var"])
+    # torch's own rule (unbiased variance) would be off by the 8/7 factor
+    y = tm.conv(xt.detach())
+    biased = y.var(dim=(0, 2, 3), unbiased=False).detach().numpy()
+    np.testing.assert_allclose(tm.bn.running_var.numpy(),
+                               0.9 * v["batch_stats"]["bn"]["var"] + 0.1 * biased, rtol=1e-5)
 
 
 @pytest.mark.parametrize("kernel", [3, 5])
@@ -116,8 +162,8 @@ def test_densenet_taps():
     jm = jd.DenseNetFeatures((2, 3, 2, 2), 8, 16)
     tm = td.DenseNetFeatures((2, 3, 2, 2), 8, 16)
     x = _x(3, hw=(64, 96))
-    v = randomized_variables(jm, x, 1)
-    refs = [np.asarray(t) for t in jm.apply(v, x)]
+    v = randomized_variables(jm, x, 1, jit=True)
+    refs = [np.asarray(t) for t in jax.jit(jm.apply)(v, x)]
     load_jax_variables(tm, v["params"], v["batch_stats"])
     with torch.no_grad():
         taps = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
@@ -135,8 +181,8 @@ def test_piramidnet_v1():
     order: bound 1e-4 * max|ref|."""
     jm, tm = jp.PiramidNetV1(), tp.PiramidNetV1()
     x = _x(3, hw=(64, 64))[:1]
-    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), x))
-    refs = [np.asarray(t) for t in jm.apply(v, x)]
+    v = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), x))
+    refs = [np.asarray(t) for t in jax.jit(jm.apply)(v, x)]
     load_jax_variables(tm, v["params"], v["batch_stats"])
     with torch.no_grad():
         outs = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))

@@ -1,14 +1,19 @@
 """The port's correlation (plain PyTorch path) against the JAX package's
-``correlation_lax`` and its Pallas kernels in interpret mode, fp32, abs 1e-5,
-and the checks its CUDA wrappers make before a kernel is built. The CUDA
-kernels themselves are checked on the card by ``chip_smoke.py``."""
+``correlation_lax`` and its Pallas kernels in interpret mode, fp32, abs 1e-5;
+its plain gradients against ``jax.vjp`` of the JAX package's ``correlation``
+(whose backward is ``_corr1d_bwd_lax`` / ``_corr2d_bwd_lax``) and against
+autograd through ``correlation_plain``; and the checks its CUDA wrappers make
+before a kernel is built. The CUDA kernels themselves are checked on the
+card by ``chip_smoke.py``."""
 import importlib
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port import torch_threads  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.ops import _kernels
 
@@ -99,6 +104,46 @@ def test_corr2d_plain_matches_pallas_interpret(shape, patch, normalize):
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 
+# the JAX package's lax VJPs take maps no smaller than the patch (at W < pw
+# its pad widths go negative), so the smaller maps are held to autograd only
+JAX_VJP_CASES = [((2, 4, 20, 8), (1, 17)), ((1, 3, 17, 5), (1, 17)),
+                 ((1, 6, 9, 4), (5, 5)), ((1, 17, 18, 3), (17, 17))]
+VJP_CASES = JAX_VJP_CASES + [((1, 3, 7, 5), (1, 17)), ((1, 5, 6, 3), (17, 17))]
+
+
+@pytest.mark.parametrize("shape,patch", JAX_VJP_CASES)
+def test_vjp_plain_matches_jax_vjp(shape, patch):
+    """(df1, df2) against jax.vjp of the JAX package's correlation for the
+    same output gradient; fp32, max|d| <= 1e-5 * max|ref|."""
+    f1, f2 = _pair(7, shape)
+    g = np.random.default_rng(8).standard_normal(shape[:3] + (patch[0] * patch[1],),
+                                                 dtype=np.float32)
+    # jitted: the 2-D VJP is 289 shifted slices, slow op by op
+    refs = jax.jit(lambda a, b, c: jax.vjp(lambda x, y: jcorr.correlation(x, y, patch), a, b)[1](c))(
+        f1, f2, g)
+    vjp = (tcorr.correlation1d_vjp_plain(*(torch.from_numpy(a) for a in (f1, f2, g)), patch[1])
+           if patch[0] == 1 else
+           tcorr.correlation2d_vjp_plain(*(torch.from_numpy(a) for a in (f1, f2, g)), patch))
+    for got, ref in zip(vjp, refs):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape == shape and got.dtype == torch.float32
+        assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("shape,patch", VJP_CASES)
+def test_vjp_plain_matches_autograd(shape, patch):
+    """The explicit VJP against autograd through correlation_plain (the CPU
+    path's backward), float64 so that only the formulas are compared, also
+    at maps smaller than the patch."""
+    f1, f2 = (torch.from_numpy(a).double().requires_grad_() for a in _pair(9, shape))
+    out = tcorr.correlation_plain(f1, f2, patch)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    refs = torch.autograd.grad(out, (f1, f2), g)
+    got = tcorr.correlation2d_vjp_plain(f1.detach(), f2.detach(), g, patch)
+    for a, b in zip(got, refs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * b.abs().max().item())
+
+
 @pytest.fixture
 def no_build(monkeypatch):
     """Any attempt to build or load a kernel fails the test."""
@@ -136,6 +181,19 @@ def test_kernel_wrapper_rejects_cpu_tensors(no_build, wrapper, arg):
     with pytest.raises(ValueError, match="CUDA"):
         fn(torch.from_numpy(f1), torch.from_numpy(f2), arg)
     assert fn.launches == 0
+
+
+def test_backward_wrapper_rejects_cpu_tensors(no_build):
+    f1, f2 = (torch.from_numpy(a) for a in _pair(4, (1, 2, 8, 4)))
+    g = torch.zeros((1, 2, 8, 17))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcorr.correlation1d_backward_cuda(f1, f2, g)
+    assert tcorr.correlation1d_backward_cuda.launches == 0
+
+
+def test_corr2d_cuda_backward_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, item 2"):
+        tcorr._Corr2dCuda.backward(None, torch.zeros(1))
 
 
 def test_every_kernel_has_a_source_and_a_patch():

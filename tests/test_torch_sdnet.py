@@ -2,16 +2,21 @@
 attention gates, with 1dcorr and with 2dcorr) against the JAX model at
 1x64x128, fp32 on the CPU.
 
-One JAX init per correlation type is shared by its cases; its variables are
-carried into the port with ``load_jax_variables``. The JAX model runs with
+One set of variables per correlation type is shared by its cases: the port's
+seeded weights as a flax tree (``torch_port.variables_from_port``), carried
+back into the port with ``load_jax_variables``. The JAX model runs with
 ``s2d_heads`` on and off (the same variables fit both). Random-init outputs
 reach ~2e4, so the bound is relative: max|port - jax| <= 1e-3 * max|jax| per
-output.
+output. The flagship (1dcorr) runs at full depth; the 2dcorr variant with
+the trunk at block config (2, 2, 2, 2) (``torch_port.reduced_depth``).
 """
+import copy
+
 import jax
 import numpy as np
 import pytest
 import torch
+from torch_port import reduced_depth, torch_threads, variables_from_port  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
@@ -37,6 +42,9 @@ def run_against_jax(corr_type):
     rng = np.random.default_rng(0)
     left = rng.standard_normal(SHAPE, dtype=np.float32)
     right = rng.standard_normal(SHAPE, dtype=np.float32)
+    cfg = PMTConfig()
+    cfg.model.corr_type = corr_type
+    port = tmodels.get_network(cfg, device="cpu")
     refs = {}
     variables = None
     for s2d in (True, False):
@@ -45,15 +53,12 @@ def run_against_jax(corr_type):
         cfg.model.s2d_heads = s2d
         model = jmodels.get_network(cfg)
         if variables is None:
-            variables = jax.jit(lambda k, a, b: model.init({"params": k}, a, b, train=False))(
+            variables = variables_from_port(
+                port, lambda k, a, b: model.init({"params": k}, a, b, train=False),
                 jax.random.PRNGKey(0), left, right)
         out = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))(variables, left, right)
         refs[s2d] = {k: np.asarray(out[k]) for k in OUTPUTS}
-    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    cfg = PMTConfig()
-    cfg.model.corr_type = corr_type
-    port = tmodels.get_network(cfg, device="cpu")
-    tmodels.load_jax_variables(port, as_np(variables["params"]), as_np(variables["batch_stats"]))
+    tmodels.load_jax_variables(port, variables["params"], variables["batch_stats"])
     with torch.inference_mode():
         got = port(torch.from_numpy(left), torch.from_numpy(right))
     return {"left": left, "right": right, "refs": refs, "port": port,
@@ -67,7 +72,8 @@ def flagship():
 
 @pytest.fixture(scope="module")
 def flagship_2dcorr():
-    return run_against_jax("2dcorr")
+    with reduced_depth():
+        return run_against_jax("2dcorr")
 
 
 def check_against_jax(run, s2d, key):
@@ -149,20 +155,53 @@ def test_unported_options_raise(field, value):
         tmodels.get_network(cfg, device="cpu")
 
 
-def test_train_mode_forward_raises(flagship):
-    port = flagship["port"]
+def test_train_mode_forward_raises():
+    # sdnet_mini has no train-mode forward yet (the legacy nets' cases are in
+    # test_torch_sdnet_legacy.py)
+    cfg = PMTConfig()
+    cfg.model.net = "sdnet_mini"
+    with reduced_depth():
+        port = tmodels.get_network(cfg, device="cpu")
     x = torch.zeros(SHAPE)
-    try:
-        with pytest.raises(NotImplementedError, match="training slice"):
-            port.train()(x, x)
-    finally:
-        port.eval()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6.3"):
+        port.train()(x, x)
+
+
+def test_train_mode_forward_per_view_batch_norm(flagship):
+    """Train mode runs the trunk once per view, left then right: each pass
+    normalises by its own view's batch statistics and moves the running
+    statistics, so they move twice in that order (flax momentum 0.9, biased
+    variance); a head's BatchNorm moves once."""
+    port = copy.deepcopy(flagship["port"]).train()
+    trunk_bn, head_bn = port.features.backbone.norm0, port.cdu4.c1.bn
+    seen = {"trunk": [], "head": []}
+    for key, bn in (("trunk", trunk_bn), ("head", head_bn)):
+        bn.register_forward_pre_hook(lambda m, args, key=key: seen[key].append(args[0].detach().clone()))
+    before = {k: (bn.running_mean.clone(), bn.running_var.clone())
+              for k, bn in (("trunk", trunk_bn), ("head", head_bn))}
+    out = port(torch.from_numpy(flagship["left"]), torch.from_numpy(flagship["right"]))
+    assert all(torch.isfinite(out[k]).all() and out[k].shape == flagship["got"][k].shape
+               for k in OUTPUTS)
+    assert [x.shape[0] for x in seen["trunk"]] == [SHAPE[0], SHAPE[0]]  # L, then R
+    assert [x.shape[0] for x in seen["head"]] == [SHAPE[0]]
+    for key, bn in (("trunk", trunk_bn), ("head", head_bn)):
+        mean, var = before[key]
+        for x in seen[key]:
+            mean = 0.9 * mean + 0.1 * x.mean(dim=(0, 2, 3))
+            var = 0.9 * var + 0.1 * x.var(dim=(0, 2, 3), unbiased=False)
+        torch.testing.assert_close(bn.running_mean, mean, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(bn.running_var, var, rtol=1e-5, atol=1e-6)
+    # the left view's pass is the model's conv0 on the left image
+    left = port.features.backbone.conv0(torch.from_numpy(flagship["left"]).permute(0, 3, 1, 2))
+    torch.testing.assert_close(seen["trunk"][0], left.detach(), rtol=1e-5, atol=1e-5)
 
 
 def test_same_seed_same_weights():
-    a = tmodels.get_network(PMTConfig(), device="cpu", seed=3)
-    b = tmodels.get_network(PMTConfig(), device="cpu", seed=3)
-    c = tmodels.get_network(PMTConfig(), device="cpu", seed=4)
+    # seeded inits compared at reduced depth (the initialisers do not depend on it)
+    with reduced_depth():
+        a = tmodels.get_network(PMTConfig(), device="cpu", seed=3)
+        b = tmodels.get_network(PMTConfig(), device="cpu", seed=3)
+        c = tmodels.get_network(PMTConfig(), device="cpu", seed=4)
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["features.backbone.conv0.weight"], sc["features.backbone.conv0.weight"])

@@ -2,14 +2,18 @@
 ``1dcorr`` and ``2dcorr``), eval forward, against the JAX models at
 1x64x128, fp32 on the CPU.
 
-One JAX init per net, carried into the port with ``load_jax_variables``.
-Random-init outputs are large, so the bound is relative: max|port - jax| <=
-1e-3 * max|jax| per output.
+One set of variables per net (the port's seeded weights as a flax tree,
+``torch_port.variables_from_port``), carried back into the port with
+``load_jax_variables``, with the trunk at block config (2, 2, 2, 2) (``torch_port.reduced_depth``;
+the nets' weight mapping, patch choice and heads are those of full depth,
+which the card runs in ``chip_smoke.py``). Random-init outputs are large, so
+the bound is relative: max|port - jax| <= 1e-3 * max|jax| per output.
 """
 import jax
 import numpy as np
 import pytest
 import torch
+from torch_port import reduced_depth, torch_threads, variables_from_port  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
@@ -36,13 +40,14 @@ def legacy(request):
     rng = np.random.default_rng(0)
     left = rng.standard_normal(SHAPE, dtype=np.float32)
     right = rng.standard_normal(SHAPE, dtype=np.float32)
-    model = jmodels.get_network(jcfg)
-    variables = jax.jit(lambda k, a, b: model.init({"params": k}, a, b, train=False))(
-        jax.random.PRNGKey(0), left, right)
-    out = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))(variables, left, right)
-    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    port = tmodels.get_network(tcfg, device="cpu")
-    tmodels.load_jax_variables(port, as_np(variables["params"]), as_np(variables["batch_stats"]))
+    with reduced_depth():
+        model = jmodels.get_network(jcfg)
+        port = tmodels.get_network(tcfg, device="cpu")
+        variables = variables_from_port(
+            port, lambda k, a, b: model.init({"params": k}, a, b, train=False),
+            jax.random.PRNGKey(0), left, right)
+        out = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))(variables, left, right)
+    tmodels.load_jax_variables(port, variables["params"], variables["batch_stats"])
     with torch.inference_mode():
         got = port(torch.from_numpy(left), torch.from_numpy(right))
     return {"ref": {k: np.asarray(out[k]) for k in OUTPUTS},
@@ -61,7 +66,7 @@ def test_legacy_train_mode_forward_raises(legacy):
     port = legacy["port"]
     x = torch.zeros(SHAPE)
     try:
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6.3"):
             port.train()(x, x)
     finally:
         port.eval()

@@ -1,15 +1,18 @@
 """The port's ``sdnet_mini`` (MiniDSNet) eval forward, with ``1dcorr`` and
 ``2dcorr``, against the JAX model at 1x64x128, fp32 on the CPU.
 
-One JAX init per correlation type, carried into the port with
-``load_jax_variables``; the JAX model runs with ``s2d_heads`` on and off
-(the same variables fit both). The bound is relative: max|port - jax| <=
+One set of variables per correlation type (the port's seeded weights as a
+flax tree, ``torch_port.variables_from_port``), carried back into the port
+with ``load_jax_variables``, with the trunk at block config (2, 2, 2, 2)
+(``torch_port.reduced_depth``); the JAX model runs with ``s2d_heads`` on and
+off (the same variables fit both). The bound is relative: max|port - jax| <=
 1e-3 * max|jax| per output.
 """
 import jax
 import numpy as np
 import pytest
 import torch
+from torch_port import reduced_depth, torch_threads, variables_from_port  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
@@ -27,23 +30,24 @@ def mini(request):
     left = rng.standard_normal(SHAPE, dtype=np.float32)
     right = rng.standard_normal(SHAPE, dtype=np.float32)
     refs, variables = {}, None
-    for s2d in (True, False):
-        cfg = JaxConfig()
+    with reduced_depth():
+        cfg = PMTConfig()
         cfg.model.net = "sdnet_mini"
         cfg.model.corr_type = request.param
-        cfg.model.s2d_heads = s2d
-        model = jmodels.get_network(cfg)
-        if variables is None:
-            variables = jax.jit(lambda k, a, b: model.init({"params": k}, a, b, train=False))(
-                jax.random.PRNGKey(0), left, right)
-        out = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))(variables, left, right)
-        refs[s2d] = {k: np.asarray(out[k]) for k in OUTPUTS}
-    cfg = PMTConfig()
-    cfg.model.net = "sdnet_mini"
-    cfg.model.corr_type = request.param
-    port = tmodels.get_network(cfg, device="cpu")
-    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    tmodels.load_jax_variables(port, as_np(variables["params"]), as_np(variables["batch_stats"]))
+        port = tmodels.get_network(cfg, device="cpu")
+        for s2d in (True, False):
+            cfg = JaxConfig()
+            cfg.model.net = "sdnet_mini"
+            cfg.model.corr_type = request.param
+            cfg.model.s2d_heads = s2d
+            model = jmodels.get_network(cfg)
+            if variables is None:
+                variables = variables_from_port(
+                    port, lambda k, a, b: model.init({"params": k}, a, b, train=False),
+                    jax.random.PRNGKey(0), left, right)
+            out = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False))(variables, left, right)
+            refs[s2d] = {k: np.asarray(out[k]) for k in OUTPUTS}
+    tmodels.load_jax_variables(port, variables["params"], variables["batch_stats"])
     with torch.inference_mode():
         got = port(torch.from_numpy(left), torch.from_numpy(right))
     return {"refs": refs, "got": {k: v.numpy() for k, v in got.items()}, "port": port}
