@@ -7,13 +7,16 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
 
 1. print the card's name and power limit; build every CUDA kernel of the
    port from the sources in this checkout (one nvcc per source, in parallel)
-   and count the tensor-core instructions (HMMA) in each library's SASS;
+   and read each library's SASS;
 2. hold each kernel (corr1d, corr2d) against its plain PyTorch version on
    the card at the main path's shape in fp32 and bf16 and at edge shapes
-   (TF32 off), and time both at the main shape;
+   (TF32 off), time both at the main shape, and count the tensor-core
+   instructions (HMMA) in the SASS of its bf16 function;
    hold corr1d's backward kernel against ``correlation1d_vjp_plain`` the
-   same way, at the training shape per view, the serving shape and edge
-   shapes, and the gradients that ``torch.autograd.grad`` takes through
+   same way (``BACKWARD_CASES``: the training shape per view, the serving
+   shape and edge shapes of its transposed band), count HMMA in its own
+   bf16 function, time it warm and with the L2 flushed before each launch,
+   and hold the gradients that ``torch.autograd.grad`` takes through
    ``correlation`` (forward kernel, then backward kernel) at the training
    shape;
 3. hold the eval forward on the card against the same model with the same
@@ -48,7 +51,10 @@ only serves one net (phase 4 or 5, with 10 batches) and prints its time,
 and ``python3 chip_smoke.py --train`` only trains (phase 6, 2 warm-up and
 10 timed steps): copied into the root of another checkout, it times that
 checkout's code the same way, so two commits can be compared in turns in
-one call.
+one call; ``python3 chip_smoke.py --backward`` does the same for corr1d's
+backward kernel (its four timed cases of phase 2, without the HMMA count).
+``python3 chip_smoke.py --kernels`` runs phases 1 and 2 only and prints the
+kernels' record but no result line.
 """
 from __future__ import annotations
 
@@ -85,17 +91,37 @@ TRAIN_LOSSES = ("cross_entropy", "lovasz_loss", "tversky_loss", "ohm_loss")
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 352)  # a_py2 of one view
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 # corr1d's backward against correlation1d_vjp_plain: the training shape per
-# view (main path), the serving shape, and edge shapes (W against the
-# 32-column block and its 8-column halo, C against the 32-channel block, a
-# storage offset of 2 elements)
+# view (main path) and the serving shape in both dtypes, then edge shapes of
+# the bf16 transposed band (64-column tiles with an 8-column halo, 64-channel
+# boxes) and of the fp32 tile (64 columns x 64 channels, 4 channels a
+# thread), with an element offset of the inputs' storage where one is given
 BACKWARD_CASES = [
     (TRAIN_SHAPE, torch.float32), (TRAIN_SHAPE, torch.bfloat16),
     (CORR_SHAPE, torch.float32), (CORR_SHAPE, torch.bfloat16),
-    ((2, 3, 16, 64), torch.bfloat16), ((2, 3, 17, 64), torch.float32),
-    ((1, 3, 65, 64), torch.bfloat16), ((1, 2, 9, 20), torch.float32),
-    ((2, 3, 40, 24), torch.bfloat16), ((1, 3, 70, 360), torch.bfloat16),
-    ((2, 3, 70, 352), torch.bfloat16, 2), ((2, 3, 33, 37), torch.float32, 1),
+    ((1, 3, 63, 64), torch.bfloat16),       # W against the 64-column tile and its halo:
+    ((1, 3, 64, 64), torch.bfloat16),       # one tile short, one tile, one column over,
+    ((1, 3, 65, 64), torch.bfloat16),       # the serving width, two whole tiles
+    ((2, 3, 120, 64), torch.bfloat16),
+    ((1, 3, 128, 64), torch.bfloat16),
+    ((2, 3, 16, 64), torch.bfloat16),       # W < 17: the halo is wider than the map
+    ((1, 2, 9, 20), torch.bfloat16),        # W < 17 and C % 8 != 0: element staging
+    ((2, 3, 40, 24), torch.bfloat16),       # C < 64: one box, clipped by the copy engine
+    ((1, 3, 70, 352), torch.bfloat16),      # C = 352: a last box of 32 channels
+    ((1, 3, 70, 360), torch.bfloat16),      # C = 360: a last box of 40 channels
+    ((2, 3, 33, 37), torch.bfloat16),       # C % 8 != 0: element staging and stores
+    ((2, 3, 70, 352), torch.bfloat16, 1),   # inputs off 16-byte alignment: element
+    ((2, 3, 70, 352), torch.bfloat16, 2),   # staging and stores
+    ((1, 2, 9, 20), torch.float32),         # fp32: W < 17, C % 4 == 0 (float4 staging)
+    ((2, 3, 17, 64), torch.float32),        # W = 17
+    ((1, 3, 65, 64), torch.float32),        # one column past the 64-column tile
+    ((1, 3, 130, 360), torch.float32),      # three tiles, a 40-channel tail
+    ((2, 3, 33, 37), torch.float32),        # C % 4 != 0: element staging and stores
+    ((2, 3, 65, 36), torch.float32, 1),     # inputs off 16-byte alignment
+    ((2, 3, 33, 37), torch.float32, 1),
 ]
+# bytes written between two launches to flush the card's 50 MB L2 (the
+# "cold" backward times)
+FLUSH_BYTES = 256 * 2**20
 
 # kernel -> (wrapper in ops/correlation.py, the TPU kernel it replaces, edge
 # shapes with their dtypes, and an element offset of both inputs' storage
@@ -176,23 +202,37 @@ def wrapper(name: str):
 
 
 def phase_build():
+    """Build every kernel library; returns {library: its SASS}."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.ops import _kernels
 
     t0 = time.perf_counter()
     paths = _kernels.build()
     print(f"[build] {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()), flush=True)
-    # tensor-core instructions in each library's machine code: the bf16 band
-    # tile's mma.sync compiles to HMMA
     cuobjdump = shutil.which("cuobjdump") or str(Path(_kernels._nvcc()).parent / "cuobjdump")
-    hmma = {}
-    for name, path in paths.items():
-        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
-                              check=True, timeout=120).stdout
-        hmma[name] = sum("HMMA" in line or "HGMMA" in line for line in sass.splitlines())
-        print(f"[sass] {name}: {hmma[name]} HMMA/HGMMA instructions ({path.name})", flush=True)
-        check(hmma[name] > 0, f"{name}: no tensor-core instruction in {path.name}")
-    return hmma
+    return {name: subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                                 check=True, timeout=120).stdout
+            for name, path in paths.items()}
+
+
+def hmma_count(sass: dict, library: str, function: str) -> int:
+    """Tensor-core instructions (HMMA/HGMMA) in the machine code of the
+    library's functions whose (mangled) name holds ``function``; fails if
+    there are none. The bf16 band tiles' mma.sync compiles to HMMA."""
+    counts, current = {}, None
+    for line in sass[library].splitlines():
+        if line.strip().startswith("Function :"):
+            current = line.split(":", 1)[1].strip()
+            if function in current:
+                counts[current] = 0
+        elif current in counts and ("HMMA" in line or "HGMMA" in line):
+            counts[current] += 1
+    total = sum(counts.values())
+    print(f"[sass] {library} {function}: {total} HMMA/HGMMA instructions in "
+          f"{len(counts)} function(s) ({', '.join(f'{v}' for v in counts.values())})", flush=True)
+    check(all(counts.values()) and counts,
+          f"{library}: no tensor-core instruction in a function named *{function}*")
+    return total
 
 
 def inputs(shape, dtype, g, offset: int = 0):
@@ -203,7 +243,7 @@ def inputs(shape, dtype, g, offset: int = 0):
     return torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:].view(shape)
 
 
-def phase_kernel(name: str, sass_hmma: dict):
+def phase_kernel(name: str, sass: dict):
     """One kernel against correlation_plain; returns its JSON record
     (without the main path's launch count)."""
     correlation = correlation_module()
@@ -247,18 +287,46 @@ def phase_kernel(name: str, sass_hmma: dict):
                       "bound_ms": bound_ms,
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                       "library_ms": None, "share_of_bound": bound_ms / ms,
-                      "sass_hmma": sass_hmma[name]}
+                      "sass_hmma": hmma_count(sass, name, f"{name}_band_kernel")}
         del out, ref
     return record
 
 
-def phase_backward(sass_hmma: dict):
-    """corr1d's backward kernel against correlation1d_vjp_plain; returns its
-    JSON record (without the main path's launch count), timed at the
-    training shape per view in bf16."""
+def event_time_ms(fn, iters: int, flush: bool, warmup: int = 3):
+    """(mean, median) ms of ``fn``, each launch timed by its own pair of
+    events behind a ~0.2 ms spin of the card, so that the launch waits on the
+    card and not on the host's call; with ``flush``, the L2 is flushed
+    before each launch (FLUSH_BYTES written)."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda") if flush else None
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        if flush:
+            buf.zero_()
+        torch.cuda._sleep(400_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in events)
+    return sum(times) / iters, times[iters // 2]
+
+
+def phase_backward(sass: dict, cases=BACKWARD_CASES, autograd: bool = True):
+    """corr1d's backward kernel against correlation1d_vjp_plain at ``cases``;
+    returns its JSON record (without the main path's launch count): the bf16
+    function's HMMA count (``sass`` None: not counted), and its times at the
+    training shape per view in bf16 with the L2 flushed before each launch
+    (``ms``, the time compared with the byte bound), warm (``ms_warm``, each
+    launch timed by its own events) and back to back (``ms_back_to_back``,
+    which at this shape measures the wrapper's host time)."""
     correlation = correlation_module()
     kernel, plain = correlation.correlation1d_backward_cuda, correlation.correlation1d_vjp_plain
     pw = correlation.KERNEL_PATCH["corr1d"][1]
+    hmma = hmma_count(sass, "corr1d", "corr1d_bwd_band_kernel") if sass else None
     g = torch.Generator(device="cuda").manual_seed(3)
     # fp32: summation order only; bf16: the outputs' bf16 rounding (the plain
     # version also rounds each product to bf16)
@@ -277,7 +345,7 @@ def phase_backward(sass_hmma: dict):
         return errs
 
     record = {}
-    for shape, dtype, *offset in BACKWARD_CASES:
+    for shape, dtype, *offset in cases:
         f1, f2 = (inputs(shape, dtype, g, *offset) for _ in range(2))
         grad = inputs(tuple(shape[:3]) + (pw,), dtype, g, *offset)
         got = kernel(f1, f2, grad)
@@ -287,29 +355,42 @@ def phase_backward(sass_hmma: dict):
                     f1.shape, dtype)
         if offset or shape not in (TRAIN_SHAPE, CORR_SHAPE):
             continue
-        ms = cuda_time_ms(lambda: kernel(f1, f2, grad), iters=50)
+        # back to back (as the forward kernels are timed): the card's time
+        # per launch, or the wrapper's host time where that is longer
+        b2b_ms = cuda_time_ms(lambda: kernel(f1, f2, grad), iters=50)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            kernel(f1, f2, grad)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 50
+        torch.cuda.synchronize()
+        warm_ms, warm_median = event_time_ms(lambda: kernel(f1, f2, grad), 50, flush=False)
+        ms, median_ms = event_time_ms(lambda: kernel(f1, f2, grad), 50, flush=True)
         plain_ms = cuda_time_ms(lambda: plain(f1, f2, grad, pw), iters=3, warmup=1)
-        # read f1, f2 and g once, write df1 and df2 once
+        # read f1, f2 and g once, write df1 and df2 once; the useful products
+        # at the dtype's peak
         nbytes = (4 * f1.numel() + grad.numel()) * f1.element_size()
         ops = 2 * 2 * grad.numel() * shape[-1]
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_PEAK_OPS[torch.float32] * 1e3
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_PEAK_OPS[dtype] * 1e3
         bound_ms = max(t_bytes, t_ops)
-        print(f"[corr1d backward] {tuple(shape)} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} "
-              f"GFLOP on the CUDA cores), {bound_ms / ms:.1%} of the bound", flush=True)
+        print(f"[corr1d backward] {tuple(shape)} {str(dtype)[6:]}: kernel {ms:.4f} ms with the L2 "
+              f"flushed (median {median_ms:.4f}), {warm_ms:.4f} ms warm (median {warm_median:.4f}), "
+              f"{b2b_ms:.4f} ms a launch back to back (host {host_ms:.4f} ms a call), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP), {bound_ms / ms:.1%} of the bound flushed, "
+              f"{bound_ms / warm_ms:.1%} warm", flush=True)
         if shape == TRAIN_SHAPE and dtype == torch.bfloat16:  # the training path's
             record = {"name": "corr1d_backward", "route": "cuda",
                       "source": f"{PORT}/csrc/corr1d.cu",
                       "replaces": f"{TPU_CORR}:320", "max_abs_err": max(errs), "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "ms_warm": warm_ms, "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms,
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "library_ms": None, "share_of_bound": bound_ms / ms,
-                      "sass_hmma": sass_hmma["corr1d"]}
+                      "library_ms": None, "share_of_bound": bound_ms / ms, "sass_hmma": hmma}
         del got
     # the autograd wiring the train step runs: the gradients of the
     # dispatcher the models call (corr1d's forward kernel, then the backward
     # kernel from _Corr1dCuda.backward) against the plain VJP
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if autograd else ():
         f1, f2 = (inputs(TRAIN_SHAPE, dtype, g).requires_grad_() for _ in range(2))
         grad = inputs(TRAIN_SHAPE[:3] + (pw,), dtype, g)
         before = kernel.launches
@@ -604,6 +685,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net and time it")
     ap.add_argument("--train", action="store_true", help="only train the flagship and time it")
+    ap.add_argument("--backward", action="store_true",
+                    help="only hold corr1d's backward against its plain version at the "
+                         "training and serving shapes and time it")
+    ap.add_argument("--kernels", action="store_true",
+                    help="only build the kernels and hold them against their plain versions "
+                         "(phases 1-2); prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -615,20 +702,25 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.serve or args.train:
+    if args.serve or args.train or args.backward:
         try:
             if args.serve:
                 phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1])
-            else:
+            elif args.train:
                 phase_train(TRAIN_WARMUP, 10, card)
+            else:
+                phase_backward(None, BACKWARD_CASES[:4], autograd=False)
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         return 0
     try:
-        hmma = phase_build()
-        records = {name: phase_kernel(name, hmma) for name in KERNELS}
-        records["corr1d_backward"] = phase_backward(hmma)
+        sass = phase_build()
+        records = {name: phase_kernel(name, sass) for name in KERNELS}
+        records["corr1d_backward"] = phase_backward(sass)
+        if args.kernels:
+            print(json.dumps({"kernels": list(records.values())}), flush=True)
+            return 0
         for net, corr_type in (("sdnet_mini_ext", "1dcorr"), ("sdnet", "2dcorr"),
                                ("sdnet_mini_ext", "2dcorr")):
             phase_small_forward(net, corr_type)

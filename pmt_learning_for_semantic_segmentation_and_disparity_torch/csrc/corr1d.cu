@@ -38,19 +38,53 @@
 //   df1[b,y,x,c]  = sum_d g[b,y,x,d]        * f2[b,y,x+d-8,c],
 //   df2[b,y,x',c] = sum_d g[b,y,x'-d+8,d]   * f1[b,y,x'-d+8,c],
 //
-// zero terms outside [0,W). Both in gather form: each output element is one
-// thread's sum, so there are no atomics and the result is deterministic.
+// zero terms outside [0,W). Each output element is one sum, owned by one
+// thread: no atomics, deterministic.
+//
 // Bound: it must read f1, f2 and g and write df1 and df2 once; at the
 // flagship's training shape per view, (8,32,64,352) bf16, that is 46.7 MB,
-// 14 us at 3.35 TB/s, while the 0.4 GFLOP of products are far below the
-// CUDA cores' rate. Design (a simple CUDA-core kernel; a tensor-core
-// transposed band is later work): one block per (b, y) row, 32 columns and
-// 32 channels stages the f1 and f2 windows with their 8-column halo (48
-// columns, zero outside the image) and g's 48 x 17 window in shared memory as
-// fp32; each thread owns one channel and 4 adjacent columns of both df1 and
-// df2 (8 fp32 sums in registers), reads each of the 20 window columns of f1
-// and f2 it needs once, and takes g as a warp-wide broadcast. Sums in fp32,
-// stored in the input dtype.
+// 14 us at 3.35 TB/s, half of it written. The 0.39 GFLOP of useful products
+// are 0.4 us on the tensor cores. So it is bound by bytes, the stores as much
+// as the loads; at 46.7 MB the working set nearly fills the 50 MB L2, so back
+// to back launches run warmer than the training step's.
+//
+// bf16: a transposed band on the tensor cores. Fix one image row (b, y) and a
+// tile of 64 output columns x0 .. x0+63; window column k in [0, 80) is image
+// column x0-8+k, and F1w, F2w are f1's and f2's 80-column windows (zero
+// outside [0, W) and past C). For the 16-column slab m in {0,1,2,3}, with r
+// the tile's output column in [16m, 16m+16) and k in [16m, 16m+32):
+//
+//   df1[x0+r, :] = sum_k A1[r,k] * F2w[k, :],  A1[r,k] = g[x0+r,   k-r]
+//   df2[x0+r, :] = sum_k A2[r,k] * F1w[k, :],  A2[r,k] = g[x0-8+k, r-k+16]
+//
+// both zero unless 0 <= k-r <= 16 (and g read as zero outside [0, W)): a
+// 16 x 32 A tile, two m16n8k16 k-steps, 32/17 = 1.9x the useful products.
+// One block per (b, y, tile): 8 consumer warps, warp w takes slab w % 4 of
+// df1 (w < 4, B from F2w) or of df2 (w >= 4, B from F1w), and 1 producer
+// warp. The producer walks the 64-channel boxes through a ring of stages
+// (corr_band.cuh's mbarrier protocol), one tiled TMA copy of F1w's and one of
+// F2w's 80 x 64 box per stage, in the 128-byte swizzle; the copy engine
+// zero-fills the halo and the channel tail. g's 80 x 17 window (its 34-byte
+// pixel stride is no tensor-map stride) is read once per block with element
+// loads, and each consumer warp builds its A fragments from it once, in
+// registers, with the band mask applied: 8 registers reused for every box.
+// B fragments come from the box with ldmatrix.x4.trans (K = window column
+// runs along the box's rows; 8 consecutive columns are 8 distinct swizzle
+// rows, so no bank conflicts). The sum runs over k, inside one box, so each
+// box's 16 x 64 slab is finished at once: converted to bf16 into the warp's
+// swizzled 2 KB output box (two of them, alternating) and written out with a
+// TMA store of 16 columns x 64 channels, which drops columns >= W and channels
+// >= C; the warp waits for the store's reads only before reusing that box.
+// Inputs a tensor map cannot take (vec = 0: C % 8 != 0, or a pointer off
+// 16-byte alignment) take the same kernel with the producer staging both
+// windows by element loads into the same layout and the consumers storing by
+// element stores.
+//
+// fp32 (no TF32: it would break the 1e-4 tolerance): CUDA cores, gather form.
+// A block stages 80 columns x 64 channels of f1 and f2 (64 output columns with
+// the 8-column halo) and g's 80 x 17 window in shared memory; a thread owns
+// 4 adjacent channels (one float4 of the window) of 4 adjacent columns of df1
+// and df2, so each broadcast of a g value feeds 4 FMAs.
 #include "corr_band.cuh"
 #include "corr_tile.cuh"
 
@@ -119,84 +153,327 @@ int launch<band::bf16>(const void* f1, const void* f2, void* out, int B, int H, 
 
 namespace bwd {
 
-constexpr int kBX = 32;                   // output columns per block
-constexpr int kBC = 32;                   // channels per block: one warp's lanes
-constexpr int kHalo = corr::kPW / 2;      // 8
-constexpr int kWin = kBX + 2 * kHalo;     // window columns staged (48)
-constexpr int kRun = 4;                   // adjacent output columns per thread
-constexpr int kThreads = kBC * (kBX / kRun);  // 256
+using band::bf16;
+constexpr int kPW = band::kPW;
+constexpr int kHalo = kPW / 2;            // 8
+constexpr int kCC = band::kCC;            // channels per box
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const band::bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(band::bf16* p, float v) { *p = __float2bfloat16(v); }
+// ---- bf16: the transposed band ----
+constexpr int kSlab = 16;                 // output columns per consumer warp
+constexpr int kWinBox = band::kF2Box;     // one window box: 80 columns x 64 channels (10 KB)
+constexpr int kOutBox = kSlab * kCC * 2;  // one warp's output box: 16 columns x 64 channels (2 KB)
+constexpr int kGBytes = (band::kWin * kPW * 2 + 127) / 128 * 128;  // g's 80 x 17 window
+// channel groups a row tile's boxes are split over, one block each: one
+// block walks all of them (2, 3 or 6 groups measured slower, PERF.md §6)
+constexpr int kGroups = 1;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-corr1d_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, const T* __restrict__ g,
-                  T* __restrict__ df1, T* __restrict__ df2, int H, int W, int C, int n_ctiles) {
-  constexpr int kPW = corr::kPW;
-  // window column j holds image column x0 - kHalo + j
-  __shared__ float s1[kWin][kBC];
-  __shared__ float s2[kWin][kBC];
-  __shared__ float sg[kWin][kPW];
-  const int x0 = (blockIdx.x / n_ctiles) * kBX;
-  const int c0 = (blockIdx.x % n_ctiles) * kBC;
-  const size_t row = (size_t)blockIdx.z * H + blockIdx.y;
-  const size_t base = row * W * C;
-  for (int i = threadIdx.x; i < kWin * kBC; i += kThreads) {
-    const int j = i / kBC, c = i % kBC, x = x0 - kHalo + j;
-    const bool in = x >= 0 && x < W && c0 + c < C;
-    const size_t off = base + (size_t)x * C + c0 + c;
-    s1[j][c] = in ? ld(f1 + off) : 0.f;
-    s2[j][c] = in ? ld(f2 + off) : 0.f;
-  }
-  const T* grow = g + row * W * kPW;
-  for (int i = threadIdx.x; i < kWin * kPW; i += kThreads) {
-    const int j = i / kPW, d = i % kPW, x = x0 - kHalo + j;
-    sg[j][d] = (x >= 0 && x < W) ? ld(grow + (size_t)x * kPW + d) : 0.f;
+// [ns stages: F1w box, F2w box][2 output boxes per consumer warp][g][barriers],
+// with 1 KB of slack to align the boxes to the swizzle's 1024 bytes
+inline size_t smem_bytes(int ns) {
+  return 1024 + (size_t)ns * 2 * kWinBox + band::kConsumers * 2 * kOutBox + kGBytes +
+         2 * band::kMaxStages * 8;
+}
+
+template <bool kTma>
+__global__ void __launch_bounds__(band::kThreads, 2)
+corr1d_bwd_band_kernel(const __grid_constant__ CUtensorMap tm1,
+                       const __grid_constant__ CUtensorMap tm2,
+                       const __grid_constant__ CUtensorMap td1,
+                       const __grid_constant__ CUtensorMap td2, const bf16* __restrict__ f1,
+                       const bf16* __restrict__ f2, const bf16* __restrict__ g,
+                       bf16* __restrict__ df1, bf16* __restrict__ df2, int H, int W, int C,
+                       int groups, int ns) {
+  using namespace band;
+  extern __shared__ unsigned char smem_raw[];
+  const int nb = (C + kCC - 1) / kCC;
+  const int per = (nb + groups - 1) / groups;  // boxes per channel group
+  const int q0 = (blockIdx.x % groups) * per;
+  const int items = min(nb, q0 + per) - q0;    // this block's boxes
+  if (items <= 0) return;
+  const int x0 = (blockIdx.x / groups) * kTX;
+  const int y = blockIdx.y, b = blockIdx.z;
+  const size_t row = ((size_t)b * H + y) * W;  // the row's first pixel
+
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* obox = ring + (size_t)ns * 2 * kWinBox;
+  bf16* sg = reinterpret_cast<bf16*>(obox + kConsumers * 2 * kOutBox);
+  uint64_t* full = reinterpret_cast<uint64_t*>(obox + kConsumers * 2 * kOutBox + kGBytes);
+  uint64_t* empty = full + kMaxStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int c = threadIdx.x % kBC;
-  const int xs = (threadIdx.x / kBC) * kRun;  // this thread's first column, local
-  float a1[kRun] = {}, a2[kRun] = {};
+  if (warp == kConsumers) {
+    // ---- producer: stage j = box q0 + j, F1w then F2w ----
+    for (int j = 0; j < items; ++j) {
+      const int s = j % ns;
+      const int u = j / ns;
+      if (u > 0) mbar_wait(&empty[s], (u - 1) & 1);  // the consumers have released it
+      unsigned char* st = ring + (size_t)s * 2 * kWinBox;
+      const int c0 = (q0 + j) * kCC;
+      if (kTma) {
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * kWinBox);
+          tma_load(st, &tm1, c0, x0 - kHalo, y, b, &full[s]);
+          tma_load(st + kWinBox, &tm2, c0, x0 - kHalo, y, b, &full[s]);
+        }
+      } else {
+        copy_box(st, f1 + row * C, x0 - kHalo, kWin, W, C, c0, lane);
+        copy_box(st + kWinBox, f2 + row * C, x0 - kHalo, kWin, W, C, c0, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  // g's window: column j is image column x0 - 8 + j, zero outside [0, W)
+  for (int i = threadIdx.x; i < kWin * kPW; i += kConsumers * 32) {
+    const int x = x0 - kHalo + i / kPW;
+    sg[i] = (x >= 0 && x < W) ? g[(row + x) * kPW + i % kPW] : __float2bfloat16(0.f);
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");  // consumers only
+
+  const int m = warp & 3;       // slab: output columns 16m .. 16m+15 of the tile
+  const int t = warp >> 2;      // 0: df1 (B from F2w), 1: df2 (B from F1w)
+  const int gid = lane >> 2, tig = lane & 3;
+  // A fragments of the slab's two k-steps (k = 16m + kk, kk in [0, 32)):
+  // register i holds row gid + 8(i&1), columns 8(i>>1) + 2 tig + {0, 1}
+  uint32_t afrag[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = gid + 8 * (i & 1);  // slab-local output column
+      bf16 v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kk = 16 * ks + 8 * (i >> 1) + 2 * tig + e;
+        const int dd = kk - r;  // k - r: df1's shift, 16 - df2's
+        v[e] = __float2bfloat16(0.f);
+        if (dd >= 0 && dd < kPW)
+          v[e] = t == 0 ? sg[(16 * m + r + kHalo) * kPW + dd] : sg[(16 * m + kk) * kPW + kPW - 1 - dd];
+      }
+      const __nv_bfloat162 p = __halves2bfloat162(v[0], v[1]);
+      afrag[ks][i] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  // ldmatrix.trans rows of this lane: window column 16m + 16ks + kr, channels
+  // 16np + cb .. +7 (matrices: k 0-7 / 8-15 x channels 0-7 / 8-15)
+  const int kr = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int cb = (lane >> 4) * 8;
+
+  for (int j = 0; j < items; ++j) {
+    const int s = j % ns;
+    mbar_wait(&full[s], (j / ns) & 1);
+    const uint32_t bx = smem_u32(ring + (size_t)s * 2 * kWinBox + (t == 0 ? kWinBox : 0));
+    float acc[kCC / 8][4];
+#pragma unroll
+    for (int n = 0; n < kCC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int np = 0; np < kCC / 16; ++np) {
+        uint32_t bfrag[4];
+        ldmatrix_x4_trans(bfrag, bx + swz(16 * m + 16 * ks + kr, 16 * np + cb));
+        mma_bf16(acc[2 * np], afrag[ks], bfrag[0], bfrag[1]);
+        mma_bf16(acc[2 * np + 1], afrag[ks], bfrag[2], bfrag[3]);
+      }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done reading stage s
+
+    // the slab of box q0 + j is complete: accumulator (row, column) of n-tile
+    // n is output column x0 + 16m + row, channel c0 + 8n + column
+    const int c0 = (q0 + j) * kCC;
+    if (x0 + 16 * m >= W) continue;  // the whole slab lies past the image
+    if (kTma) {
+      // the two boxes of each tensor hold its 4 slabs side by side
+      unsigned char* ob = obox + ((t * 2 + (j & 1)) * 4 + m) * kOutBox;
+      if (lane == 0) bulk_wait_read<1>();  // the store of box j - 2 has read ob
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < kCC / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(ob + swz(gid + 8 * h, 8 * n + 2 * tig)) =
+              __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) {
+        tma_store(t == 0 ? &td1 : &td2, ob, c0, x0 + 16 * m, y, b);
+        bulk_commit();
+      }
+    } else {
+      bf16* out = (t == 0 ? df1 : df2) + row * C;
+#pragma unroll
+      for (int n = 0; n < kCC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = x0 + 16 * m + gid + 8 * (e >> 1);
+          const int c = c0 + 8 * n + 2 * tig + (e & 1);
+          if (x < W && c < C) out[(size_t)x * C + c] = __float2bfloat16(acc[n][e]);
+        }
+    }
+  }
+  if (kTma && lane == 0) bulk_wait<0>();  // the stores are done before the block ends
+}
+
+int launch_bf16(const void* f1, const void* f2, const void* g, void* df1, void* df2, int B, int H,
+                int W, int C, bool vec, cudaStream_t stream) {
+  const int nb = (C + kCC - 1) / kCC;
+  const int per = (nb + min(kGroups, nb) - 1) / min(kGroups, nb);
+  const int groups = (nb + per - 1) / per;  // no group left empty
+  int ns = min(per, band::kMaxStages);
+  while (ns > 1 && smem_bytes(ns) > kSmemBudget) --ns;
+  // vec (C a multiple of 8, 16-byte aligned tensors) is what a tensor map takes
+  CUtensorMap tm1{}, tm2{}, td1{}, td2{};
+  if (vec) {
+    cudaError_t err = band::tensor_map(&tm1, f1, B, H, W, C, band::kWin);
+    if (err == cudaSuccess) err = band::tensor_map(&tm2, f2, B, H, W, C, band::kWin);
+    if (err == cudaSuccess) err = band::tensor_map(&td1, df1, B, H, W, C, kSlab);
+    if (err == cudaSuccess) err = band::tensor_map(&td2, df2, B, H, W, C, kSlab);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto kernel = vec ? corr1d_bwd_band_kernel<true> : corr1d_bwd_band_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem_bytes(ns));
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(((W + band::kTX - 1) / band::kTX) * groups, H, B);
+  kernel<<<grid, band::kThreads, smem_bytes(ns), stream>>>(
+      tm1, tm2, td1, td2, static_cast<const bf16*>(f1), static_cast<const bf16*>(f2),
+      static_cast<const bf16*>(g), static_cast<bf16*>(df1), static_cast<bf16*>(df2), H, W, C,
+      groups, ns);
+  return (int)cudaGetLastError();
+}
+
+// ---- fp32: CUDA cores ----
+constexpr int kFX = 64;                   // output columns per block
+constexpr int kFC = 64;                   // channels per block
+constexpr int kFWin = kFX + 2 * kHalo;    // window columns staged (80)
+constexpr int kRun = 4;                   // adjacent output columns per thread
+constexpr int kQ = 4;                     // adjacent channels per thread: one float4
+constexpr int kFThreads = (kFC / kQ) * (kFX / kRun);  // 256
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFThreads)
+corr1d_bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                       const float* __restrict__ g, float* __restrict__ df1,
+                       float* __restrict__ df2, int H, int W, int C, int n_ctiles) {
+  // window column j holds image column x0 - kHalo + j
+  __shared__ __align__(16) float s1[kFWin][kFC];
+  __shared__ __align__(16) float s2[kFWin][kFC];
+  __shared__ float sg[kFWin][kPW];
+  const int x0 = (blockIdx.x / n_ctiles) * kFX;
+  const int c0 = (blockIdx.x % n_ctiles) * kFC;
+  const size_t row = (size_t)blockIdx.z * H + blockIdx.y;
+  const size_t base = row * W * C;
+  // kVec: C a multiple of 4 and 16-byte aligned tensors, so a quad of
+  // channels is all in or all out of [0, C)
+  for (int i = threadIdx.x; i < kFWin * kFC / kQ; i += kFThreads) {
+    const int j = i / (kFC / kQ), c = (i % (kFC / kQ)) * kQ, x = x0 - kHalo + j;
+    const bool in = x >= 0 && x < W;
+    const size_t off = base + (size_t)x * C + c0 + c;
+    float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f), v2 = v1;
+    if (kVec) {
+      if (in && c0 + c < C) {
+        v1 = *reinterpret_cast<const float4*>(f1 + off);
+        v2 = *reinterpret_cast<const float4*>(f2 + off);
+      }
+    } else {
+      float* p1 = &v1.x;
+      float* p2 = &v2.x;
+#pragma unroll
+      for (int e = 0; e < kQ; ++e)
+        if (in && c0 + c + e < C) {
+          p1[e] = f1[off + e];
+          p2[e] = f2[off + e];
+        }
+    }
+    *reinterpret_cast<float4*>(&s1[j][c]) = v1;
+    *reinterpret_cast<float4*>(&s2[j][c]) = v2;
+  }
+  const float* grow = g + row * W * kPW;
+  for (int i = threadIdx.x; i < kFWin * kPW; i += kFThreads) {
+    const int j = i / kPW, d = i % kPW, x = x0 - kHalo + j;
+    sg[j][d] = (x >= 0 && x < W) ? grow[(size_t)x * kPW + d] : 0.f;
+  }
+  __syncthreads();
+
+  const int c = (threadIdx.x % (kFC / kQ)) * kQ;
+  const int xs = (threadIdx.x / (kFC / kQ)) * kRun;  // this thread's first column, local
+  float4 a1[kRun], a2[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) a1[r] = a2[r] = make_float4(0.f, 0.f, 0.f, 0.f);
   // Output column xs + r (window column xs + r + kHalo) meets window column
   // xs + k: as f2 column x + d - 8 of df1's shift d = k - r, and as the
   // source column x' - d + 8 of df2's shift d = r - k + 2 * kHalo. Both
   // conditions are fixed at compile time once the loops unroll.
 #pragma unroll
   for (int k = 0; k < kRun + 2 * kHalo; ++k) {
-    const float v1 = s1[xs + k][c];
-    const float v2 = s2[xs + k][c];
+    const float4 v1 = *reinterpret_cast<const float4*>(&s1[xs + k][c]);
+    const float4 v2 = *reinterpret_cast<const float4*>(&s2[xs + k][c]);
 #pragma unroll
     for (int r = 0; r < kRun; ++r) {
       const int d1 = k - r;
-      if (d1 >= 0 && d1 < kPW) a1[r] = fmaf(sg[xs + r + kHalo][d1], v2, a1[r]);
+      if (d1 >= 0 && d1 < kPW) {
+        const float w = sg[xs + r + kHalo][d1];
+        a1[r].x = fmaf(w, v2.x, a1[r].x);
+        a1[r].y = fmaf(w, v2.y, a1[r].y);
+        a1[r].z = fmaf(w, v2.z, a1[r].z);
+        a1[r].w = fmaf(w, v2.w, a1[r].w);
+      }
       const int d2 = r - k + 2 * kHalo;
-      if (d2 >= 0 && d2 < kPW) a2[r] = fmaf(sg[xs + k][d2], v1, a2[r]);
+      if (d2 >= 0 && d2 < kPW) {
+        const float w = sg[xs + k][d2];
+        a2[r].x = fmaf(w, v1.x, a2[r].x);
+        a2[r].y = fmaf(w, v1.y, a2[r].y);
+        a2[r].z = fmaf(w, v1.z, a2[r].z);
+        a2[r].w = fmaf(w, v1.w, a2[r].w);
+      }
     }
   }
-  if (c0 + c >= C) return;
 #pragma unroll
   for (int r = 0; r < kRun; ++r) {
     const int x = x0 + xs + r;
-    if (x < W) {
-      const size_t off = base + (size_t)x * C + c0 + c;
-      st(df1 + off, a1[r]);
-      st(df2 + off, a2[r]);
+    if (x >= W) continue;
+    const size_t off = base + (size_t)x * C + c0 + c;
+    if (kVec) {
+      if (c0 + c < C) {
+        *reinterpret_cast<float4*>(df1 + off) = a1[r];
+        *reinterpret_cast<float4*>(df2 + off) = a2[r];
+      }
+    } else {
+      const float* p1 = &a1[r].x;
+      const float* p2 = &a2[r].x;
+#pragma unroll
+      for (int e = 0; e < kQ; ++e)
+        if (c0 + c + e < C) {
+          df1[off + e] = p1[e];
+          df2[off + e] = p2[e];
+        }
     }
   }
 }
 
-template <typename T>
-int launch(const void* f1, const void* f2, const void* g, void* df1, void* df2, int B, int H,
-           int W, int C, cudaStream_t stream) {
-  const int n_ctiles = (C + kBC - 1) / kBC;
-  const dim3 grid(((W + kBX - 1) / kBX) * n_ctiles, H, B);
-  corr1d_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(f2), static_cast<const T*>(g),
-      static_cast<T*>(df1), static_cast<T*>(df2), H, W, C, n_ctiles);
+int launch_fp32(const void* f1, const void* f2, const void* g, void* df1, void* df2, int B, int H,
+                int W, int C, bool vec, cudaStream_t stream) {
+  const int n_ctiles = (C + kFC - 1) / kFC;
+  const dim3 grid(((W + kFX - 1) / kFX) * n_ctiles, H, B);
+  auto kernel = vec ? corr1d_bwd_fp32_kernel<true> : corr1d_bwd_fp32_kernel<false>;
+  kernel<<<grid, kFThreads, 0, stream>>>(static_cast<const float*>(f1),
+                                         static_cast<const float*>(f2),
+                                         static_cast<const float*>(g), static_cast<float*>(df1),
+                                         static_cast<float*>(df2), H, W, C, n_ctiles);
   return (int)cudaGetLastError();
 }
 
@@ -224,17 +501,20 @@ int corr1d_forward(const void* f1, const void* f2, void* out, int B, int H, int 
 
 // The gradients of corr1d_forward: f1, f2, df1, df2 contiguous (B,H,W,C), g
 // contiguous (B,H,W,17), one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// any alignment of the element type. Writes every element of df1 and df2.
-// Launches on `stream` without synchronising; returns the launch's CUDA
-// error code (0 on success).
+// any alignment of the element type. vec: C a multiple of 16 / sizeof(dtype)
+// and f1, f2, df1, df2 16-byte aligned (bf16: tensor-map copies in and out;
+// fp32: 16-byte loads and stores); with vec = 0 the same kernels stage and
+// store element by element. Writes every element of df1 and df2. Launches on
+// `stream` without synchronising; returns the launch's CUDA error code (0 on
+// success).
 int corr1d_backward(const void* f1, const void* f2, const void* g, void* df1, void* df2, int B,
-                    int H, int W, int C, int is_bf16, void* stream) {
+                    int H, int W, int C, int is_bf16, int vec, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || H > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd::launch<band::bf16>(f1, f2, g, df1, df2, B, H, W, C, s)
-                 : bwd::launch<float>(f1, f2, g, df1, df2, B, H, W, C, s);
+  return is_bf16 ? bwd::launch_bf16(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s)
+                 : bwd::launch_fp32(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s);
 }
 
 }  // extern "C"

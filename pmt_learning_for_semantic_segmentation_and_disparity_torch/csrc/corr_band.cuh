@@ -2,7 +2,10 @@
 //
 // Replaces, for bf16 inputs, the product loop of the TPU kernels
 // pmt_learning_for_semantic_segmentation_and_disparity_tpu/ops/correlation.py:
-// _corr1d_kernel and _corr2d_kernel. fp32 inputs keep corr_tile.cuh.
+// _corr1d_kernel and _corr2d_kernel. fp32 inputs keep corr_tile.cuh. corr1d's
+// backward (corr1d.cu) runs its own transposed band over the same pieces: the
+// tensor maps, the mbarrier ring, the swizzle and the fragment loads, plus the
+// copy engine's stores below.
 //
 // One block owns kR f1 rows y0 .. y0+kR-1 of one image (NHWC) and a tile of
 // kTX = 64 output columns x0 .. x0+63. For every f2 row r that one of its rows
@@ -199,6 +202,50 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// The same four 8x8 matrices, each transposed: lane l gets rows 2(l%4) and
+// 2(l%4)+1 of column l/4, which is a B fragment of mma.m16n8k16 when the rows
+// in shared memory run along K (corr1d's backward: window columns).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Shared memory written by threads, made visible to the copy engine: each
+// writing thread fences before the copy that reads it is issued.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One box of shared memory (in the map's layout) out to a 4-D tiled map at
+// (c, x, y, b); the copy engine drops what lies outside the tensor. The copy
+// joins the thread's open bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c, int x,
+                                          int y, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c), "r"(x), "r"(y), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of the thread's bulk groups are still writing.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // c += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 sums

@@ -17,7 +17,8 @@ channel count.
 * ``correlation1d_cuda`` -- the hand-written Hopper kernel for the 1-D
   (1, 17) patch (``csrc/corr1d.cu``), counterpart of ``correlation1d_pallas``.
 * ``correlation1d_backward_cuda`` -- the hand-written Hopper kernel for
-  corr1d's gradients (``corr1d_backward`` in ``csrc/corr1d.cu``), which
+  corr1d's gradients (``corr1d_backward`` in ``csrc/corr1d.cu``: bf16 as a
+  transposed band on the tensor cores, fp32 on the CUDA cores), which
   ``correlation1d_cuda``'s backward launches.
 * ``correlation2d_cuda`` -- the hand-written Hopper kernel for the 2-D
   (17, 17) patch (``csrc/corr2d.cu``), counterpart of ``correlation2d_pallas``.
@@ -162,13 +163,17 @@ def correlation1d_backward_cuda(f1: torch.Tensor, f2: torch.Tensor,
         raise ValueError(f"corr1d backward: unsupported shape {tuple(f1.shape)}")
     g = g.contiguous()
     fn = _kernels.load("corr1d").corr1d_backward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+    # as in _launch, and for the outputs too: bf16 copies them in and out
+    # through tensor maps, fp32 with 16-byte loads and stores
+    vec = (c % (16 // f1.element_size()) == 0
+           and all(t.data_ptr() % 16 == 0 for t in (f1, f2, df1, df2)))
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), df1.data_ptr(), df2.data_ptr(),
-                 b, h, w, c, int(f1.dtype == torch.bfloat16), stream)
+                 b, h, w, c, int(f1.dtype == torch.bfloat16), int(vec), stream)
     if err != 0:
         raise RuntimeError(f"corr1d backward kernel launch failed: cudaError {err}")
     correlation1d_backward_cuda.launches += 1

@@ -1,7 +1,7 @@
 """Where the bf16 correlation kernels' time goes, on one CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.probe_band \
-        [--out report.json]
+        [--backward] [--out report.json]
 
 Builds the bf16 band kernels of ``csrc/`` (corr1d, corr2d) as they are and in
 variants with one part cut out, each from a copy of the sources under
@@ -49,6 +49,33 @@ ones below compute the same outputs another way, and their max|d| against
 Each variant's tensor-core instructions (HMMA) are counted in its
 library's machine code (``cuobjdump -sass``); the libraries stay under
 ``build/probe/<variant>/`` for a closer reading.
+
+``--backward`` probes corr1d's bf16 backward (``corr1d_backward``, the
+transposed band of ``csrc/corr1d.cu``) instead, at the training shape per
+view (8, 32, 64, 352) and the serving shape (16, 64, 120, 352), each launch
+timed by its own pair of CUDA events, warm (back to back) and with the L2
+flushed before it (256 MB written), 30 launches of each, variants in turns,
+twice over:
+
+* ``kernel``        -- the sources as they are: one block walks all of a
+  row tile's 64-channel boxes;
+* ``split-2``, ``split-3``, ``split-6`` -- a row tile's boxes split over 2, 3
+  or 6 blocks (more, shorter blocks; g's window and the A fragments built
+  once per block);
+* ``one-block``     -- one block an SM, its ring as deep as the row tile's
+  boxes (all of them in flight);
+* ``store-64``      -- each tensor's 4 slabs meet on a named barrier and one
+  warp stores the tile's 64 columns x 64 channels (one TMA store per tensor
+  and box instead of one per warp);
+* ``no-products``   -- no ``ldmatrix`` and no tensor-core product: staging,
+  the output boxes, stores and barriers only;
+* ``no-loads``      -- no window is copied (the ring's hand-offs remain);
+* ``no-stores``     -- no output box is stored (a test of the sums that never
+  holds keeps them alive).
+
+The first six compute the same gradients; the last three are wrong by
+construction. ``flushed`` writes the 256 MB (the L2 is left holding dirty
+lines of the flush), ``read-flushed`` reads them (a clean L2 of other data).
 
 Prints the card's name and power limit, the nvcc release and one JSON
 line, and writes the JSON to ``--out``. Exits non-zero without a card.
@@ -175,13 +202,53 @@ VARIANTS = {
 }
 
 
-def build_variants() -> dict:
-    """(variant, kernel) -> loaded library; one nvcc per library, all at once."""
+# corr1d's backward: variant -> (file, text, replacement) edits
+BWD_PRODUCTS = "#pragma unroll\n    for (int ks = 0; ks < 2; ++ks)\n#pragma unroll\n      for (int np"
+BWD_LOADS = ("mbar_expect_tx(&full[s], 2 * kWinBox);\n"
+             "          tma_load(st, &tm1, c0, x0 - kHalo, y, b, &full[s]);\n"
+             "          tma_load(st + kWinBox, &tm2, c0, x0 - kHalo, y, b, &full[s]);")
+BWD_STORE = "tma_store(t == 0 ? &td1 : &td2, ob, c0, x0 + 16 * m, y, b);"
+# store-64: the 4 warps of a tensor meet on a named barrier and one of them
+# stores the tile's 64 columns x 64 channels
+BWD_STORE_64 = (
+    ("corr1d.cu", "    if (x0 + 16 * m >= W) continue;  // the whole slab lies past the image\n", ""),
+    ("corr1d.cu", "      if (lane == 0) bulk_wait_read<1>();  // the store of box j - 2 has read ob\n"
+                  "      __syncwarp();",
+     "      if (m == 0 && lane == 0) bulk_wait_read<1>();\n"
+     "      asm volatile(\"bar.sync %0, 128;\\n\" ::\"r\"(2 + t) : \"memory\");"),
+    ("corr1d.cu", "      fence_async_shared();\n      __syncwarp();\n      if (lane == 0) {\n        " + BWD_STORE,
+     "      fence_async_shared();\n"
+     "      asm volatile(\"bar.sync %0, 128;\\n\" ::\"r\"(2 + t) : \"memory\");\n"
+     "      if (m == 0 && lane == 0) {\n"
+     "        tma_store(t == 0 ? &td1 : &td2, ob, c0, x0, y, b);"),
+    ("corr1d.cu", "band::tensor_map(&td1, df1, B, H, W, C, kSlab);",
+     "band::tensor_map(&td1, df1, B, H, W, C, band::kTX);"),
+    ("corr1d.cu", "band::tensor_map(&td2, df2, B, H, W, C, kSlab);",
+     "band::tensor_map(&td2, df2, B, H, W, C, band::kTX);"),
+)
+BWD_VARIANTS = {
+    "kernel": (),
+    **{f"split-{n}": (("corr1d.cu", "constexpr int kGroups = 1;", f"constexpr int kGroups = {n};"),)
+       for n in (2, 3, 6)},
+    "one-block": (("corr1d.cu", "while (ns > 1 && smem_bytes(ns) > kSmemBudget) --ns;",
+                   "while (ns > 1 && smem_bytes(ns) > band::kSmemMax) --ns;"),),
+    "store-64": BWD_STORE_64,
+    "no-products": (("corr1d.cu", BWD_PRODUCTS,
+                     "    for (int ks = 0; ks < 0; ++ks)\n#pragma unroll\n      for (int np"),),
+    "no-loads": (("corr1d.cu", BWD_LOADS, "mbar_arrive(&full[s]);"),),
+    "no-stores": (("corr1d.cu", BWD_STORE, "if (acc[0][0] == 1.5e-38f) " + BWD_STORE),),
+}
+BWD_SHAPES = {"train": (8, 32, 64, 352), "serve": (16, 64, 120, 352)}
+
+
+def build_variants(variants: dict, prefix: str = "") -> dict:
+    """(variant, kernel) -> loaded library; one nvcc per library, all at once.
+    ``variants``: name -> (kernels, edits)."""
     root = _kernels.BUILD / "probe"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
-    for name, (kernels, edits) in VARIANTS.items():
-        src = root / name
+    for name, (kernels, edits) in variants.items():
+        src = root / (prefix + name)
         shutil.copytree(_kernels.CSRC, src)
         for fname, text, repl in edits:
             path = src / fname
@@ -222,9 +289,79 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def event_times_ms(fn, iters: int, flush: torch.Tensor = None, read: bool = False) -> list:
+    """Each launch of ``fn`` timed by its own pair of events, after a
+    warm-up, behind a ~0.2 ms spin of the card (so the launch waits on the
+    card, not on the host); ``flush`` (a large tensor) is zeroed, or with
+    ``read`` summed, before each launch."""
+    for _ in range(3):
+        fn()
+    events = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.sum() if read else flush.zero_()
+        torch.cuda._sleep(400_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def probe_backward(card: str, nvcc: str) -> dict:
+    """Time corr1d's bf16 backward and its variants at the training and
+    serving shapes, warm and with the L2 flushed; returns the report."""
+    libs = build_variants({name: (("corr1d",), edits) for name, edits in BWD_VARIANTS.items()},
+                          prefix="bwd-")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
+    stream = torch.cuda.current_stream().cuda_stream
+    times, diff = {}, {}
+    for tag, shape in BWD_SHAPES.items():
+        b, h, w, c = shape
+        f1, f2 = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(2))
+        grad = torch.randn((b, h, w, 17), device="cuda", generator=g).bfloat16()
+        outs = {}
+        for _ in range(2):
+            for (name, _), (lib, _) in libs.items():
+                fn = lib.corr1d_backward
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                df = outs.setdefault(name, (torch.zeros_like(f1), torch.zeros_like(f2)))
+
+                def call():
+                    err = fn(f1.data_ptr(), f2.data_ptr(), grad.data_ptr(), df[0].data_ptr(),
+                             df[1].data_ptr(), b, h, w, c, 1, 1, stream)
+                    if err != 0:
+                        raise RuntimeError(f"{name}: cudaError {err}")
+
+                for mode, fl, read in (("warm", None, False), ("flushed", flush, False),
+                                       ("read-flushed", flush, True)):
+                    ts = sorted(event_times_ms(call, 30, fl, read))
+                    times.setdefault(f"{tag} {mode} {name}", []).append(
+                        {"mean": sum(ts) / len(ts), "median": ts[len(ts) // 2]})
+        for name, df in outs.items():
+            diff[f"{tag} {name}"] = max((a.float() - r.float()).abs().max().item()
+                                        for a, r in zip(df, outs["kernel"]))
+        del f1, f2, grad, outs
+    hmma = {name: sass(path).count("HMMA") for (name, _), (_, path) in libs.items()}
+    for key, ts in times.items():
+        tag, _, name = key.split(" ", 2)
+        print(f"[probe_band backward] {key}: mean {', '.join(f'{t["mean"]:.4f}' for t in ts)} ms, "
+              f"median {', '.join(f'{t["median"]:.4f}' for t in ts)} ms, max|d| vs kernel "
+              f"{diff[f'{tag} {name}']:.4g}, {hmma[name]} HMMA in the library", flush=True)
+    report = {"card": card, "nvcc": nvcc, "shapes": BWD_SHAPES, "dtype": "bfloat16", "ms": times,
+              "max_abs_diff_vs_kernel": diff, "hmma": hmma}
+    print(json.dumps(report), flush=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write the JSON report here")
+    ap.add_argument("--backward", action="store_true",
+                    help="probe corr1d's bf16 backward instead of the forward kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_band: no CUDA device", file=sys.stderr)
@@ -235,7 +372,13 @@ def main() -> int:
     nvcc = subprocess.run([_kernels._nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-2]
     print(nvcc, flush=True)
-    libs = build_variants()
+    if args.backward:
+        report = probe_backward(card, nvcc)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1)
+        return 0
+    libs = build_variants(VARIANTS)
     g = torch.Generator(device="cuda").manual_seed(0)
     f1 = torch.randn(SHAPE, device="cuda", generator=g).bfloat16()
     f2 = torch.randn(SHAPE, device="cuda", generator=g).bfloat16()

@@ -144,6 +144,69 @@ def test_vjp_plain_matches_autograd(shape, patch):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * b.abs().max().item())
 
 
+TILE, HALO, SLAB, PW = 64, 8, 16, 17
+
+
+def _band_backward(f1, f2, g):
+    """(df1, df2) as corr1d's bf16 backward kernel (``csrc/corr1d.cu``)
+    computes them, in plain PyTorch: each row cut into 64-column tiles x0 +
+    [0, 64), window column k in [0, 80) is image column x0 - 8 + k (zero
+    outside [0, W)), and for each 16-column slab m, r in [16m, 16m+16) and
+    k in [16m, 16m+32):
+
+        df1[x0+r] = sum_k A1[r,k] F2w[k],  A1[r,k] = g[x0+r,   k-r]
+        df2[x0+r] = sum_k A2[r,k] F1w[k],  A2[r,k] = g[x0-8+k, r-k+16]
+
+    both zero unless 0 <= k-r <= 16."""
+    b, h, w, c = f1.shape
+    nt = -(-w // TILE)
+    pad = (0, 0, HALO, nt * TILE + HALO - w)  # (channels, columns) of the windows
+    f1p, f2p, gp = (torch.nn.functional.pad(t, pad) for t in (f1, f2, g))
+    win = torch.arange(nt)[:, None] * TILE + torch.arange(TILE + 2 * HALO)  # (tile, k)
+    f1w, f2w, gw = f1p[:, :, win], f2p[:, :, win], gp[:, :, win]  # (b, h, tile, k, .)
+    m = torch.arange(TILE // SLAB)[:, None, None]
+    r = m * SLAB + torch.arange(SLAB)[None, :, None]           # (slab, r, 1)
+    k = m * SLAB + torch.arange(2 * SLAB)[None, None, :]        # (slab, 1, kk)
+    dd = k - r                                                  # (slab, r, kk)
+    band = (dd >= 0) & (dd < PW)
+    d = dd.clamp(0, PW - 1)
+    a1 = gw[:, :, :, (r + HALO).expand_as(dd), d] * band        # (b, h, tile, slab, r, kk)
+    a2 = gw[:, :, :, k.expand_as(dd), PW - 1 - d] * band
+    kk = k[:, 0, :]                                             # (slab, kk)
+    df1 = torch.einsum("bhtmrk,bhtmkc->bhtmrc", a1, f2w[:, :, :, kk])
+    df2 = torch.einsum("bhtmrk,bhtmkc->bhtmrc", a2, f1w[:, :, :, kk])
+    return tuple(t.reshape(b, h, nt * TILE, c)[:, :, :w] for t in (df1, df2))
+
+
+@pytest.mark.parametrize("c", [20, 37, 64, 352])
+@pytest.mark.parametrize("w", [9, 16, 17, 63, 64, 65, 70, 120])
+def test_corr1d_backward_band_decomposition(w, c):
+    """The backward kernel's band decomposition (tiles, halo windows, slabs,
+    A1/A2) against autograd through correlation_plain in float64 (1e-12 *
+    max|ref|), correlation1d_vjp_plain (fp32 sums, 1e-5) and, where the map
+    is no narrower than the patch, jax.vjp of the JAX package's correlation
+    in fp32 (1e-5): catches the band's off-by-ones before any chip time."""
+    shape = (1, 2, w, c)
+    f1, f2 = _pair(10, shape)
+    g = np.random.default_rng(11).standard_normal(shape[:3] + (PW,), dtype=np.float32)
+    got = _band_backward(*(torch.from_numpy(a).double() for a in (f1, f2, g)))
+    x1, x2 = (torch.from_numpy(a).double().requires_grad_() for a in (f1, f2))
+    refs = {"autograd float64": (torch.autograd.grad(
+        tcorr.correlation_plain(x1, x2, (1, PW)), (x1, x2), torch.from_numpy(g).double()), 1e-12),
+        "correlation1d_vjp_plain": (tcorr.correlation1d_vjp_plain(
+            *(torch.from_numpy(a) for a in (f1, f2, g)), PW), 1e-5)}
+    if w >= PW:
+        vjp = jax.jit(lambda a, b, e: jax.vjp(lambda x, y: jcorr.correlation(x, y, (1, PW)),
+                                              a, b)[1](e))
+        refs["jax.vjp"] = (vjp(f1, f2, g), 1e-5)
+    for what, (ref, tol) in refs.items():
+        for name, a, r in zip(("df1", "df2"), got, ref):
+            r = torch.from_numpy(np.array(r)).double()
+            assert a.shape == r.shape == shape
+            err, bound = (a - r).abs().max().item(), tol * r.abs().max().item()
+            assert err <= bound, f"{name} against {what}: max|d| {err} > {bound}"
+
+
 @pytest.fixture
 def no_build(monkeypatch):
     """Any attempt to build or load a kernel fails the test."""
