@@ -1,13 +1,14 @@
 """The port's own configuration dataclasses.
 
 A copy of the part of the JAX package's ``core/config.py`` that the ported
-slice reads (field names and defaults unchanged, so a config reads the same
-in both packages). The rest (losses, optimizer, run and CLI flags) comes with
-the slices that use it.
+slices read (field names and defaults unchanged, so a config reads the same
+in both packages). The rest (run and CLI flags) comes with the slices that
+use it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 DATASET_N_LABELS = {
     "garden": 9,
@@ -16,6 +17,33 @@ DATASET_N_LABELS = {
     "kitti": 19,
     "sceneflow": 19,
 }
+
+
+def output_type_for(net: str, hanet: bool = False, multaskloss: int = 0) -> str:
+    """The reference's ``outputType`` of a net (util/utilLoadNetwork.py:28-53),
+    which picks the loss and metric branches."""
+    out = "smallOutSeg" if "sdnet_mini_ext" in net else ""
+    if net == "sdnet_mini":
+        out = "smallOutPair"
+    if net == "sdnet_seg":
+        out = "smallOutWarp"
+    if net in ("dsnet_warp", "dsnet_warp_soft"):
+        out = "ThreeOutPuts"
+    if net == "dsnet_warp_disp":
+        out = "ThreeOutPutsDisp"
+    if net == "dsnet_warp_disp_consist":
+        out = "ThreeOutPutsDispConsist"
+    if "edge" in net:
+        out = "edgeOut"
+    if hanet:
+        out = "hanet"
+    if multaskloss:
+        out = "multitask"
+    if "deeplab" in net:
+        out = net
+    if net == "pspnet":
+        out = "pspnet"
+    return out or "two_out"
 
 
 @dataclass
@@ -46,6 +74,10 @@ class ModelConfig:
     # A TPU layout choice of the JAX package (space-to-depth decoder heads);
     # the same function either way, so the port accepts and ignores it.
     s2d_heads: bool = True
+
+    @property
+    def output_type(self) -> str:
+        return output_type_for(self.net, self.hanet, self.multaskloss)
 
     @property
     def max_disp(self) -> float:

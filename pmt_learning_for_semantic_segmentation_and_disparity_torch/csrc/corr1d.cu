@@ -80,11 +80,12 @@
 // windows by element loads into the same layout and the consumers storing by
 // element stores.
 //
-// fp32 (no TF32: it would break the 1e-4 tolerance): CUDA cores, gather form.
-// A block stages 80 columns x 64 channels of f1 and f2 (64 output columns with
-// the 8-column halo) and g's 80 x 17 window in shared memory; a thread owns
-// 4 adjacent channels (one float4 of the window) of 4 adjacent columns of df1
-// and df2, so each broadcast of a g value feeds 4 FMAs.
+// fp32 (no TF32: it would break the 1e-4 tolerance): corr_tile.cuh's backward
+// tile with kPH = 1, on the CUDA cores in gather form. A block stages 80
+// columns x 64 channels of f1 and f2 (64 output columns with the 8-column
+// halo) and g's 80 x 17 window in shared memory; a thread owns 4 adjacent
+// channels (one float4 of the window) of 4 adjacent columns of df1 and df2,
+// so each broadcast of a g value feeds 4 FMAs.
 #include "corr_band.cuh"
 #include "corr_tile.cuh"
 
@@ -356,127 +357,6 @@ int launch_bf16(const void* f1, const void* f2, const void* g, void* df1, void* 
   return (int)cudaGetLastError();
 }
 
-// ---- fp32: CUDA cores ----
-constexpr int kFX = 64;                   // output columns per block
-constexpr int kFC = 64;                   // channels per block
-constexpr int kFWin = kFX + 2 * kHalo;    // window columns staged (80)
-constexpr int kRun = 4;                   // adjacent output columns per thread
-constexpr int kQ = 4;                     // adjacent channels per thread: one float4
-constexpr int kFThreads = (kFC / kQ) * (kFX / kRun);  // 256
-
-template <bool kVec>
-__global__ void __launch_bounds__(kFThreads)
-corr1d_bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                       const float* __restrict__ g, float* __restrict__ df1,
-                       float* __restrict__ df2, int H, int W, int C, int n_ctiles) {
-  // window column j holds image column x0 - kHalo + j
-  __shared__ __align__(16) float s1[kFWin][kFC];
-  __shared__ __align__(16) float s2[kFWin][kFC];
-  __shared__ float sg[kFWin][kPW];
-  const int x0 = (blockIdx.x / n_ctiles) * kFX;
-  const int c0 = (blockIdx.x % n_ctiles) * kFC;
-  const size_t row = (size_t)blockIdx.z * H + blockIdx.y;
-  const size_t base = row * W * C;
-  // kVec: C a multiple of 4 and 16-byte aligned tensors, so a quad of
-  // channels is all in or all out of [0, C)
-  for (int i = threadIdx.x; i < kFWin * kFC / kQ; i += kFThreads) {
-    const int j = i / (kFC / kQ), c = (i % (kFC / kQ)) * kQ, x = x0 - kHalo + j;
-    const bool in = x >= 0 && x < W;
-    const size_t off = base + (size_t)x * C + c0 + c;
-    float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f), v2 = v1;
-    if (kVec) {
-      if (in && c0 + c < C) {
-        v1 = *reinterpret_cast<const float4*>(f1 + off);
-        v2 = *reinterpret_cast<const float4*>(f2 + off);
-      }
-    } else {
-      float* p1 = &v1.x;
-      float* p2 = &v2.x;
-#pragma unroll
-      for (int e = 0; e < kQ; ++e)
-        if (in && c0 + c + e < C) {
-          p1[e] = f1[off + e];
-          p2[e] = f2[off + e];
-        }
-    }
-    *reinterpret_cast<float4*>(&s1[j][c]) = v1;
-    *reinterpret_cast<float4*>(&s2[j][c]) = v2;
-  }
-  const float* grow = g + row * W * kPW;
-  for (int i = threadIdx.x; i < kFWin * kPW; i += kFThreads) {
-    const int j = i / kPW, d = i % kPW, x = x0 - kHalo + j;
-    sg[j][d] = (x >= 0 && x < W) ? grow[(size_t)x * kPW + d] : 0.f;
-  }
-  __syncthreads();
-
-  const int c = (threadIdx.x % (kFC / kQ)) * kQ;
-  const int xs = (threadIdx.x / (kFC / kQ)) * kRun;  // this thread's first column, local
-  float4 a1[kRun], a2[kRun];
-#pragma unroll
-  for (int r = 0; r < kRun; ++r) a1[r] = a2[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  // Output column xs + r (window column xs + r + kHalo) meets window column
-  // xs + k: as f2 column x + d - 8 of df1's shift d = k - r, and as the
-  // source column x' - d + 8 of df2's shift d = r - k + 2 * kHalo. Both
-  // conditions are fixed at compile time once the loops unroll.
-#pragma unroll
-  for (int k = 0; k < kRun + 2 * kHalo; ++k) {
-    const float4 v1 = *reinterpret_cast<const float4*>(&s1[xs + k][c]);
-    const float4 v2 = *reinterpret_cast<const float4*>(&s2[xs + k][c]);
-#pragma unroll
-    for (int r = 0; r < kRun; ++r) {
-      const int d1 = k - r;
-      if (d1 >= 0 && d1 < kPW) {
-        const float w = sg[xs + r + kHalo][d1];
-        a1[r].x = fmaf(w, v2.x, a1[r].x);
-        a1[r].y = fmaf(w, v2.y, a1[r].y);
-        a1[r].z = fmaf(w, v2.z, a1[r].z);
-        a1[r].w = fmaf(w, v2.w, a1[r].w);
-      }
-      const int d2 = r - k + 2 * kHalo;
-      if (d2 >= 0 && d2 < kPW) {
-        const float w = sg[xs + k][d2];
-        a2[r].x = fmaf(w, v1.x, a2[r].x);
-        a2[r].y = fmaf(w, v1.y, a2[r].y);
-        a2[r].z = fmaf(w, v1.z, a2[r].z);
-        a2[r].w = fmaf(w, v1.w, a2[r].w);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRun; ++r) {
-    const int x = x0 + xs + r;
-    if (x >= W) continue;
-    const size_t off = base + (size_t)x * C + c0 + c;
-    if (kVec) {
-      if (c0 + c < C) {
-        *reinterpret_cast<float4*>(df1 + off) = a1[r];
-        *reinterpret_cast<float4*>(df2 + off) = a2[r];
-      }
-    } else {
-      const float* p1 = &a1[r].x;
-      const float* p2 = &a2[r].x;
-#pragma unroll
-      for (int e = 0; e < kQ; ++e)
-        if (c0 + c + e < C) {
-          df1[off + e] = p1[e];
-          df2[off + e] = p2[e];
-        }
-    }
-  }
-}
-
-int launch_fp32(const void* f1, const void* f2, const void* g, void* df1, void* df2, int B, int H,
-                int W, int C, bool vec, cudaStream_t stream) {
-  const int n_ctiles = (C + kFC - 1) / kFC;
-  const dim3 grid(((W + kFX - 1) / kFX) * n_ctiles, H, B);
-  auto kernel = vec ? corr1d_bwd_fp32_kernel<true> : corr1d_bwd_fp32_kernel<false>;
-  kernel<<<grid, kFThreads, 0, stream>>>(static_cast<const float*>(f1),
-                                         static_cast<const float*>(f2),
-                                         static_cast<const float*>(g), static_cast<float*>(df1),
-                                         static_cast<float*>(df2), H, W, C, n_ctiles);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace bwd
 
 }  // namespace
@@ -514,7 +394,7 @@ int corr1d_backward(const void* f1, const void* f2, const void* g, void* df1, vo
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? bwd::launch_bf16(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s)
-                 : bwd::launch_fp32(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s);
+                 : corr::launch_bwd_fp32<1>(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s);
 }
 
 }  // extern "C"

@@ -126,12 +126,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A 4-D tiled map of one (B, H, W, C) bf16 tensor with boxes of 64 channels x
-// `cols` columns, swizzled by 128 bytes, zero outside the tensor. The encoder,
-// cuTensorMapEncodeTiled, is looked up in libcuda with dlopen, so nothing
-// links to it.
+// A 4-D tiled map of one (B, H, W, C) bf16 tensor with boxes of `chans`
+// channels (64 by default) x `cols` columns, swizzled by 128 bytes (or not at
+// all), zero outside the tensor. The encoder, cuTensorMapEncodeTiled, is
+// looked up in libcuda with dlopen, so nothing links to it.
 inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
-                              int cols) {
+                              int cols, int chans = kCC,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static const EncodeTiled encode = [] {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
     return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
@@ -140,12 +141,11 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int H, 
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
                                  (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kCC, (cuuint32_t)cols, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)chans, (cuuint32_t)cols, 1, 1};
   const cuuint32_t estrides[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                            strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 """The SDNet models of the JAX package's ``models/sdnet.py``: the flagship
-``sdnet_mini_ext`` (MiniDSNetExt; eval and train forward) and ``sdnet_mini``
-(MiniDSNet; eval forward).
+``sdnet_mini_ext`` (MiniDSNetExt) and ``sdnet_mini`` (MiniDSNet), eval and
+train forward.
 
 Counterpart of the JAX package's ``models/sdnet.py`` for the flagship variant
 "ext" with aspp 0, the cross-task attention gates and either correlation
@@ -32,11 +32,17 @@ def corr_patch(m: ModelConfig) -> Tuple[int, int]:
     return (1, 17) if m.corr_type == "1dcorr" else (17, 17)
 
 
-def eval_only(model: nn.Module) -> None:
-    if model.training:
-        raise NotImplementedError(f"the train-mode forward of {type(model).__name__} is not "
-                                  "ported yet (ROADMAP.md queue 1, item 6.3); only the "
-                                  "flagship sdnet_mini_ext trains")
+def trunk_taps(features: nn.Module, left: torch.Tensor, right: torch.Tensor):
+    """The trunk's taps of each view, (left's, right's). In train mode the
+    trunk runs once per view, left then right, as in the JAX package, so each
+    view normalises by its own batch statistics and the running statistics
+    move twice in that order. In eval mode one pass over L and R stacked in
+    the batch computes the same as two."""
+    if features.training:
+        return features(left), features(right)
+    nb = left.shape[0]
+    both = features(torch.cat([left, right], dim=0))
+    return [t[:nb] for t in both], [t[nb:] for t in both]
 
 
 def nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -101,11 +107,8 @@ class MiniDSNetExt(nn.Module):
     """minidsnetExt (dsnet_t2.py:941-1299), variant "ext", aspp 0, attention
     gates on, 1dcorr or 2dcorr (normalized, as ``sdnet.py:206-208``).
 
-    In train mode the trunk runs once per view, left then right, so each
-    view normalises by its own batch statistics and the running statistics
-    move twice in that order (``sdnet.py:147-151``); dropout follows
-    ``cfg.dropout``. In eval mode one pass over L and R stacked in the batch
-    computes the same as two."""
+    The trunk runs as ``trunk_taps`` says (``sdnet.py:147-151``); in train
+    mode dropout follows ``cfg.dropout``."""
 
     def __init__(self, cfg: ModelConfig, labels: int = 2):
         super().__init__()
@@ -149,17 +152,11 @@ class MiniDSNetExt(nn.Module):
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor) -> Dict[str, torch.Tensor]:
         left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
         full_hw = tuple(left.shape[-2:])
-        nb = left.shape[0]
 
         # the net reads tap 4 and the enriched taps b2, b1 (indices 4, 5, 6)
-        if self.training:
-            a, b = self.features(left), self.features(right)
-            a4, a_py2, a_py1 = (a[i] for i in (4, 5, 6))
-            b4, b_py2, b_py1 = (b[i] for i in (4, 5, 6))
-        else:
-            both = self.features(torch.cat([left, right], dim=0))
-            a4, a_py2, a_py1 = (both[i][:nb] for i in (4, 5, 6))
-            b4, b_py2, b_py1 = (both[i][nb:] for i in (4, 5, 6))
+        a, b = trunk_taps(self.features, left, right)
+        a4, a_py2, a_py1 = (a[i] for i in (4, 5, 6))
+        b4, b_py2, b_py1 = (b[i] for i in (4, 5, 6))
 
         xleft_all = self.conv2d_ba(left)
         xleft0, xleft1, xleft2 = xleft_all[:, 0:1], xleft_all[:, 1:2], xleft_all[:, 2:3]
@@ -201,8 +198,8 @@ class MiniDSNet(nn.Module):
     """minidsnet (dsnet_t2.py:825-912), registered as ``sdnet_mini``: one seg
     and one disparity head, outputs duplicated (seg2 = seg1, disp2 = disp1),
     on the original piramidNet (``PiramidNetV1``), 1dcorr or 2dcorr (the
-    latter normalized). Eval forward only (train mode: ROADMAP.md queue 1,
-    item 6.3)."""
+    latter normalized). The trunk runs as ``trunk_taps`` says
+    (``sdnet.py:453-454``); the net has no dropout."""
 
     def __init__(self, cfg: ModelConfig, labels: int = 2):
         super().__init__()
@@ -226,14 +223,11 @@ class MiniDSNet(nn.Module):
         self.dispoutConv = ConvOut(64, 1, 5)
 
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor) -> Dict[str, torch.Tensor]:
-        eval_only(self)
         left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
         full_hw = tuple(left.shape[-2:])
-        nb = left.shape[0]
-        # eval: the separate L and R passes of the JAX model equal one stacked pass
-        both = self.features(torch.cat([left, right], dim=0))
-        a4, a_py2 = both[4][:nb], both[5][:nb]
-        b4, b_py2 = both[4][nb:], both[5][nb:]
+        a, b = trunk_taps(self.features, left, right)
+        a4, a_py2 = a[4], a[5]
+        b4, b_py2 = b[4], b[5]
 
         xleft_all = self.conv2d_ba(left)
         x, x1, seg_branch = self.segNet(torch.cat([a4, b4], dim=1), full_hw, xleft_all[:, 0:1])

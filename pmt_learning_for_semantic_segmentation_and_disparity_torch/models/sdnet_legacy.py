@@ -1,5 +1,5 @@
 """The original two-head SDNet (``sdnet``) and its v2 (``sdnetv2``), eval
-forward.
+and train forward.
 
 Counterpart of the JAX package's ``models/sdnet_legacy.py`` (reference
 dsnet_t2.py dsnet :119-321, dsnetv2 :402-616), NHWC in and out like the
@@ -16,6 +16,9 @@ with residual head mixing. The JAX package's quirks are kept:
 * ``sdnet`` always correlates the 17x17 patch; ``sdnetv2`` takes ``1dcorr``
   or ``2dcorr`` and normalizes both (:183);
 * disp2 = 0.8 * d2 + 0.2 * disp1.
+
+The trunk runs as ``sdnet.trunk_taps`` says (``sdnet_legacy.py:41-42,
+166-167``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ..core.registry import MODELS
 from ..ops.resize import resize_bilinear, upsample_nearest
 from .blocks import Conv2DownUp, ConvBN, ConvOut, DeconvBN
 from .pyramid import PiramidNetV1
-from .sdnet import SegNetHead, corr_patch, cost_volume, eval_only, nchw_channels_last, nhwc
+from .sdnet import SegNetHead, corr_patch, cost_volume, nchw_channels_last, nhwc, trunk_taps
 
 
 def _conv1x1(cin: int, cout: int) -> ConvBN:
@@ -103,14 +106,11 @@ class DSNet(nn.Module):
         return x, x1, F.log_softmax(resize_bilinear(seg1, full_hw), dim=1)
 
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor) -> Dict[str, torch.Tensor]:
-        eval_only(self)
         left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
         full_hw = tuple(left.shape[-2:])
-        nb = left.shape[0]
-        # eval: the separate L and R passes of the JAX model equal one stacked pass
-        both = self.features(torch.cat([left, right], dim=0))
-        a0, a1, a4, a_py2, a_py0 = (both[i][:nb] for i in (0, 1, 4, 5, 6))
-        b4, b_py2, b_py0 = (both[i][nb:] for i in (4, 5, 6))
+        a, b = trunk_taps(self.features, left, right)
+        a0, a1, a4, a_py2, a_py0 = (a[i] for i in (0, 1, 4, 5, 6))
+        b4, b_py2, b_py0 = (b[i] for i in (4, 5, 6))
         xleft3, xleft2, xleft1 = (_channels_last(getattr(self, f"conv2d_ba{k}")(left))
                                   for k in (3, 1, 2))
 

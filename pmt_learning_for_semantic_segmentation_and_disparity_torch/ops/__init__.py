@@ -3,6 +3,7 @@ from .correlation import (  # noqa: F401
     correlation1d_backward_cuda,
     correlation1d_cuda,
     correlation1d_vjp_plain,
+    correlation2d_backward_cuda,
     correlation2d_cuda,
     correlation2d_vjp_plain,
     correlation_plain,

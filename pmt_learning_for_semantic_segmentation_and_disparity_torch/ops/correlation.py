@@ -22,6 +22,10 @@ channel count.
   ``correlation1d_cuda``'s backward launches.
 * ``correlation2d_cuda`` -- the hand-written Hopper kernel for the 2-D
   (17, 17) patch (``csrc/corr2d.cu``), counterpart of ``correlation2d_pallas``.
+* ``correlation2d_backward_cuda`` -- the hand-written Hopper kernel for
+  corr2d's gradients (``corr2d_backward`` in ``csrc/corr2d.cu``: bf16 as 17
+  row offsets of corr1d's transposed band on the tensor cores, fp32 on the
+  CUDA cores), which ``correlation2d_cuda``'s backward launches.
 
   Both kernels run bf16 inputs on the tensor cores (the band tile of
   ``csrc/corr_band.cuh``) and fp32 inputs on the CUDA cores (the row tile of
@@ -32,9 +36,9 @@ channel count.
   else corr2d), which raises if the tensors are not on the card or the kernel
   cannot be built or launched; there is no fallback on the card.
 
-On the card corr1d trains through its backward kernel; corr2d's backward
-raises ``NotImplementedError`` until its kernel is written (ROADMAP.md queue
-2, item 2).
+On the card both correlations train through their backward kernels; the
+division by C of ``normalize=True`` stays outside the kernels, so autograd
+scales the output gradient itself.
 """
 from __future__ import annotations
 
@@ -147,22 +151,23 @@ def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
     return out
 
 
-def correlation1d_backward_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                                g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(df1, df2) of the 1-D (1, 17) correlation on the card with the
-    ``corr1d_backward`` kernel of ``csrc/corr1d.cu``; ``g`` is the output
-    gradient (B,H,W,17). ``correlation1d_backward_cuda.launches`` counts the
-    kernel's launches. Everything is checked before the kernel is built."""
-    _check_pair("corr1d backward", f1, f2)
+def _launch_backward(name: str, f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
+                     g_pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs, then run ``<name>_backward`` of ``csrc/<name>.cu``
+    on the current stream: (df1, df2) for the output gradient ``g``, passed
+    with ``g_pad`` values of padding a pixel. Everything is checked before
+    the kernel is built."""
+    what = f"{name} backward"
+    _check_pair(what, f1, f2)
     b, h, w, c = f1.shape
-    pw = KERNEL_PATCH["corr1d"][1]
-    if g.shape != (b, h, w, pw) or g.dtype != f1.dtype or g.device != f1.device:
-        raise ValueError(f"corr1d backward needs g of shape {(b, h, w, pw)} and dtype "
+    ph, pw = KERNEL_PATCH[name]
+    if g.shape != (b, h, w, ph * pw) or g.dtype != f1.dtype or g.device != f1.device:
+        raise ValueError(f"{what} needs g of shape {(b, h, w, ph * pw)} and dtype "
                          f"{f1.dtype} on {f1.device}, got {tuple(g.shape)} {g.dtype} on {g.device}")
-    if min(b, h, w, c) == 0 or max(b, h) > 65535 or f1.numel() >= 2**31:
-        raise ValueError(f"corr1d backward: unsupported shape {tuple(f1.shape)}")
-    g = g.contiguous()
-    fn = _kernels.load("corr1d").corr1d_backward
+    if min(b, h, w, c) == 0 or max(b, h) > 65535 or max(f1.numel(), g.numel()) >= 2**31:
+        raise ValueError(f"{what}: unsupported shape {tuple(f1.shape)}")
+    g = F.pad(g, (0, g_pad)) if g_pad else g.contiguous()
+    fn = getattr(_kernels.load(name), f"{name}_backward")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
@@ -175,9 +180,31 @@ def correlation1d_backward_cuda(f1: torch.Tensor, f2: torch.Tensor,
         err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), df1.data_ptr(), df2.data_ptr(),
                  b, h, w, c, int(f1.dtype == torch.bfloat16), int(vec), stream)
     if err != 0:
-        raise RuntimeError(f"corr1d backward kernel launch failed: cudaError {err}")
-    correlation1d_backward_cuda.launches += 1
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
     return df1, df2
+
+
+def correlation1d_backward_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                                g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(df1, df2) of the 1-D (1, 17) correlation on the card with the
+    ``corr1d_backward`` kernel of ``csrc/corr1d.cu``; ``g`` is the output
+    gradient (B,H,W,17). ``correlation1d_backward_cuda.launches`` counts the
+    kernel's launches."""
+    out = _launch_backward("corr1d", f1, f2, g)
+    correlation1d_backward_cuda.launches += 1
+    return out
+
+
+def correlation2d_backward_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                                g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(df1, df2) of the 2-D (17, 17) correlation (no normalize) on the card
+    with the ``corr2d_backward`` kernel of ``csrc/corr2d.cu``; ``g`` is the
+    output gradient (B,H,W,289). A bf16 ``g`` is padded to 296 values a pixel
+    first, the stride at which the kernel's copy engine takes it.
+    ``correlation2d_backward_cuda.launches`` counts the kernel's launches."""
+    out = _launch_backward("corr2d", f1, f2, g, g_pad=7 if f1.dtype == torch.bfloat16 else 0)
+    correlation2d_backward_cuda.launches += 1
+    return out
 
 
 class _Corr1dCuda(torch.autograd.Function):
@@ -200,13 +227,14 @@ class _Corr2dCuda(torch.autograd.Function):
     def forward(ctx, f1, f2, patch):
         out = _launch("corr2d", f1, f2, patch)
         correlation2d_cuda.launches += 1
+        ctx.save_for_backward(f1, f2)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the CUDA 2-D correlation has no backward kernel yet (2dcorr training, "
-            "ROADMAP.md queue 2, item 2); train 2dcorr nets on the CPU path")
+        f1, f2 = ctx.saved_tensors
+        df1, df2 = correlation2d_backward_cuda(f1, f2, grad)
+        return df1, df2, None
 
 
 def correlation1d_cuda(f1: torch.Tensor, f2: torch.Tensor, pw: int) -> torch.Tensor:
@@ -226,6 +254,7 @@ def correlation2d_cuda(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
 correlation1d_cuda.launches = 0
 correlation1d_backward_cuda.launches = 0
 correlation2d_cuda.launches = 0
+correlation2d_backward_cuda.launches = 0
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int],

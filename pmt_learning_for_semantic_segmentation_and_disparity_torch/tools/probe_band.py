@@ -1,7 +1,7 @@
 """Where the bf16 correlation kernels' time goes, on one CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.probe_band \
-        [--backward] [--out report.json]
+        [--backward [corr1d|corr2d]] [--out report.json]
 
 Builds the bf16 band kernels of ``csrc/`` (corr1d, corr2d) as they are and in
 variants with one part cut out, each from a copy of the sources under
@@ -76,6 +76,23 @@ twice over:
 The first six compute the same gradients; the last three are wrong by
 construction. ``flushed`` writes the 256 MB (the L2 is left holding dirty
 lines of the flush), ``read-flushed`` reads them (a clean L2 of other data).
+
+``--backward corr2d`` probes corr2d's bf16 backward (``corr2d_backward``,
+17 row offsets of the transposed band, ``csrc/corr2d.cu``) the same way, at
+the same two shapes with g of 289 channels:
+
+* ``kernel``       -- the sources as they are (a 3-stage ring);
+* ``stages-2``, ``stages-4`` -- a ring of 2 or 4 stages (4: one block an SM);
+* ``no-g-reads``   -- the A fragments are built from a constant instead of
+  the stage's g boxes (the band mask stays);
+* ``no-g-copies``  -- g's boxes are not copied into the stages;
+* ``no-loads``     -- nothing is copied (the ring's hand-offs remain);
+* ``no-products``  -- no ``ldmatrix`` and no tensor-core product (the A
+  fragments are still built);
+* ``no-stores``    -- no slab is stored.
+
+The first three compute the same gradients; the rest are wrong by
+construction.
 
 Prints the card's name and power limit, the nvcc release and one JSON
 line, and writes the JSON to ``--out``. Exits non-zero without a card.
@@ -239,6 +256,38 @@ BWD_VARIANTS = {
     "no-stores": (("corr1d.cu", BWD_STORE, "if (acc[0][0] == 1.5e-38f) " + BWD_STORE),),
 }
 BWD_SHAPES = {"train": (8, 32, 64, 352), "serve": (16, 64, 120, 352)}
+# corr2d's backward: variant -> (file, text, replacement) edits
+BWD2_EXPECT = "mbar_expect_tx(&full[s], in1 * (kWinBox + kGBox) + in2 * kWinBox + kGBox);"
+BWD2_F_LOADS = ("          if (in1) tma_load(st, &tm1, c0, x0 - kHalo, r1, b, &full[s]);\n"
+                "          if (in2) tma_load(st + kWinBox, &tm2, c0, x0 - kHalo, r2, b, &full[s]);\n")
+BWD2_G_LOADS = ("          tma_load(g1, &tmg, i * kPW & ~7, x0 - kHalo, y, b, &full[s]);\n"
+                "          if (in1) tma_load(g2, &tmg, i * kPW & ~7, x0 - kHalo, r1, b, &full[s]);\n")
+BWD2_A = "v[e] = t == 0 ? ga[(r + kHalo) * kGC + dd] : ga[kk * kGC + kPW - 1 - dd];"
+BWD2_PRODUCTS = "      const uint32_t bx = smem_u32(st + (t == 0 ? kWinBox : 0));"
+BWD2_STAGES = "constexpr int kStages = 3;"
+BWD2_STORE = "tma_store(t == 0 ? &td1 : &td2, ob, c0, x0 + 16 * m, y, b);"
+BWD2_VARIANTS = {
+    "kernel": (),
+    **{f"stages-{n}": (("corr2d.cu", BWD2_STAGES, f"constexpr int kStages = {n};"),) for n in (2, 4)},
+    "no-g-reads": (("corr2d.cu", BWD2_A, "v[e] = __float2bfloat16(0.5f);"),),
+    "no-g-copies": (("corr2d.cu", BWD2_G_LOADS, ""),
+                    ("corr2d.cu", BWD2_EXPECT, "mbar_expect_tx(&full[s], (in1 + in2) * kWinBox);")),
+    "no-loads": (("corr2d.cu", BWD2_G_LOADS, ""), ("corr2d.cu", BWD2_F_LOADS, ""),
+                 ("corr2d.cu", BWD2_EXPECT, "mbar_arrive(&full[s]);")),
+    # the A fragments stay live: their sum feeds one accumulator
+    "no-products": (("corr2d.cu", BWD2_PRODUCTS,
+                     "      uint32_t z = 0;\n      for (int q = 0; q < 8; ++q) "
+                     "z ^= afrag[q / 4][q % 4];\n      acc[0][0] += __uint_as_float(z);\n"
+                     "      if (false) {\n" + BWD2_PRODUCTS),
+                    ("corr2d.cu", "          mma_bf16(acc[2 * np + 1], afrag[ks], bfrag[2], bfrag[3]);\n"
+                                  "        }\n",
+                     "          mma_bf16(acc[2 * np + 1], afrag[ks], bfrag[2], bfrag[3]);\n"
+                     "        }\n      }\n")),
+    "no-stores": (("corr2d.cu", BWD2_STORE, "if (acc[0][0] == 1.5e-38f) " + BWD2_STORE),),
+}
+# kernel -> (variants, g's values a pixel as the C function takes them: corr2d's
+# bf16 g comes padded to 296, as its wrapper pads it)
+BWD_KERNELS = {"corr1d": (BWD_VARIANTS, 17), "corr2d": (BWD2_VARIANTS, 296)}
 
 
 def build_variants(variants: dict, prefix: str = "") -> dict:
@@ -310,10 +359,12 @@ def event_times_ms(fn, iters: int, flush: torch.Tensor = None, read: bool = Fals
     return [s.elapsed_time(e) for s, e in events]
 
 
-def probe_backward(card: str, nvcc: str) -> dict:
-    """Time corr1d's bf16 backward and its variants at the training and
-    serving shapes, warm and with the L2 flushed; returns the report."""
-    libs = build_variants({name: (("corr1d",), edits) for name, edits in BWD_VARIANTS.items()},
+def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
+    """Time the bf16 backward of ``kernel`` (corr1d, corr2d) and its variants
+    at the training and serving shapes, warm and with the L2 flushed;
+    returns the report."""
+    variants, g_values = BWD_KERNELS[kernel]
+    libs = build_variants({name: ((kernel,), edits) for name, edits in variants.items()},
                           prefix="bwd-")
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
@@ -322,11 +373,11 @@ def probe_backward(card: str, nvcc: str) -> dict:
     for tag, shape in BWD_SHAPES.items():
         b, h, w, c = shape
         f1, f2 = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(2))
-        grad = torch.randn((b, h, w, 17), device="cuda", generator=g).bfloat16()
+        grad = torch.randn((b, h, w, g_values), device="cuda", generator=g).bfloat16()
         outs = {}
         for _ in range(2):
             for (name, _), (lib, _) in libs.items():
-                fn = lib.corr1d_backward
+                fn = getattr(lib, f"{kernel}_backward")
                 fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
                 df = outs.setdefault(name, (torch.zeros_like(f1), torch.zeros_like(f2)))
 
@@ -348,10 +399,11 @@ def probe_backward(card: str, nvcc: str) -> dict:
     hmma = {name: sass(path).count("HMMA") for (name, _), (_, path) in libs.items()}
     for key, ts in times.items():
         tag, _, name = key.split(" ", 2)
-        print(f"[probe_band backward] {key}: mean {', '.join(f'{t["mean"]:.4f}' for t in ts)} ms, "
+        print(f"[probe_band {kernel} backward] {key}: mean {', '.join(f'{t["mean"]:.4f}' for t in ts)} ms, "
               f"median {', '.join(f'{t["median"]:.4f}' for t in ts)} ms, max|d| vs kernel "
               f"{diff[f'{tag} {name}']:.4g}, {hmma[name]} HMMA in the library", flush=True)
-    report = {"card": card, "nvcc": nvcc, "shapes": BWD_SHAPES, "dtype": "bfloat16", "ms": times,
+    report = {"card": card, "nvcc": nvcc, "kernel": f"{kernel}_backward", "shapes": BWD_SHAPES,
+              "dtype": "bfloat16", "ms": times,
               "max_abs_diff_vs_kernel": diff, "hmma": hmma}
     print(json.dumps(report), flush=True)
     return report
@@ -360,8 +412,9 @@ def probe_backward(card: str, nvcc: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write the JSON report here")
-    ap.add_argument("--backward", action="store_true",
-                    help="probe corr1d's bf16 backward instead of the forward kernels")
+    ap.add_argument("--backward", nargs="?", const="corr1d", choices=sorted(BWD_KERNELS),
+                    help="probe a bf16 backward kernel (corr1d's by default) instead of the "
+                         "forward kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_band: no CUDA device", file=sys.stderr)
@@ -373,7 +426,7 @@ def main() -> int:
                           check=True, timeout=60).stdout.strip().splitlines()[-2]
     print(nvcc, flush=True)
     if args.backward:
-        report = probe_backward(card, nvcc)
+        report = probe_backward(card, nvcc, args.backward)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1)

@@ -13,9 +13,9 @@ family and the heaviest kernels by name, the device busy share of the window
 (kernel time over the host's wall time of the window), and, with ``--out``,
 writes the same as JSON there. Exits non-zero without a card.
 
-``--train`` profiles the flagship's train step instead (``make_train_step``
-with the bf16 policy, the loss stack CE + Lovász + MultiTversky + OHEM and
-Adam, on batches of 8 stereo pairs of 256x512, the training shape of the JAX
+``--train`` profiles the net's train step instead (``make_train_step`` with
+the bf16 policy, the loss stack CE + Lovász + MultiTversky + OHEM and Adam,
+on batches of 8 stereo pairs of 256x512, the training shape of the JAX
 package's bench): two warm-up steps, then ``ITERS`` steps.
 """
 from __future__ import annotations
@@ -46,6 +46,7 @@ ITERS = 2
 FAMILIES = (
     ("corr1d_backward", ("corr1d_bwd",)),
     ("corr1d", ("corr1d",)),
+    ("corr2d_backward", ("corr2d_bwd",)),
     ("corr2d", ("corr2d",)),
     ("batch_norm", ("batch_norm", "bn_fw", "batchnorm")),
     ("concatenate", ("catarray",)),
@@ -70,9 +71,9 @@ def family(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--net", default="sdnet_mini_ext", choices=sorted(MODELS.keys()),
-                    help="the net to serve (default: the flagship)")
+                    help="the net to serve or train (default: the flagship)")
     ap.add_argument("--train", action="store_true",
-                    help="profile the flagship's train step instead of the serving forward")
+                    help="profile the net's train step instead of the serving forward")
     ap.add_argument("--out", default=None, help="write the report as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

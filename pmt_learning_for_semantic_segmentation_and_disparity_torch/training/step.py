@@ -77,18 +77,38 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
     return forward
 
 
+# output types whose head-2 loss mirrors head 1's, so only head 1 counts
+# (the JAX package's ``_SINGLE_HEAD``, ``step.py:42``)
+_SINGLE_HEAD = ("smallOutPair", "deeplab", "edgeOut", "pspnet")
+# the output types of the ported nets: sdnet_mini_ext, sdnet_mini, sdnet and sdnetv2
+PORTED_OUTPUT_TYPES = ("smallOutSeg", "smallOutPair", "two_out")
+
+
+def _unported_output_type(ot: str) -> str:
+    item = "12.4" if ot == "hanet" else "12.7"
+    return f"the losses of output type {ot!r} are not ported yet (ROADMAP.md queue 1, item {item})"
+
+
 def make_losses_fn(cfg: PMTConfig):
     """Returns ``losses(out, batch) -> (loss, logs)`` on the model's outputs:
-    head 1's cross entropy on seg1, head 2's configured stack on seg2, and the
-    masked L1 on disp1 (``step.py:175-220``, the flagship's branch)."""
+    head 1's cross entropy on seg1, head 2's configured stack on seg2 (not
+    for the single-head output types, e.g. ``sdnet_mini``'s), and the masked
+    L1 on disp1 (the JAX package's ``step.py:175-220``, for the output types
+    of the ported nets; any other raises)."""
+    ot = cfg.model.output_type
+    if ot not in PORTED_OUTPUT_TYPES:
+        raise NotImplementedError(_unported_output_type(ot))
     d = cfg.data
     head1_loss = compose_seg_loss(["cross_entropy"], d.dataset_name, d.n_labels, cfg.loss.seg_weight)
     head2_loss = compose_seg_loss(cfg.loss.losses, d.dataset_name, d.n_labels, cfg.loss.seg_weight)
-    disp_loss = compose_disp_loss(cfg.loss.losses, d.dataset_name)
+    disp_loss = compose_disp_loss(cfg.loss.losses, d.dataset_name, ot)
+    two_heads = ot not in _SINGLE_HEAD
 
     def losses(out, batch):
         seg = batch["seg"]
-        loss_seg = head1_loss(out["seg1"], seg) + head2_loss(out["seg2"], seg)
+        loss_seg = head1_loss(out["seg1"], seg)
+        if two_heads:
+            loss_seg = loss_seg + head2_loss(out["seg2"], seg)
         loss_disp = disp_loss(batch["disp"], out["disp1"])
         loss = loss_seg + loss_disp
         return loss, {"loss": loss, "loss_seg": loss_seg, "loss_disp": loss_disp}

@@ -2,8 +2,9 @@
 ``correlation_lax`` and its Pallas kernels in interpret mode, fp32, abs 1e-5;
 its plain gradients against ``jax.vjp`` of the JAX package's ``correlation``
 (whose backward is ``_corr1d_bwd_lax`` / ``_corr2d_bwd_lax``) and against
-autograd through ``correlation_plain``; and the checks its CUDA wrappers make
-before a kernel is built. The CUDA kernels themselves are checked on the
+autograd through ``correlation_plain``; the arithmetic of both backward
+kernels' bands, written out in plain PyTorch; and the checks its CUDA
+wrappers make before a kernel is built. The CUDA kernels themselves are checked on the
 card by ``chip_smoke.py``."""
 import importlib
 import shutil
@@ -207,6 +208,76 @@ def test_corr1d_backward_band_decomposition(w, c):
             assert err <= bound, f"{name} against {what}: max|d| {err} > {bound}"
 
 
+PH = 17
+
+
+def _shift_rows(t, o):
+    """out[:, y] = t[:, y + o], zero where y + o lies outside the map."""
+    h = t.shape[1]
+    out = torch.zeros_like(t)
+    if abs(o) < h:
+        out[:, max(0, -o):h - max(0, o)] = t[:, max(0, o):h - max(0, -o)]
+    return out
+
+
+def _band2d_backward(f1, f2, g):
+    """(df1, df2) of the 17x17 correlation as corr2d's bf16 backward kernel
+    (``csrc/corr2d.cu``) computes them, in plain PyTorch: for each output
+    row y, the row offsets i in the kernel's range [i_lo(y), i_hi(y)), each
+    one corr1d's transposed band (``_band_backward``) with g[..., 17i :
+    17i+17] as its g, df1 against f2's row y + i - 8 and df2 against f1's and
+    g's row y - i + 8."""
+    b, h, w, c = f1.shape
+    y = torch.arange(h)
+    i_lo = torch.minimum(HALO - y, y + HALO + 1 - h).clamp(min=0)
+    i_hi = torch.maximum(h + HALO - y, y + HALO + 1).clamp(max=PH)
+    df1, df2 = torch.zeros_like(f1), torch.zeros_like(f2)
+    for i in range(PH):
+        on = ((i_lo <= i) & (i < i_hi))[None, :, None, None]
+        gi = g[..., i * PW:(i + 1) * PW]
+        f1s, f2s = _shift_rows(f1, HALO - i), _shift_rows(f2, i - HALO)
+        df1 += on * _band_backward(f1s, f2s, gi)[0]
+        df2 += on * _band_backward(f1s, f2s, _shift_rows(gi, HALO - i))[1]
+    return df1, df2
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 9, 20),     # H = 1: one row offset
+    (1, 7, 7, 20),     # H, W below the patch radius
+    (1, 8, 16, 20),    # the smallest sides the JAX package's VJP takes
+    (1, 9, 17, 37),
+    (2, 16, 8, 20),
+    (1, 17, 18, 64),
+    (1, 18, 65, 20),   # two column tiles
+    (1, 20, 7, 20),
+])
+def test_corr2d_backward_band_decomposition(shape):
+    """The 2-D backward kernel's decomposition (the row-offset range of each
+    output row, the row shifts of f1, f2 and g, corr1d's band per offset)
+    against autograd through correlation_plain in float64 (1e-12 *
+    max|ref|), correlation2d_vjp_plain (fp32 sums, 1e-5) and, where both map
+    sides are at least the patch radius 8, jax.vjp of the JAX package's
+    correlation in fp32 (1e-5)."""
+    f1, f2 = _pair(12, shape)
+    g = np.random.default_rng(13).standard_normal(shape[:3] + (PH * PW,), dtype=np.float32)
+    got = _band2d_backward(*(torch.from_numpy(a).double() for a in (f1, f2, g)))
+    x1, x2 = (torch.from_numpy(a).double().requires_grad_() for a in (f1, f2))
+    refs = {"autograd float64": (torch.autograd.grad(
+        tcorr.correlation_plain(x1, x2, (PH, PW)), (x1, x2), torch.from_numpy(g).double()), 1e-12),
+        "correlation2d_vjp_plain": (tcorr.correlation2d_vjp_plain(
+            *(torch.from_numpy(a) for a in (f1, f2, g)), (PH, PW)), 1e-5)}
+    if min(shape[1:3]) >= HALO:
+        vjp = jax.jit(lambda a, b, e: jax.vjp(lambda x, y: jcorr.correlation(x, y, (PH, PW)),
+                                              a, b)[1](e))
+        refs["jax.vjp"] = (vjp(f1, f2, g), 1e-5)
+    for what, (ref, tol) in refs.items():
+        for name, a, r in zip(("df1", "df2"), got, ref):
+            r = torch.from_numpy(np.array(r)).double()
+            assert a.shape == r.shape == shape
+            err, bound = (a - r).abs().max().item(), tol * r.abs().max().item()
+            assert err <= bound, f"{name} against {what}: max|d| {err} > {bound}"
+
+
 @pytest.fixture
 def no_build(monkeypatch):
     """Any attempt to build or load a kernel fails the test."""
@@ -254,9 +325,12 @@ def test_backward_wrapper_rejects_cpu_tensors(no_build):
     assert tcorr.correlation1d_backward_cuda.launches == 0
 
 
-def test_corr2d_cuda_backward_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, item 2"):
-        tcorr._Corr2dCuda.backward(None, torch.zeros(1))
+def test_corr2d_backward_wrapper_rejects_cpu_tensors(no_build):
+    f1, f2 = (torch.from_numpy(a) for a in _pair(4, (1, 2, 8, 4)))
+    g = torch.zeros((1, 2, 8, 289))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcorr.correlation2d_backward_cuda(f1, f2, g)
+    assert tcorr.correlation2d_backward_cuda.launches == 0
 
 
 def test_every_kernel_has_a_source_and_a_patch():

@@ -5,7 +5,8 @@ Bounds: values within 1e-5 relative, input gradients within 1e-5 *
 max|ref| (fp32 summation order; the Lovász cumulative sums over 1024 sorted
 pixels are the longest chains). Lovász runs at C = 2 (the JAX package's
 single-sort path) and C = 9; Tversky's gradient ignores the upstream factor
-and forces alpha = 0.7, beta = 0.3 in both packages.
+and forces alpha = 0.7, beta = 0.3 in both packages. ``make_losses_fn``
+is held against the JAX package's for the output type of every ported net.
 """
 import jax
 import jax.numpy as jnp
@@ -15,12 +16,18 @@ import torch
 from torch_port import torch_threads  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import losses as tl
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_losses_fn
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.core import PMTConfig as JaxConfig
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import dispatch as jdispatch
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import disp as jdisp
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import lovasz as jlovasz
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import ohem as johem
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import seg as jseg
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import tversky as jtversky
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.training.step import (
+    make_losses_fn as jax_make_losses_fn,
+)
 
 SHAPE = (2, 16, 32)
 REL = 1e-5
@@ -179,3 +186,62 @@ def test_unported_losses_raise(name):
         tl.compose_seg_loss(["cross_entropy", name], "roses", 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.compose_disp_loss(["smooth_grad"], "roses")
+
+
+# every ported net, by output type: sdnet_mini_ext smallOutSeg, sdnet_mini
+# smallOutPair (single-head), sdnet and sdnetv2 two_out
+PORTED_NETS = ("sdnet_mini_ext", "sdnet_mini", "sdnet", "sdnetv2")
+
+
+def loss_configs(net, losses=("cross_entropy", "lovasz_loss", "tversky_loss", "ohm_loss")):
+    jcfg, tcfg = JaxConfig(), PMTConfig()
+    for cfg in (jcfg, tcfg):
+        cfg.model.net = net
+        cfg.loss.losses = losses
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("net", PORTED_NETS)
+def test_make_losses_fn_matches_jax(net):
+    """The whole loss of each ported net's output type and its logs, the
+    port's ``make_losses_fn`` against the JAX package's on the same outputs
+    (seg2 unlike seg1, so a head-2 loss would show), within 1e-5 relative;
+    sdnet_mini counts head 1 only."""
+    rng = np.random.default_rng(7)
+    out = {k: (2 * rng.standard_normal(SHAPE + (c,))).astype(np.float32)
+           for k, c in (("seg1", 2), ("seg2", 2), ("disp1", 1), ("disp2", 1))}
+    labels = rng.integers(0, 2, SHAPE)
+    batch = {"left": rng.standard_normal(SHAPE + (3,), dtype=np.float32),
+             "seg": np.eye(2, dtype=np.float32)[labels],
+             "disp": rng.random(SHAPE + (1,), dtype=np.float32)}
+    jcfg, tcfg = loss_configs(net)
+    assert tcfg.model.output_type == jcfg.model.output_type
+    ref_loss, ref_logs = jax_make_losses_fn(jcfg)(
+        {k: jnp.asarray(v) for k, v in out.items()}, {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(0))
+    losses = make_losses_fn(tcfg)
+    tout = {k: torch.from_numpy(v) for k, v in out.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, logs = losses(tout, tbatch)
+    for k, v in logs.items():
+        assert abs(v.item() - float(ref_logs[k])) <= REL * abs(float(ref_logs[k])), (k, v, ref_logs[k])
+    head1 = tl.compose_seg_loss(["cross_entropy"], "roses", 2)(tout["seg1"], tbatch["seg"])
+    loss_seg = logs["loss_seg"].item()
+    if net == "sdnet_mini":  # head 1 only: seg2 does not count
+        assert loss_seg == pytest.approx(head1.item(), rel=1e-6)
+        assert losses(dict(tout, seg2=-tout["seg2"]), tbatch)[0].item() == loss.item()
+    else:
+        assert loss_seg > head1.item() * (1 + 1e-3)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("net", "sdnet_seg", "12.7"), ("net", "dsnet_warp", "12.7"), ("net", "dsnet_warp_disp", "12.7"),
+    ("net", "dsnet_warp_disp_consist", "12.7"), ("net", "sdnet_mini_ext_edge", "12.7"),
+    ("net", "deeplab", "12.7"), ("net", "pspnet", "12.7"), ("hanet", True, "12.4"),
+    ("multaskloss", 1, "12.7"),
+])
+def test_unported_output_types_raise(field, value, item):
+    _, cfg = loss_configs("sdnet_mini_ext")
+    setattr(cfg.model, field, value)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
+        make_losses_fn(cfg)

@@ -10,13 +10,16 @@ reach ~2e4, so the bound is relative: max|port - jax| <= 1e-3 * max|jax| per
 output. The flagship (1dcorr) runs at full depth; the 2dcorr variant with
 the trunk at block config (2, 2, 2, 2) (``torch_port.reduced_depth``).
 """
-import copy
-
 import jax
 import numpy as np
 import pytest
 import torch
-from torch_port import reduced_depth, torch_threads, variables_from_port  # noqa: F401
+from torch_port import (  # noqa: F401
+    check_per_view_batch_norm,
+    reduced_depth,
+    torch_threads,
+    variables_from_port,
+)
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
@@ -155,45 +158,14 @@ def test_unported_options_raise(field, value):
         tmodels.get_network(cfg, device="cpu")
 
 
-def test_train_mode_forward_raises():
-    # sdnet_mini has no train-mode forward yet (the legacy nets' cases are in
-    # test_torch_sdnet_legacy.py)
-    cfg = PMTConfig()
-    cfg.model.net = "sdnet_mini"
-    with reduced_depth():
-        port = tmodels.get_network(cfg, device="cpu")
-    x = torch.zeros(SHAPE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6.3"):
-        port.train()(x, x)
-
-
 def test_train_mode_forward_per_view_batch_norm(flagship):
-    """Train mode runs the trunk once per view, left then right: each pass
-    normalises by its own view's batch statistics and moves the running
-    statistics, so they move twice in that order (flax momentum 0.9, biased
-    variance); a head's BatchNorm moves once."""
-    port = copy.deepcopy(flagship["port"]).train()
-    trunk_bn, head_bn = port.features.backbone.norm0, port.cdu4.c1.bn
-    seen = {"trunk": [], "head": []}
-    for key, bn in (("trunk", trunk_bn), ("head", head_bn)):
-        bn.register_forward_pre_hook(lambda m, args, key=key: seen[key].append(args[0].detach().clone()))
-    before = {k: (bn.running_mean.clone(), bn.running_var.clone())
-              for k, bn in (("trunk", trunk_bn), ("head", head_bn))}
-    out = port(torch.from_numpy(flagship["left"]), torch.from_numpy(flagship["right"]))
+    """Train mode runs the trunk once per view, left then right
+    (``torch_port.check_per_view_batch_norm``); a head's BatchNorm moves
+    once."""
+    out = check_per_view_batch_norm(flagship["port"], flagship["left"], flagship["right"],
+                                    "cdu4.c1.bn")
     assert all(torch.isfinite(out[k]).all() and out[k].shape == flagship["got"][k].shape
                for k in OUTPUTS)
-    assert [x.shape[0] for x in seen["trunk"]] == [SHAPE[0], SHAPE[0]]  # L, then R
-    assert [x.shape[0] for x in seen["head"]] == [SHAPE[0]]
-    for key, bn in (("trunk", trunk_bn), ("head", head_bn)):
-        mean, var = before[key]
-        for x in seen[key]:
-            mean = 0.9 * mean + 0.1 * x.mean(dim=(0, 2, 3))
-            var = 0.9 * var + 0.1 * x.var(dim=(0, 2, 3), unbiased=False)
-        torch.testing.assert_close(bn.running_mean, mean, rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(bn.running_var, var, rtol=1e-5, atol=1e-6)
-    # the left view's pass is the model's conv0 on the left image
-    left = port.features.backbone.conv0(torch.from_numpy(flagship["left"]).permute(0, 3, 1, 2))
-    torch.testing.assert_close(seen["trunk"][0], left.detach(), rtol=1e-5, atol=1e-5)
 
 
 def test_same_seed_same_weights():

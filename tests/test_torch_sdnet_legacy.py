@@ -1,6 +1,7 @@
 """The port's legacy nets, ``sdnet`` (DSNet) and ``sdnetv2`` (DSNetV2, with
 ``1dcorr`` and ``2dcorr``), eval forward, against the JAX models at
-1x64x128, fp32 on the CPU.
+1x64x128, fp32 on the CPU; their train-mode forward runs the trunk once per
+view, as the JAX models do.
 
 One set of variables per net (the port's seeded weights as a flax tree,
 ``torch_port.variables_from_port``), carried back into the port with
@@ -9,11 +10,18 @@ the nets' weight mapping, patch choice and heads are those of full depth,
 which the card runs in ``chip_smoke.py``). Random-init outputs are large, so
 the bound is relative: max|port - jax| <= 1e-3 * max|jax| per output.
 """
+import copy
+
 import jax
 import numpy as np
 import pytest
 import torch
-from torch_port import reduced_depth, torch_threads, variables_from_port  # noqa: F401
+from torch_port import (  # noqa: F401
+    check_per_view_batch_norm,
+    reduced_depth,
+    torch_threads,
+    variables_from_port,
+)
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
@@ -51,7 +59,8 @@ def legacy(request):
     with torch.inference_mode():
         got = port(torch.from_numpy(left), torch.from_numpy(right))
     return {"ref": {k: np.asarray(out[k]) for k in OUTPUTS},
-            "got": {k: v.numpy() for k, v in got.items()}, "port": port}
+            "got": {k: v.numpy() for k, v in got.items()}, "port": port,
+            "left": left, "right": right}
 
 
 @pytest.mark.parametrize("key", OUTPUTS)
@@ -62,14 +71,11 @@ def test_legacy_eval_forward_matches_jax(legacy, key):
     assert np.abs(got - ref).max() <= REL * np.abs(ref).max()
 
 
-def test_legacy_train_mode_forward_raises(legacy):
-    port = legacy["port"]
-    x = torch.zeros(SHAPE)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6.3"):
-            port.train()(x, x)
-    finally:
-        port.eval()
+def test_legacy_train_mode_forward_per_view_batch_norm(legacy):
+    out = check_per_view_batch_norm(legacy["port"], legacy["left"], legacy["right"],
+                                    "cdu4.c1.bn")
+    for k in OUTPUTS:
+        assert torch.isfinite(out[k]).all() and out[k].shape == legacy["got"][k].shape
 
 
 @pytest.mark.parametrize("net", ["sdnet", "sdnetv2"])
@@ -90,8 +96,9 @@ def test_sdnet_correlates_the_17x17_patch_whatever_the_corr_type():
 
 def test_legacy_modules_stay_channels_last(legacy):
     """Every multi-channel map between the modules stays channels_last (the
-    layout the card's convolutions take without a transpose)."""
-    port, bad = legacy["port"], []
+    layout the card's convolutions take without a transpose), in eval and
+    in train mode (train-mode BatchNorm may return NCHW strides for C = 1)."""
+    port, bad = copy.deepcopy(legacy["port"]), []
     hooks = [m.register_forward_hook(
         lambda m, i, out, n=n: bad.extend(
             n for o in (out if isinstance(out, (tuple, list)) else (out,))
@@ -99,8 +106,9 @@ def test_legacy_modules_stay_channels_last(legacy):
             and not o.is_contiguous(memory_format=torch.channels_last)))
         for n, m in port.named_modules() if n]
     try:
-        with torch.inference_mode():
-            port(torch.zeros(SHAPE), torch.zeros(SHAPE))
+        for train in (False, True):
+            with torch.no_grad():
+                port.train(train)(torch.zeros(SHAPE), torch.zeros(SHAPE))
     finally:
         for h in hooks:
             h.remove()

@@ -6,13 +6,19 @@ flax tree, ``torch_port.variables_from_port``), carried back into the port
 with ``load_jax_variables``, with the trunk at block config (2, 2, 2, 2)
 (``torch_port.reduced_depth``); the JAX model runs with ``s2d_heads`` on and
 off (the same variables fit both). The bound is relative: max|port - jax| <=
-1e-3 * max|jax| per output.
+1e-3 * max|jax| per output. Its train-mode forward runs the trunk once per
+view, as the JAX model does.
 """
 import jax
 import numpy as np
 import pytest
 import torch
-from torch_port import reduced_depth, torch_threads, variables_from_port  # noqa: F401
+from torch_port import (  # noqa: F401
+    check_per_view_batch_norm,
+    reduced_depth,
+    torch_threads,
+    variables_from_port,
+)
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
@@ -50,7 +56,8 @@ def mini(request):
     tmodels.load_jax_variables(port, variables["params"], variables["batch_stats"])
     with torch.inference_mode():
         got = port(torch.from_numpy(left), torch.from_numpy(right))
-    return {"refs": refs, "got": {k: v.numpy() for k, v in got.items()}, "port": port}
+    return {"refs": refs, "got": {k: v.numpy() for k, v in got.items()}, "port": port,
+            "left": left, "right": right}
 
 
 @pytest.mark.parametrize("s2d", [True, False])
@@ -71,6 +78,13 @@ def test_sdnet_mini_patch_follows_the_corr_type(mini):
     port = mini["port"]
     assert port.corrConv2d.conv.in_channels == port.patch[0] * port.patch[1]
     assert port.normalize == (port.patch == (17, 17))
+
+
+def test_sdnet_mini_train_mode_forward_per_view_batch_norm(mini):
+    out = check_per_view_batch_norm(mini["port"], mini["left"], mini["right"], "cdu4.c1.bn")
+    for k in OUTPUTS:
+        assert torch.isfinite(out[k]).all() and out[k].shape == mini["got"][k].shape
+    assert torch.equal(out["seg2"], out["seg1"]) and torch.equal(out["disp2"], out["disp1"])
 
 
 def test_sdnet_mini_edges_raise():

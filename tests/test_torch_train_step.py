@@ -33,12 +33,17 @@ with that result cast to float64.
 import copy
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch_port import (  # noqa: F401
-    flax_to_port,
+    STACK,
+    jax_float64_reference,
+    numpy_batch,
+    port_config,
+    port_grads,
+    port_stats,
+    port_steps,
     reduced_depth,
     torch_threads,
 )
@@ -52,99 +57,9 @@ from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import 
     make_train_step,
 )
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu import models as jmodels
-from pmt_learning_for_semantic_segmentation_and_disparity_tpu import training as jtraining
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.core import PMTConfig as JaxConfig
-from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import tversky as jtversky
-from pmt_learning_for_semantic_segmentation_and_disparity_tpu.training.step import (
-    make_loss_fn as jax_make_loss_fn,
-)
 
-STACK = ("cross_entropy", "lovasz_loss", "tversky_loss", "ohm_loss")  # bench.py:196-197
 SHAPE = (1, 64, 128)
-
-
-def numpy_batch(seed=0, shape=SHAPE):
-    rng = np.random.default_rng(seed)
-    labels = rng.integers(0, 2, shape)
-    return {"left": rng.standard_normal(shape + (3,), dtype=np.float32),
-            "right": rng.standard_normal(shape + (3,), dtype=np.float32),
-            "seg": np.eye(2, dtype=np.float32)[labels],
-            "disp": rng.random(shape + (1,), dtype=np.float32)}
-
-
-def port_config(**optim):
-    cfg = PMTConfig()
-    cfg.loss.losses = STACK
-    for k, v in optim.items():
-        setattr(cfg.optim, k, v)
-    return cfg
-
-
-def port_grads(model):
-    return {n: np.array((p.grad if p.grad is not None else torch.zeros_like(p)).detach(), np.float64)
-            for n, p in model.named_parameters()}
-
-
-def port_stats(model):
-    return {n: np.array(b.detach(), np.float64) for n, b in model.named_buffers()
-            if n.endswith(("running_mean", "running_var"))}
-
-
-def flax_stats_to_port(tree):
-    names = {"mean": "running_mean", "var": "running_var"}
-    out = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        keys = [k.key for k in path]
-        out[".".join(keys[:-1] + [names[keys[-1]]])] = np.array(leaf, np.float64)
-    return out
-
-
-@jax.custom_vjp
-def _tversky_float64(input2, target):
-    return jtversky._fwd_impl(input2, target)[0]
-
-
-_tversky_float64.defvjp(
-    jtversky._fwd, lambda res, g: (jtversky._bwd(res, g)[0].astype(jnp.float64), None))
-
-
-def jax_float64_reference(variables, batch, key):
-    """The JAX package in float64: the step-0 gradient as its
-    ``make_train_step`` takes it ({port name: gradient}), and two steps of
-    ``make_train_step`` (the two losses, the BatchNorm running statistics
-    after step 0)."""
-    cfg = JaxConfig()
-    cfg.loss.losses = STACK
-    cfg.model.s2d_heads = False
-    model = jmodels.get_network(cfg)
-    f64 = lambda tree: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)  # noqa: E731
-    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jtversky, "focal_binary_tversky", _tversky_float64)
-        params, stats, batch = f64(variables["params"]), f64(variables["batch_stats"]), f64(batch)
-        grad_fn = jax.jit(jax.value_and_grad(jax_make_loss_fn(cfg, model), has_aux=True),
-                          static_argnums=(4,))
-        _, grads = grad_fn(params, stats, batch, key, True)
-        assert all(a.dtype == jnp.float64 for a in jax.tree_util.tree_leaves(grads))
-        tx = jtraining.build_optimizer(cfg.optim, cfg.model.net, len(STACK), 1)
-        state = jtraining.TrainState.create(model.apply, params, stats, tx)
-        step = jtraining.make_train_step(cfg, model, mesh=None)
-        state, m0 = step(state, batch, key)
-        stats0 = flax_stats_to_port(state.batch_stats)
-        state, m1 = step(state, batch, key)
-        return flax_to_port(grads), (float(m0["loss"]), float(m1["loss"])), stats0
-
-
-def port_steps(cfg, model, batch):
-    """Two steps of the port's ``make_train_step``: the two losses, the
-    gradients of step 0, the BatchNorm running statistics after step 0, and
-    the metrics of step 0."""
-    state = TrainState.create(model, build_optimizer(cfg.optim, cfg.model.net, len(STACK)))
-    step = make_train_step(cfg, model, device="cpu")
-    _, m0 = step(state, batch)
-    grads0, stats0 = port_grads(model), port_stats(model)
-    _, m1 = step(state, batch)
-    assert state.step == 2
-    return (m0["loss"].item(), m1["loss"].item()), grads0, stats0, m0
 
 
 @pytest.fixture(scope="module")
