@@ -45,7 +45,25 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    finite losses, corr1d's forward and backward kernels once per step each,
    corr2d's never; ms/step, pairs/s and peak memory;
 7. train sdnet the same way: corr2d's forward and backward kernels once per
-   step each, corr1d's never.
+   step each, corr1d's never;
+8. from files, through the CLI, at full width and depth: write a roses
+   fixture (16 training and 5 test pairs of 480x900) with the port's own
+   ``make_roses_fixture``, then ``cli.train.main`` trains the flagship on it
+   (``FILES_TRAIN``: bf16, the bench loss stack, 256x512 crops, 8 pairs a
+   step, 2 epochs, then the per-row eval in the 512x960 bucket): the
+   checkpoint directory is named by ``model_id()`` and holds ``meta_1.json``,
+   ``best.json`` and one ``model_best_IOU..._Derr...``; corr1d's forward
+   once a train step and once an eval forward, its backward once a train
+   step, corr2d never. A fresh ``Session`` restores that checkpoint: weights,
+   BatchNorm statistics and optimizer state bit-equal to the trained
+   session's. The same command with ``-e 3 -load_weights`` prints "resuming
+   at epoch 2" and trains one more epoch. The eval CLI (``-train 0``) at
+   ``-b 4`` and ``-b 5`` gives summaries within 1e-3 relative (padding and
+   batch invariance under bf16: each mean and std of the per-row table and
+   each value of the pooled summary), and ``-slide_window 1`` runs corr1d
+   once a forward over the 9 windows of each image. Prints ms a step
+   with loading, the wait for the loader, eval pairs/s, the PNG decoder that
+   ran and the time it takes for a 480x900 image.
 
 The third-to-last line of stdout is a JSON object with one record per
 kernel, the second-to-last the card's name and power limit, and the last
@@ -61,7 +79,8 @@ can be compared in turns in one call; ``python3 chip_smoke.py --backward
 [corr2d]`` does the same for a backward kernel (corr1d's by default: its
 four timed cases of phase 2, without the HMMA count).
 ``python3 chip_smoke.py --kernels`` runs phases 1 and 2 only and prints the
-kernels' record but no result line.
+kernels' record but no result line; ``python3 chip_smoke.py --files`` runs
+phase 8 only.
 """
 from __future__ import annotations
 
@@ -69,12 +88,17 @@ import argparse
 import gc
 import importlib
 import json
+import contextlib
+import io
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 PORT = "pmt_learning_for_semantic_segmentation_and_disparity_torch"
@@ -215,6 +239,17 @@ KERNELS = {
         ((1, 18, 70, 352), torch.bfloat16, 2),  # misaligned inputs: element staging
     ]),
 }
+
+
+# phase 8: the CLI on files (16 training and 5 test pairs of 480x900: the
+# eval pads them into the 512x960 bucket)
+FILES_HW, FILES_TRAIN_PAIRS, FILES_TEST_PAIRS = (480, 900), 16, 5
+FILES_TRAIN = ("-net sdnet_mini_ext -backbone densenet -corrType 1dcorr -crop 256 512 -b 8 -e 2 "
+               "-loss cross_entropy lovasz_loss tversky_loss ohm_loss -output_activation linear "
+               "-datasetName roses -f16 1 -train 1 -show_results 0").split()
+FILES_EVAL_BATCHES = (4, 5)  # eval CLI batch sizes, held within FILES_EVAL_RTOL of each other
+FILES_EVAL_RTOL = 1e-3
+FILES_WINDOWS = 9  # -slide_window 1: 256x512 windows at half stride over the 512x960 bucket
 
 
 class SmokeFailure(Exception):
@@ -801,6 +836,186 @@ def phase_serve(net: str, n_batches: int, expect: dict):
     return launches
 
 
+def cli_run(argv, kernels: dict):
+    """``cli.train.main(argv)`` on the card with every kernel's count set to 0
+    just before; returns (session, its stdout, each kernel's launches). The
+    output is printed too."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.cli import train as cli
+
+    for k in kernels.values():
+        k.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        session = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    return session, text, launches
+
+
+def hold_cli_launches(tag: str, session, launches: dict) -> None:
+    """corr1d's forward once a train step and once an eval forward (one a
+    reported row: the eval step runs each row alone and skips the padded
+    tail), its backward once a train step, corr2d's kernels never."""
+    t = session.timings
+    steps = len(t["step_s"])
+    forwards = t["eval_rows"]
+    expect = {"corr1d": steps + forwards, "corr1d_backward": steps, "corr2d": 0, "corr2d_backward": 0}
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect} "
+          f"({steps} train steps, {forwards} eval forwards)")
+
+
+def step_times(t: dict) -> str:
+    """Each train step's ms with loading, and the loader's wait in it."""
+    return ", ".join(f"{1e3 * s:.1f} (wait {1e3 * w:.1f})" for s, w in zip(t["step_s"], t["load_wait_s"]))
+
+
+def same_tensors(tag: str, got: dict, ref: dict) -> None:
+    check(set(got) == set(ref), f"{tag}: other names")
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            same_tensors(f"{tag}.{k}", got[k], v)
+        elif isinstance(v, torch.Tensor):
+            check(torch.equal(got[k], v), f"{tag}: {k} differs")
+        elif isinstance(v, list) and v and isinstance(v[0], torch.Tensor):
+            check(all(torch.equal(a, b) for a, b in zip(got[k], v)), f"{tag}: {k} differs")
+        else:
+            check(got[k] == v, f"{tag}: {k} is {got[k]!r}, saved {v!r}")
+
+
+def phase_files(card: str):
+    """Phase 8: the flagship trained, resumed and evaluated from PNG files
+    through the CLI; returns each kernel's launches in the first training
+    run (its 4 train steps and its eval)."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import config_from_args
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import (
+        datasets,
+        make_roses_fixture,
+        native,
+        png,
+    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
+
+    correlation = correlation_module()
+    kernels = {"corr1d": correlation.correlation1d_cuda,
+               "corr1d_backward": correlation.correlation1d_backward_cuda,
+               "corr2d": correlation.correlation2d_cuda,
+               "corr2d_backward": correlation.correlation2d_backward_cuda}
+    tmp = tempfile.mkdtemp(prefix="pmt_files_")
+    try:
+        t0 = time.perf_counter()
+        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=FILES_TRAIN_PAIRS,
+                               n_test=FILES_TEST_PAIRS, hw=FILES_HW, seed=0)
+        print(f"[files] roses fixture: {FILES_TRAIN_PAIRS} training and {FILES_TEST_PAIRS} test pairs "
+              f"of {FILES_HW[0]}x{FILES_HW[1]} in {time.perf_counter() - t0:.2f} s", flush=True)
+        rgb = png.read(os.path.join(tmp, "ds", "train_left_0.png"))
+        paeth = os.path.join(tmp, "paeth.png")
+        png.write(paeth, rgb, filter="paeth")
+        for name, path in (("Sub rows, as cv2 writes them", os.path.join(tmp, "ds", "train_left_0.png")),
+                           ("Paeth rows", paeth)):
+            t0 = time.perf_counter()
+            check(bool((png.read(path) == rgb).all()), f"png decode of {name}")
+            print(f"[files] the port's PNG decoder: a {FILES_HW[0]}x{FILES_HW[1]} RGB image with "
+                  f"{name} in {1e3 * (time.perf_counter() - t0):.1f} ms (host)", flush=True)
+        data = []
+        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
+                          ("-inst", "inst")):
+            data += [flag, m[key], flag + "_test", m[key + "_t"]]
+        save = os.path.join(tmp, "runs")
+        argv = data + FILES_TRAIN + ["-w_savePath", save]
+
+        # train 2 epochs (2 steps each), then the per-row eval
+        datasets.DECODERS.clear()
+        session, _, train_launches = cli_run(argv, kernels)
+        decoders = sorted(set(datasets.DECODERS))
+        check(decoders in (["native"], ["png"]), f"decoders {datasets.DECODERS}")
+        cfg = session.cfg
+        ckpt = os.path.join(save, cfg.model_id())
+        files = sorted(os.listdir(ckpt))
+        best = [f for f in files if f.startswith("model_best_IOU") and "_Derr" in f]
+        check("meta_1.json" in files and "best.json" in files and len(best) == 1,
+              f"checkpoint directory {ckpt}: {files}")
+        t = session.timings
+        check(len(t["step_s"]) == 4 and t["eval_batches"] == 1 and t["eval_rows"] == FILES_TEST_PAIRS,
+              f"train: {t}")
+        hold_cli_launches("[files train]", session, train_launches)
+        print(f"[files train] flagship densenet121 bf16 from {decoders[0]}-decoded PNGs, 8 pairs of "
+              f"256x512 a step: {1e3 * sum(t['step_s'][1:]) / 3:.2f} ms/step with loading over steps "
+              f"2-4, of which the loader wait {1e3 * sum(t['load_wait_s'][1:]) / 3:.2f} ms/step (each "
+              f"step, ms: {step_times(t)}; the first builds corr1d and warms cuDNN); eval of "
+              f"{t['eval_rows']} pairs in "
+              f"one batch of 8 at 512x960: {t['eval_rows'] / t['eval_s']:.2f} pairs/s; checkpoint "
+              f"{os.path.basename(ckpt)}: {files}; launches {train_launches}; {card}", flush=True)
+
+        # the checkpoint restores bit-equal into a fresh session
+        fresh = Session(config_from_args(argv + ["-e", "3", "-load_weights", ckpt]))
+        fresh.init_state(steps_per_epoch=2)
+        check(fresh.restore(ckpt)[0] == 2, "restore: start epoch")
+        same_tensors("[files restore] model", fresh.model.state_dict(), session.model.state_dict())
+        same_tensors("[files restore] optimizer", fresh.state.optimizer.state_dict(),
+                     session.state.optimizer.state_dict())
+        check(fresh.state.step == session.state.step == 4, "restore: step")
+        print("[files restore] weights, BatchNorm statistics, optimizer state and step bit-equal to "
+              "the trained session's", flush=True)
+        del fresh
+
+        # resume to -e 3: one more epoch
+        resumed, text, launches = cli_run(argv + ["-e", "3", "-load_weights", ckpt], kernels)
+        check("resuming at epoch 2" in text, "resume: no 'resuming at epoch 2'")
+        t = resumed.timings
+        check(len(t["step_s"]) == 2 and resumed.state.step == 6, f"resume: {t}, step {resumed.state.step}")
+        hold_cli_launches("[files resume]", resumed, launches)
+        print(f"[files resume] resumed at epoch 2, one epoch: {1e3 * sum(t['step_s']) / 2:.2f} "
+              f"ms/step with loading, loader wait {1e3 * sum(t['load_wait_s']) / 2:.2f} ms/step "
+              f"({step_times(t)}); "
+              f"launches {launches}", flush=True)
+        del session, resumed
+
+        # the eval CLI at two batch sizes, then tiled
+        summaries = {}
+        for b in FILES_EVAL_BATCHES:
+            ev, _, launches = cli_run(data + FILES_TRAIN + ["-train", "0", "-b", str(b),
+                                                            "-load_weights", ckpt], kernels)
+            t = ev.timings
+            hold_cli_launches(f"[files eval -b {b}]", ev, launches)
+            check(t["eval_rows"] == FILES_TEST_PAIRS, f"eval -b {b}: {t}")
+            rows = ev.accumulator.rows
+            summaries[b] = (dict(ev.eval_summary),
+                            {k: (float(np.mean([r[k] for r in rows])), float(np.std([r[k] for r in rows])))
+                             for k in rows[0]})
+            print(f"[files eval -b {b}] {t['eval_batches']} batches: {t['eval_rows'] / t['eval_s']:.2f} "
+                  f"pairs/s (host, loading included); launches {launches}; {card}", flush=True)
+            del ev
+        (a, ms_a), (b, ms_b) = (summaries[k] for k in FILES_EVAL_BATCHES)
+        check(set(a) == set(b) and ms_a.keys() == ms_b.keys(), "eval summaries of other keys")
+        # the per-row mean±std table and the pooled summary
+        for k, (mean, std) in ms_a.items():
+            a[f"{k} mean"], a[f"{k} std"] = mean, std
+            b[f"{k} mean"], b[f"{k} std"] = ms_b[k]
+        rel = {k: abs(a[k] - b[k]) / max(abs(a[k]), abs(b[k]), 1e-12) for k in a}
+        worst = max(rel, key=rel.get)
+        print(f"[files eval] -b {FILES_EVAL_BATCHES[0]} vs -b {FILES_EVAL_BATCHES[1]}: the farthest of "
+              f"{len(rel)} summary values {worst} at {rel[worst]:.3g} relative (tolerance "
+              f"{FILES_EVAL_RTOL:g})", flush=True)
+        check(rel[worst] <= FILES_EVAL_RTOL, f"eval summaries differ: {worst} {a[worst]} vs {b[worst]}")
+        ev, _, launches = cli_run(data + FILES_TRAIN + ["-train", "0", "-b", "5", "-slide_window", "1",
+                                                        "-load_weights", ckpt], kernels)
+        t = ev.timings
+        hold_cli_launches("[files tiled]", ev, launches)
+        print(f"[files tiled] -slide_window 1: {FILES_WINDOWS} windows of 256x512 an image in one "
+              f"batched forward, {t['eval_rows']} forwards: "
+              f"{t['eval_rows'] / t['eval_s']:.2f} pairs/s; launches {launches}", flush=True)
+        reason = native.unavailable_reason() or "not tried"
+        print(f"[files] PNG decoder: {decoders[0]} ("
+              + ("the port's own codec, data/png.py; the native library: " + reason.splitlines()[0]
+                 if decoders == ["png"] else "the native library built from native/pmt_dataio.cc")
+              + ")", flush=True)
+        return train_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net and time it")
@@ -812,6 +1027,9 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="only build the kernels and hold them against their plain versions "
                          "(phases 1-2); prints no result line")
+    ap.add_argument("--files", action="store_true",
+                    help="only train, resume and evaluate the flagship from PNG files through "
+                         "the CLI (phase 8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -823,9 +1041,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.serve or args.train or args.backward:
+    if args.serve or args.train or args.backward or args.files:
         try:
-            if args.serve:
+            if args.files:
+                phase_files(card)
+            elif args.serve:
                 phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1])
             elif args.train:
                 phase_train(args.train, TRAIN_WARMUP, 10, card)
@@ -856,6 +1076,10 @@ def main() -> int:
             launches = phase_train(net, TRAIN_WARMUP, TRAIN_STEPS, card)
             for name in names:
                 records[name]["launches"] = launches[name]
+        # the launches of the files-through-the-CLI path (2 epochs of 2 steps
+        # and one eval batch)
+        for name, n in phase_files(card).items():
+            records[name]["launches_cli"] = n
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

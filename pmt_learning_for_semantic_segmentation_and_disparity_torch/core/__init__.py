@@ -6,6 +6,9 @@ from .config import (  # noqa: F401
     OptimConfig,
     ParallelConfig,
     PMTConfig,
+    RunConfig,
+    build_arg_parser,
+    config_from_args,
     output_type_for,
 )
 from .device import resolve_device  # noqa: F401

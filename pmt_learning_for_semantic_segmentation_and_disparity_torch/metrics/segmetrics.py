@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -28,6 +29,27 @@ def pixel_accuracy_from_preds(pred_labels: torch.Tensor, gt_labels: torch.Tensor
         mask = mask * pixel_mask
     acc = (pred_labels == gt_labels).float() * mask
     return acc.sum() / mask.sum().clamp(min=1.0)
+
+
+def pixel_accuracy(conf: np.ndarray) -> float:
+    """Host-side, from a confusion matrix (utilTorchLoss.py:451-452)."""
+    return float(np.diag(conf).sum() / conf.sum())
+
+
+def pixel_accuracy_class(conf: np.ndarray) -> float:
+    """utilTorchLoss.py:455-458."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        acc = np.diag(conf) / conf.sum(axis=1)
+    return float(np.nanmean(acc))
+
+
+def mean_iou(conf: np.ndarray):
+    """utilTorchLoss.py:461-466; returns (mIoU, per-class IoU)."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        iou = np.diag(conf) / (
+            conf.sum(axis=1) + conf.sum(axis=0) - np.diag(conf)
+        )
+    return float(np.nanmean(iou)), iou
 
 
 def branch_prf1(pred_binary: torch.Tensor, gt_binary: torch.Tensor,

@@ -69,6 +69,22 @@ class Optimizer:
         if self.schedule is not None:
             self.schedule.step()
 
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs: the inner optimizer's state (Adam's
+        moments and step), the schedule's position, and the accumulation."""
+        return {"inner": self.inner.state_dict(),
+                "schedule": self.schedule.state_dict() if self.schedule is not None else None,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        if self.schedule is not None:
+            self.schedule.load_state_dict(state["schedule"])
+        self.mini_step = state["mini_step"]
+        if self.acc is not None:
+            for a, b in zip(self.acc, state["acc"]):
+                a.copy_(b)
+
 
 @dataclass
 class Transform:

@@ -1,6 +1,6 @@
-"""Forward, losses, train step and on-device metrics, counterpart of the JAX
-package's ``training/step.py`` (single device; the per-row eval step and the
-mesh path are later slices).
+"""Forward, losses, train step, per-row eval step and on-device metrics,
+counterpart of the JAX package's ``training/step.py`` (single device; the
+mesh path is ROADMAP.md queue 1, item 10).
 
 The bf16 policy (``cfg.parallel.bf16``): fp32 master weights, bf16 compute,
 fp32 outputs and losses. Every convolution weight is cast to bf16 for the
@@ -185,3 +185,90 @@ def compute_metrics(cfg: PMTConfig, out: Dict[str, torch.Tensor], batch: Dict[st
         "disp_rmse": dm.rmse, "disp_sqrel": dm.sq_rel,
         "disp_brmse": dm.branch_rmse, "disp_bsqrel": dm.branch_sq_rel,
     }
+
+
+def _eval_metrics_full(cfg: PMTConfig, out: Dict[str, torch.Tensor],
+                       batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """compute_metrics + the head-1 P/R/F1/BF1 the reference's eval needs for
+    its max-of-heads columns (test_model torch_implementation.py:497-506:
+    max(pixelPrec), max(pixelRecall), max(pixelF1), max(pixelBF1)).
+    pad_to_bucket spatial padding is masked out of every metric."""
+    pm = batch.get("pad_mask")
+    pm = pm[..., 0] if pm is not None else None
+    m = compute_metrics(cfg, out, batch, pixel_mask=pm)
+    m1 = seg_batch_metrics(out["seg1"], batch["seg"], cfg.data.n_labels, pm)
+    m.update(prec1=m1.precision, recall1=m1.recall, f1_1=m1.f1, bf1_1=m1.branch_f1)
+    return m
+
+
+# outputs / batch keys read by the per-row eval metrics and losses
+_EVAL_OUT_KEYS = ("seg1", "seg2", "disp1")
+_EVAL_BATCH_KEYS = ("left", "seg", "disp", "pad_mask")
+
+
+def eval_rows(cfg: PMTConfig, losses, out: Dict[str, torch.Tensor],
+              batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per-row metrics and losses (``losses`` from ``make_losses_fn``) of a
+    batch's outputs: each row's are those of that row alone, stacked along a
+    leading batch dimension."""
+    out = {k: out[k] for k in _EVAL_OUT_KEYS if out.get(k) is not None}
+    batch = {k: batch[k] for k in _EVAL_BATCH_KEYS if k in batch}
+    rows = []
+    for r in range(batch["left"].shape[0]):
+        o = {k: v[r:r + 1] for k, v in out.items()}
+        b = {k: v[r:r + 1] for k, v in batch.items()}
+        m = _eval_metrics_full(cfg, o, b)
+        m.update(losses(o, b)[1])
+        rows.append(m)
+    return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
+
+def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
+                   device: Optional[Union[str, torch.device]] = None):
+    """Returns ``step(batch) -> (outputs, per-row metrics)`` on ``device``
+    (the card by default), the JAX package's ``make_eval_step``.
+
+    Every metric has the batch as its leading dimension: scalars become (B,),
+    the confusion matrices (B,n,n). Each row's metrics and losses are those
+    of that row alone (a plain loop over rows), with ``pad_mask`` keeping the
+    bucket's padding out of them, so the host can keep the first ``valid``
+    rows and treat each as one reference eval step (test_model with batch=1,
+    torch_implementation.py:450-582). The forward runs one row at a time too,
+    as the reference's test_model does: the card's convolutions pick other
+    algorithms at other batch sizes, so under the bf16 policy a batched
+    forward gives a row other rounding, and other metrics, at another ``-b``;
+    one row at a time, a row's outputs do not depend on the batch it came in.
+    ``slide_window`` 1 and 2 run the windows of ``tiled_inference`` over a
+    row as one batched forward. ``tta`` (the deeplab net's) and the
+    multitask output raise."""
+    if cfg.run.tta:
+        raise NotImplementedError("-tta applies to the deeplab net, which is not ported yet "
+                                  "(ROADMAP.md queue 1, item 12.7)")
+    forward = make_forward_fn(cfg, model, device)
+    losses = make_losses_fn(cfg)
+    device = resolve_device(device)
+
+    def forward_eval(batch):
+        if not cfg.run.slide_window:
+            return forward(batch, False)
+        from ..evaluation.tiled import tiled_inference
+
+        window, stride, soft = (((512, 512), (256, 256), True) if cfg.run.slide_window == 2
+                                else ((256, 512), (128, 256), False))
+        out = tiled_inference(lambda l, r: forward({"left": l, "right": r}, False),
+                              batch["left"], batch["right"], window=window, stride=stride,
+                              softmax_seg=soft)
+        out.pop("window_counts", None)
+        out.setdefault("seg2", out["seg1"])
+        out["disp2"] = out["disp1"]
+        return out
+
+    @torch.no_grad()
+    def step(batch: Dict[str, torch.Tensor]):
+        batch = {k: v.to(device) for k, v in batch.items() if isinstance(v, torch.Tensor)}
+        rows = [forward_eval({"left": batch["left"][r:r + 1], "right": batch["right"][r:r + 1]})
+                for r in range(batch["left"].shape[0])]
+        out = {k: torch.cat([o[k] for o in rows]) for k in rows[0]}
+        return out, eval_rows(cfg, losses, out, batch)
+
+    return step

@@ -8,11 +8,12 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_port import torch_threads  # noqa: F401
+from torch_port import torch_threads, variables_from_port  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import blocks as tb
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import densenet as td
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import pyramid as tp
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.blocks import init_parameters
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.jax_weights import (
     load_jax_variables,
 )
@@ -177,12 +178,15 @@ def test_densenet_taps():
 def test_piramidnet_v1():
     """The original piramidNet (densenet121, 5 branches on tap 0, 3 named
     branch1_k on tap 2) against flax at 1x64x64: every tap and enriched map,
-    with the JAX init's variables. 121 layers of fp32 in another summation
-    order: bound 1e-4 * max|ref|."""
+    with the port's seeded weights as a flax tree (``variables_from_port``,
+    no flax init compile), carried back by ``load_jax_variables``. 121 layers
+    of fp32 in another summation order: bound 1e-4 * max|ref|."""
     jm, tm = jp.PiramidNetV1(), tp.PiramidNetV1()
     x = _x(3, hw=(64, 64))[:1]
-    v = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), x))
+    init_parameters(tm, torch.Generator().manual_seed(0))
+    v = variables_from_port(tm, jm.init, jax.random.PRNGKey(0), x)
     refs = [np.asarray(t) for t in jax.jit(jm.apply)(v, x)]
+    init_parameters(tm, torch.Generator().manual_seed(1))
     load_jax_variables(tm, v["params"], v["batch_stats"])
     with torch.no_grad():
         outs = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))

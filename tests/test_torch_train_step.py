@@ -1,14 +1,16 @@
 """The port's train step (``TrainState`` + ``make_train_step``) against the
 JAX package's ``make_train_step(cfg, model, mesh=None)``: the flagship
 (sdnet_mini_ext, 1dcorr, aspp 0, attention gates) with the bench's loss
-stack CE + Lovász + MultiTversky + OHEM and Adam, from the same variables
-carried across with ``load_jax_variables``, on the CPU at 1x64x128, the
+stack CE + Lovász + MultiTversky + OHEM and Adam, from the same variables,
+on the CPU at 1x64x128, the
 trunk at block config (2, 2, 2, 2) (``torch_port.reduced_depth``; the
 full-depth step runs on the card in ``chip_smoke.py``).
 
 The reference is the JAX package in float64 (``jax.enable_x64``): two steps
-of its ``make_train_step``, and the step-0 gradient that step takes
-(``value_and_grad`` of its ``make_loss_fn``). Two steps of the port's
+of its ``make_train_step``, and the step-0 gradient that step takes (read
+from Adam's first moment after step 0). The variables are the port's seeded
+weights (seed 0) as a flax tree (``torch_port.variables_from_port``),
+carried into a second port model (seed 1) by ``load_jax_variables``. Two steps of the port's
 ``make_train_step`` in fp32 are held to the JAX package's own trajectory
 bounds (``tests/test_trajectory_parity.py``): the step-0 loss within 2e-4
 relative and the BatchNorm running statistics after step 0 within
@@ -46,6 +48,7 @@ from torch_port import (  # noqa: F401
     port_steps,
     reduced_depth,
     torch_threads,
+    variables_from_port,
 )
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
@@ -70,13 +73,13 @@ def run():
         jcfg = JaxConfig()
         jcfg.loss.losses = STACK
         model = jmodels.get_network(jcfg)
-        variables = jax.jit(lambda k, a, b: model.init({"params": k}, a, b, train=False))(
-            key, batch["left"], batch["right"])
-        variables = jax.tree_util.tree_map(np.asarray, variables)
+        cfg = port_config()
+        variables = variables_from_port(
+            tmodels.get_network(cfg, device="cpu", seed=0),
+            lambda k, a, b: model.init({"params": k}, a, b, train=False), key, batch["left"], batch["right"])
         jax_grads, jax_loss, jax_stats = jax_float64_reference(variables, batch, key)
 
-        cfg = port_config()
-        port = tmodels.get_network(cfg, device="cpu")
+        port = tmodels.get_network(cfg, device="cpu", seed=1)
         tmodels.load_jax_variables(port, variables["params"], variables["batch_stats"])
         port64 = copy.deepcopy(port).double()
         tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}

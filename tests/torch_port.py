@@ -28,6 +28,7 @@ import copy
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -50,11 +51,9 @@ from pmt_learning_for_semantic_segmentation_and_disparity_tpu.core.registry impo
 )
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import tversky as jtversky
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import densenet as jd
-from pmt_learning_for_semantic_segmentation_and_disparity_tpu.training.step import (
-    make_loss_fn as jax_make_loss_fn,
-)
 
 REDUCED_BLOCKS = (2, 2, 2, 2)
+ADAM_B1 = 0.9  # optax.adam's default, the JAX package's Adam
 TORCH_THREADS = 2
 
 
@@ -204,10 +203,12 @@ _tversky_float64.defvjp(
 
 def jax_float64_reference(variables, batch, key, net="sdnet_mini_ext", corr_type="1dcorr",
                           losses=STACK):
-    """The JAX package in float64 (``jax.enable_x64``): the step-0 gradient
-    as its ``make_train_step`` takes it ({port name: gradient}), and two
-    steps of ``make_train_step`` (the two losses, the BatchNorm running
-    statistics after step 0), with the loss stack ``losses``.
+    """The JAX package in float64 (``jax.enable_x64``): two steps of its
+    ``make_train_step`` (the two losses, the BatchNorm running statistics
+    after step 0) with the loss stack ``losses``, and the step-0 gradient
+    that step takes ({port name: gradient}), read from Adam's first moment
+    after step 0 (``(1 - b1) * g`` from zero, so ``g`` to one rounding): one
+    compiled program, traced once for both steps.
     Two details of the JAX package round to fp32
     under x64, and the reference avoids them: its s2d heads take their batch
     statistics in fp32, so it runs the plain heads (the same function,
@@ -221,21 +222,25 @@ def jax_float64_reference(variables, batch, key, net="sdnet_mini_ext", corr_type
     cfg.loss.losses = losses
     cfg.model.s2d_heads = False
     model = jmodels.get_network(cfg)
-    f64 = lambda tree: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)  # noqa: E731
+    # numpy casts: a jnp cast compiles once for each shape
+    f64 = lambda tree: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)  # noqa: E731
     with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtversky, "focal_binary_tversky", _tversky_float64)
         params, stats, batch = f64(variables["params"]), f64(variables["batch_stats"]), f64(batch)
-        grad_fn = jax.jit(jax.value_and_grad(jax_make_loss_fn(cfg, model), has_aux=True),
-                          static_argnums=(4,))
-        _, grads = grad_fn(params, stats, batch, key, True)
-        assert all(a.dtype == jnp.float64 for a in jax.tree_util.tree_leaves(grads))
         tx = jtraining.build_optimizer(cfg.optim, cfg.model.net, len(losses), 1)
-        state = jtraining.TrainState.create(model.apply, params, stats, tx)
+        # arrays everywhere (the step count too), so that step 1 reuses step 0's trace
+        state = jax.tree_util.tree_map(jnp.asarray, jtraining.TrainState.create(model.apply, params, stats, tx))
         step = jtraining.make_train_step(cfg, model, mesh=None)
         state, m0 = step(state, batch, key)
+        adam = [s for s in jax.tree_util.tree_leaves(
+            state.opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState)]
+        assert len(adam) == 1
+        assert all(a.dtype == jnp.float64 for a in jax.tree_util.tree_leaves(adam[0].mu))
+        grads = {n: m / (1 - ADAM_B1) for n, m in flax_to_port(adam[0].mu).items()}
         stats0 = flax_stats_to_port(state.batch_stats)
         state, m1 = step(state, batch, key)
-        return flax_to_port(grads), (float(m0["loss"]), float(m1["loss"])), stats0
+        return grads, (float(m0["loss"]), float(m1["loss"])), stats0
 
 
 def port_steps(cfg, model, batch):
