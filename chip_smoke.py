@@ -63,7 +63,25 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    each value of the pooled summary), and ``-slide_window 1`` runs corr1d
    once a forward over the 9 windows of each image. Prints ms a step
    with loading, the wait for the loader, eval pairs/s, the PNG decoder that
-   ran and the time it takes for a 480x900 image.
+   ran and the time it takes for a 480x900 image;
+9. the flagship family's options (``OPTIONS``) at full width and depth:
+   phases 1-2 above also hold corr1d and its backward at aspp 2's site
+   (``ASPP2_CASES``: the two views' ASPP outputs, 256 channels at /16, W 60
+   serving and 32 training, both dtypes; each forward launch there also
+   timed alone). The aspp-2 flagship serves 16 pairs of 512x960 (corr1d
+   twice a batch: its two sites) and trains at 8x256x512 (corr1d and its
+   backward twice a step); every other configuration (``_v2`` with aspp 1
+   and ``no_dec1``, ``_piramid`` with the gates off, convDeconvOut 2 and
+   HANet with a sinusoid encoding and row noise, ``_piramid_res`` with
+   ``no_dec3``, convDeconvOut 1 and HANet's learned embedding, multaskloss
+   1 and 2) runs its fp32 forward on the card against the CPU at 1x64x128
+   (each output and multitask term within 1e-3 * max|ref|) and one bf16
+   train step with finite loss and gradients; each of ``LOSS_STACKS``
+   (between them every loss name of the eighth slice) holds its fp32 value
+   on the card against the CPU within ``LOSS_RTOL`` and trains one step;
+   the aspp-2 flagship's weights written in the reference's ``.pth.tar``
+   layout restore through the eval CLI bit-equal (weights and bf16
+   outputs), and ``-pretrained_path`` grafts a torchvision densenet121.
 
 The third-to-last line of stdout is a JSON object with one record per
 kernel, the second-to-last the card's name and power limit, and the last
@@ -80,7 +98,8 @@ can be compared in turns in one call; ``python3 chip_smoke.py --backward
 four timed cases of phase 2, without the HMMA count).
 ``python3 chip_smoke.py --kernels`` runs phases 1 and 2 only and prints the
 kernels' record but no result line; ``python3 chip_smoke.py --files`` runs
-phase 8 only.
+phase 8 only, ``--options`` phase 9 only (``--serve flagship_aspp2`` and
+``--train flagship_aspp2`` time that path alone).
 """
 from __future__ import annotations
 
@@ -114,13 +133,22 @@ SMALL = (1, 64, 128, 3)
 # net served -> (batches, each kernel's launches per batch): each path's own
 # kernel once per batch, the other never
 SERVE = {"sdnet_mini_ext": (4, {"corr1d": 1, "corr2d": 0}),
-         "sdnet": (3, {"corr2d": 1, "corr1d": 0})}
+         "sdnet": (3, {"corr2d": 1, "corr1d": 0}),
+         "flagship_aspp2": (4, {"corr1d": 2, "corr2d": 0})}  # both corr1d sites
 SERVE_BATCHES = 10  # batches --serve serves, the first a warm-up
 # training: the JAX package's bench (bench.py:192-198)
 TRAIN_BATCH, TRAIN_H, TRAIN_W = 8, 256, 512
 TRAIN_LOSSES = ("cross_entropy", "lovasz_loss", "tversky_loss", "ohm_loss")
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 352)  # a_py2 of one view
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+# phase 9: the flagship at -aspp 2 correlates the two views' ASPP outputs
+# (256 channels at /16) with a second, unnormalized corr1d
+ASPP2_SERVE_SHAPE = (BATCH, H // 16, W // 16, 256)                     # (16, 32, 60, 256)
+ASPP2_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_H // 16, TRAIN_W // 16, 256)   # (8, 16, 32, 256)
+ASPP2_CASES = [(ASPP2_SERVE_SHAPE, torch.float32), (ASPP2_SERVE_SHAPE, torch.bfloat16),
+               (ASPP2_TRAIN_SHAPE, torch.float32), (ASPP2_TRAIN_SHAPE, torch.bfloat16)]
+# the forward shapes the kernel phase times (each kernel meets its own)
+TIMED_FORWARD = (CORR_SHAPE, ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE)
 # corr1d's backward against correlation1d_vjp_plain: the training shape per
 # view (main path) and the serving shape in both dtypes, then edge shapes of
 # the bf16 transposed band (64-column tiles with an 8-column halo, 64-channel
@@ -129,6 +157,7 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 BACKWARD_CASES = [
     (TRAIN_SHAPE, torch.float32), (TRAIN_SHAPE, torch.bfloat16),
     (CORR_SHAPE, torch.float32), (CORR_SHAPE, torch.bfloat16),
+    *ASPP2_CASES,                           # aspp 2's site: W 60 and 32, C 256
     ((1, 3, 63, 64), torch.bfloat16),       # W against the 64-column tile and its halo:
     ((1, 3, 64, 64), torch.bfloat16),       # one tile short, one tile, one column over,
     ((1, 3, 65, 64), torch.bfloat16),       # the serving width, two whole tiles
@@ -183,10 +212,38 @@ BACKWARDS = {
     "corr2d": ("correlation2d_backward_cuda", "correlation2d_vjp_plain", BACKWARD2_CASES,
                f"{TPU_CORR}:368", "corr2d_bwd_band_kernel"),
 }
-# net trained -> each kernel's launches per step: its path's forward and
-# backward kernels once each, the other correlation's never
+# phase 9's configurations of the flagship family: name -> (net, model
+# options), combined where the flags allow; "flagship_aspp2" is the slice's
+# full-width path
+OPTIONS = {
+    "flagship_aspp2": ("sdnet_mini_ext", {"aspp": 2}),
+    "v2_aspp1_no_dec1": ("sdnet_mini_ext_v2", {"aspp": 1, "ablation": ("no_dec1",)}),
+    "piramid_att0_cdo2_hanet1": ("sdnet_mini_ext_piramid", {
+        "use_att": False, "conv_deconv_out": 2, "hanet": True, "hanet_is_encoding": 1,
+        "hanet_pos_noise": 0.5}),
+    "piramid_res_no_dec3_cdo1_hanet0": ("sdnet_mini_ext_piramid_res", {
+        "ablation": ("no_dec3",), "conv_deconv_out": 1, "hanet": True, "hanet_is_encoding": 0}),
+    "multitask1": ("sdnet_mini_ext", {"multaskloss": 1}),
+    "multitask2": ("sdnet_mini_ext", {"multaskloss": 2}),
+}
+# run name -> (net, model options): the nets of phases 3-8 as they are, and
+# phase 9's
+RUNS = {"sdnet_mini_ext": ("sdnet_mini_ext", {}), "sdnet": ("sdnet", {}), **OPTIONS}
+# run trained -> each kernel's launches per step: its path's forward and
+# backward kernels once each (aspp 2: twice, its two corr1d sites), the
+# other correlation's never
 TRAIN = {"sdnet_mini_ext": {"corr1d": 1, "corr1d_backward": 1, "corr2d": 0, "corr2d_backward": 0},
-         "sdnet": {"corr2d": 1, "corr2d_backward": 1, "corr1d": 0, "corr1d_backward": 0}}
+         "sdnet": {"corr2d": 1, "corr2d_backward": 1, "corr1d": 0, "corr1d_backward": 0},
+         "flagship_aspp2": {"corr1d": 2, "corr1d_backward": 2, "corr2d": 0, "corr2d_backward": 0}}
+# phase 9's loss stacks with their datasets: between them every loss name
+# ported in the eighth slice (each stack is head 2's and the disparity
+# head's, as -loss sets them); dual_edge_reg reads the trailing ignore
+# channel of cityscapes' ground truth (19 classes + 1)
+LOSS_STACKS = ((("cross_entropy", "area_ce", "tversky_loss2", "dice_loss", "smooth_grad"), "roses"),
+               (("binary_ce", "categoricalNlll", "area_hinge", "lovasz_loss"), "roses"),
+               (("dual_edge_reg", "ohm_loss", "cross_entropy", "diceEntropy"), "cityscapes"))
+LOSS_SHAPE = (2, 64, 128)  # card vs CPU loss values, within LOSS_RTOL
+LOSS_RTOL = 1e-4
 # the cuDNN settings phase 3 reads (prints) on the freeze_bn step, TF32 off
 CUDNN_SETTINGS = {"default": {}, "deterministic": {"deterministic": True},
                   "benchmark": {"benchmark": True}}
@@ -202,6 +259,7 @@ FLUSH_BYTES = 256 * 2**20
 # a block).
 KERNELS = {
     "corr1d": ("correlation1d_cuda", f"{TPU_CORR}:159", [
+        *ASPP2_CASES,                        # aspp 2's site: W 60 and 32, C 256
         ((1, 3, 9, 20), torch.float32),      # W < 17, B = 1
         ((2, 5, 70, 37), torch.bfloat16),    # W not a multiple of the 64-column tile,
         ((2, 5, 70, 37), torch.float32),     # C not a multiple of the 32-channel chunk
@@ -352,7 +410,7 @@ def phase_kernel(name: str, sass: dict):
         print(f"[{name}] {tuple(shape)} {str(dtype)[6:]}{where}: max|d| = {err:.6g} "
               f"(tolerance {bound:.6g} = {tol[dtype]:g} * max|ref|)", flush=True)
         check(err <= bound, f"{name} {shape} {dtype}{where}: max|d| {err} > {bound}")
-        if shape != CORR_SHAPE:
+        if shape not in TIMED_FORWARD or offset:
             continue
         ms = cuda_time_ms(lambda: fn(f1, f2, arg), iters=50)
         plain_ms = cuda_time_ms(lambda: correlation_plain(f1, f2, patch), iters=3, warmup=1)
@@ -363,8 +421,18 @@ def phase_kernel(name: str, sass: dict):
         print(f"[{name}] {tuple(shape)} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
               f"{bound_ms / ms:.1%} of the bound", flush=True)
-        if dtype == torch.bfloat16:  # the serving path's dtype
-            record = {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{name}.cu",
+        if shape != CORR_SHAPE:  # aspp 2's site
+            # back to back, a launch at this size may take the wrapper's host
+            # time; each launch timed by its own events behind a card-side spin
+            warm_ms, _ = event_time_ms(lambda: fn(f1, f2, arg), 50, flush=False)
+            print(f"[{name}] {tuple(shape)} {str(dtype)[6:]}: {warm_ms:.4f} ms a launch timed alone "
+                  f"(warm), {bound_ms / warm_ms:.1%} of the bound", flush=True)
+            record.setdefault("other_shapes", []).append(
+                {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms, "ms_warm": warm_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": err,
+                 "share_of_bound": bound_ms / ms})
+        elif dtype == torch.bfloat16:  # the serving path's dtype
+            record = {**record, "name": name, "route": "cuda", "source": f"{PORT}/csrc/{name}.cu",
                       "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms,
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -442,7 +510,7 @@ def phase_backward(name: str, sass, cases=None, autograd: bool = True):
         where = f" at element offset {offset[0]}" if offset else ""
         errs = hold(got, plain(f1, f2, grad), f"[{name} backward] {tuple(shape)} {str(dtype)[6:]}{where}",
                     f1.shape, dtype)
-        if offset or shape not in (TRAIN_SHAPE, CORR_SHAPE):
+        if offset or shape not in (TRAIN_SHAPE, CORR_SHAPE, ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE):
             continue
         # back to back (as the forward kernels are timed): the card's time
         # per launch, or the wrapper's host time where that is longer
@@ -467,8 +535,13 @@ def phase_backward(name: str, sass, cases=None, autograd: bool = True):
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
               f"{ops / 1e9:.2f} GFLOP, by {'bytes' if t_bytes >= t_ops else 'operations'}), "
               f"{bound_ms / ms:.1%} of the bound flushed, {bound_ms / warm_ms:.1%} warm", flush=True)
-        if shape == TRAIN_SHAPE and dtype == torch.bfloat16:  # the training path's
-            record = {"name": f"{name}_backward", "route": "cuda",
+        if shape in (ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE):  # aspp 2's site
+            record.setdefault("other_shapes", []).append(
+                {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms, "ms_warm": warm_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": max(errs),
+                 "share_of_bound": bound_ms / ms})
+        elif shape == TRAIN_SHAPE and dtype == torch.bfloat16:  # the training path's
+            record = {**record, "name": f"{name}_backward", "route": "cuda",
                       "source": f"{PORT}/csrc/{name}.cu",
                       "replaces": replaces, "max_abs_err": max(errs), "ms": ms,
                       "ms_warm": warm_ms, "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
@@ -497,14 +570,22 @@ def phase_backward(name: str, sass, cases=None, autograd: bool = True):
     return record
 
 
-def config(net: str, corr_type: str = "1dcorr", bf16: bool = False):
+def config(net: str, corr_type: str = "1dcorr", bf16: bool = False, options: dict = None):
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
 
     cfg = PMTConfig()
     cfg.model.net = net
     cfg.model.corr_type = corr_type
     cfg.parallel.bf16 = bf16
+    for k, v in (options or {}).items():
+        setattr(cfg.model, k, v)
     return cfg
+
+
+def run_config(run: str, bf16: bool = False):
+    """The config of a run of ``RUNS`` (a net and its model options)."""
+    net, options = RUNS[run]
+    return config(net, bf16=bf16, options=options)
 
 
 def phase_small_forward(net: str, corr_type: str):
@@ -524,19 +605,26 @@ def phase_small_forward(net: str, corr_type: str):
         check(err <= bound, f"small forward {net} {corr_type} {k}: {err} > {bound}")
 
 
-def train_batch(shape, g, device):
-    """A random batch (images, one-hot roses labels, disparity) of ``shape``
-    (B, H, W) from the generator ``g``."""
-    labels = torch.randint(0, 2, shape, device=device, generator=g)
+def train_batch(shape, g, device, dataset: str = "roses"):
+    """A random batch (images, one-hot labels, disparity) of ``shape`` (B, H,
+    W) from the generator ``g``: roses' 2 classes, or cityscapes' 19 and its
+    ignore channel (a fifth of the pixels)."""
+    n = 2 if dataset == "roses" else 19
+    labels = torch.randint(0, n, shape, device=device, generator=g)
+    if dataset != "roses":
+        ignore = torch.rand(shape, device=device, generator=g) < 0.2
+        labels = torch.where(ignore, torch.full_like(labels, n), labels)
+        n += 1
     return {"left": torch.randn(shape + (3,), device=device, generator=g),
             "right": torch.randn(shape + (3,), device=device, generator=g),
-            "seg": torch.nn.functional.one_hot(labels, 2).float(),
+            "seg": torch.nn.functional.one_hot(labels, n).float(),
             "disp": torch.rand(shape + (1,), device=device, generator=g)}
 
 
-def train_setup(net: str, device: str, bf16: bool, freeze_bn: bool = False):
-    """The net, its Adam train state and its train step on ``device`` (the
-    same weights from seed 0 on every device)."""
+def train_setup(run: str, device: str, bf16: bool, freeze_bn: bool = False,
+                losses=TRAIN_LOSSES, dataset: str = "roses"):
+    """The net of the run (``RUNS``), its Adam train state and its train step
+    on ``device`` (the same weights from seed 0 on every device)."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
         TrainState,
@@ -544,11 +632,12 @@ def train_setup(net: str, device: str, bf16: bool, freeze_bn: bool = False):
         make_train_step,
     )
 
-    cfg = config(net, bf16=bf16)
-    cfg.loss.losses = TRAIN_LOSSES
+    cfg = run_config(run, bf16=bf16)
+    cfg.loss.losses = tuple(losses)
+    cfg.data.dataset_name = dataset
     cfg.optim.freeze_bn = freeze_bn
     model = models.get_network(cfg, device=device, seed=0)
-    state = TrainState.create(model, build_optimizer(cfg.optim, cfg.model.net, len(TRAIN_LOSSES)))
+    state = TrainState.create(model, build_optimizer(cfg.optim, cfg.model.net, len(losses)))
     return model, state, make_train_step(cfg, model, device=device)
 
 
@@ -780,7 +869,7 @@ def phase_serve(net: str, n_batches: int, expect: dict):
         make_forward_fn,
     )
 
-    cfg = config(net, bf16=True)
+    cfg = run_config(net, bf16=True)
     model = models.get_network(cfg, seed=0)
     forward = make_forward_fn(cfg, model)
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -854,14 +943,16 @@ def cli_run(argv, kernels: dict):
     return session, text, launches
 
 
-def hold_cli_launches(tag: str, session, launches: dict) -> None:
+def hold_cli_launches(tag: str, session, launches: dict, sites: int = 1) -> None:
     """corr1d's forward once a train step and once an eval forward (one a
     reported row: the eval step runs each row alone and skips the padded
-    tail), its backward once a train step, corr2d's kernels never."""
+    tail), its backward once a train step, corr2d's kernels never; each
+    ``sites`` times (2 at aspp 2)."""
     t = session.timings
     steps = len(t["step_s"])
     forwards = t["eval_rows"]
-    expect = {"corr1d": steps + forwards, "corr1d_backward": steps, "corr2d": 0, "corr2d_backward": 0}
+    expect = {"corr1d": sites * (steps + forwards), "corr1d_backward": sites * steps, "corr2d": 0,
+              "corr2d_backward": 0}
     check(launches == expect, f"{tag}: launches {launches}, expected {expect} "
           f"({steps} train steps, {forwards} eval forwards)")
 
@@ -1016,11 +1107,203 @@ def phase_files(card: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_option_forward(run: str) -> None:
+    """Phase 9: the eval forward of a configuration on the card against the
+    CPU at 1x64x128 in fp32, through ``make_forward_fn`` (HANet's grids and
+    the multitask ground truth come from the batch), each output and each
+    multitask term within 1e-3 * max|ref|."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_forward_fn
+
+    cfg = run_config(run)
+    batch = train_batch(SMALL[:3], torch.Generator().manual_seed(1), "cpu")
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = models.get_network(cfg, device=device, seed=0)
+        with torch.inference_mode():
+            outs[device] = make_forward_fn(cfg, model, device)(batch)
+    ref, got = outs["cpu"], outs["cuda"]
+    check(set(got) == set(ref), f"[options {run}] outputs {sorted(got)} vs {sorted(ref)}")
+    pairs = [(k, got[k], ref[k]) for k in ref if k != "mt"]
+    pairs += [(f"mt[{i}]", a, b) for i, (a, b) in enumerate(zip(got.get("mt", ()), ref.get("mt", ())))]
+    worst = []
+    for k, a, b in pairs:
+        err = (a.cpu() - b).abs().max().item()
+        bound = 1e-3 * b.abs().max().item()
+        check(err <= bound, f"[options {run}] forward {k}: card vs CPU max|d| {err} > {bound}")
+        worst.append((err / bound if bound else 0.0, k))
+    print(f"[options {run}] 1x64x128 fp32 forward, card vs CPU: {len(pairs)} outputs within "
+          f"1e-3 * max|ref|; the closest to its bound: {max(worst)[1]} at {max(worst)[0]:.3g} of it",
+          flush=True)
+
+
+def finite_step(run: str, losses=TRAIN_LOSSES, tag: str = None, dataset: str = "roses") -> float:
+    """One bf16 train step of the run at 8x256x512 on the card (Adam):
+    finite loss, metrics and gradients; returns its ms (the first step of a
+    model, so with cuDNN's first calls)."""
+    model, state, step = train_setup(run, "cuda", bf16=True, losses=losses, dataset=dataset)
+    batch = train_batch((TRAIN_BATCH, TRAIN_H, TRAIN_W), torch.Generator(device="cuda").manual_seed(8),
+                        "cuda", dataset)
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    tag = tag or f"[options {run}]"
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+          f"{tag} train step: a metric or loss is not finite: {metrics}")
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    check(bool(grads) and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{tag} train step: a gradient is not finite")
+    print(f"{tag} one bf16 train step, {TRAIN_BATCH} pairs of {TRAIN_H}x{TRAIN_W}, losses "
+          f"{'+'.join(losses)}: loss {metrics['loss'].item():.6g}, {len(grads)} finite gradient "
+          f"tensors, {ms:.1f} ms (first step)", flush=True)
+    del model, state, step
+    return ms
+
+
+def stack_loss(stack, dataset: str, out: dict, batch: dict, uniform: torch.Tensor) -> torch.Tensor:
+    """Head 1's cross entropy, head 2's ``stack`` and the disparity stack, as
+    ``make_losses_fn`` composes them, with dual_edge_reg's uniform sample
+    given."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.losses import (
+        compose_disp_loss,
+        compose_seg_loss,
+    )
+
+    n = out["seg1"].shape[-1]
+    head1 = compose_seg_loss(["cross_entropy"], dataset, n)
+    head2 = compose_seg_loss(stack, dataset, n)
+    disp = compose_disp_loss(stack, dataset, "smallOutSeg")
+    return (head1(out["seg1"], batch["seg"]) + head2(out["seg2"], batch["seg"], uniform=uniform)
+            + disp(batch["disp"], out["disp1"], batch["left"], batch["seg"]))
+
+
+def phase_loss_stack(stack, dataset: str) -> None:
+    """Phase 9: a loss stack's fp32 value on the card against the CPU at
+    LOSS_SHAPE (the same outputs, ground truth and uniform sample), then one
+    bf16 train step of the flagship with it."""
+    g = torch.Generator().manual_seed(11)
+    batch = train_batch(LOSS_SHAPE, g, "cpu", dataset)
+    n = 2 if dataset == "roses" else 19
+    out = {"seg1": 2 * torch.randn(LOSS_SHAPE + (n,), generator=g),
+           "seg2": 2 * torch.randn(LOSS_SHAPE + (n,), generator=g),
+           "disp1": torch.randn(LOSS_SHAPE + (1,), generator=g)}
+    uniform = torch.rand(LOSS_SHAPE + (n,), generator=g)
+    ref = stack_loss(stack, dataset, out, batch, uniform).item()
+    got = stack_loss(stack, dataset, {k: v.cuda() for k, v in out.items()},
+                     {k: v.cuda() for k, v in batch.items()}, uniform.cuda()).item()
+    err = abs(got - ref)
+    print(f"[losses {'+'.join(stack)}] {dataset}, fp32 at {LOSS_SHAPE}: card {got:.8g}, CPU {ref:.8g}, "
+          f"|d| = {err:.3g} (tolerance {LOSS_RTOL * abs(ref):.3g} = {LOSS_RTOL:g} * |ref|)", flush=True)
+    check(err <= LOSS_RTOL * abs(ref), f"loss stack {stack}: card {got} vs CPU {ref}")
+    finite_step("sdnet_mini_ext", stack, tag=f"[losses {'+'.join(stack)}]", dataset=dataset)
+
+
+def phase_restore(card: str) -> dict:
+    """Phase 9: the aspp-2 flagship's seeded weights (seed 7) written in the
+    reference's layout as a ``.pth.tar`` (``{"state_dict": {"module." +
+    key: tensor}, "epoch": 0}``, built by inverting the port's importer),
+    restored through the eval CLI (``-load_weights x.pth.tar -train 0``):
+    every tensor and the bf16 outputs bit-equal to the source model's on the
+    card. Then ``-pretrained_path`` with a torchvision-layout densenet121:
+    every trunk tensor equal after the load. Returns the eval's launches."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.densenet import (
+        DenseNetFeatures,
+    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
+        Session,
+        make_forward_fn,
+    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import
+
+    correlation = correlation_module()
+    kernels = {"corr1d": correlation.correlation1d_cuda,
+               "corr1d_backward": correlation.correlation1d_backward_cuda,
+               "corr2d": correlation.correlation2d_cuda,
+               "corr2d_backward": correlation.correlation2d_backward_cuda}
+    tmp = tempfile.mkdtemp(prefix="pmt_restore_")
+    try:
+        cfg = run_config("flagship_aspp2", bf16=True)
+        source = models.get_network(cfg, seed=7)
+        ref = torch_import.export_state_dict(source, torch_import.entries_for(cfg, source))
+        path = os.path.join(tmp, "flagship_aspp2.pth.tar")
+        torch.save({"state_dict": {"module." + k: v for k, v in ref.items()}, "epoch": 0}, path)
+        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=2, n_test=2, hw=(256, 512), seed=0)
+        data = []
+        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
+                          ("-inst", "inst")):
+            data += [flag, m[key], flag + "_test", m[key + "_t"]]
+        argv = data + FILES_TRAIN + ["-aspp", "2", "-train", "0", "-b", "2", "-load_weights", path,
+                                     "-w_savePath", os.path.join(tmp, "runs")]
+        session, _, launches = cli_run(argv, kernels)
+        hold_cli_launches("[restore eval]", session, launches, sites=2)
+        check(session.timings["eval_rows"] == 2, f"restore eval: {session.timings}")
+        mine, theirs = session.model.state_dict(), source.state_dict()
+        check(set(mine) == set(theirs), "restore: other tensor names")
+        for k, v in theirs.items():
+            check(k.endswith("num_batches_tracked") or torch.equal(mine[k], v), f"restore: {k} differs")
+        batch = train_batch((1, H, W), torch.Generator(device="cuda").manual_seed(12), "cuda")
+        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                                                benchmark=False, allow_tf32=False):
+            a = make_forward_fn(session.cfg, session.model)(batch)
+            b = make_forward_fn(session.cfg, source)(batch)
+        for k in ("seg1", "seg2", "disp1", "disp2"):
+            check(torch.equal(a[k], b[k]), f"restore: output {k} differs from the source model's")
+        print(f"[restore] the aspp-2 flagship from a reference-layout .pth.tar ({len(ref)} tensors, "
+              f"'module.' prefix, 'state_dict' wrapper) through the eval CLI: every weight and "
+              f"statistic and the bf16 outputs at 1x{H}x{W} bit-equal to the source model's; "
+              f"launches {launches}; {card}", flush=True)
+        del session, source
+
+        # -pretrained_path: a torchvision-layout densenet121 into the trunk
+        trunk = models.init_parameters(DenseNetFeatures(), torch.Generator().manual_seed(9))
+        tv = {"features." + k: v for k, v in trunk.state_dict().items()}
+        tv.update({"classifier.weight": torch.zeros(1000, 1024), "classifier.bias": torch.zeros(1000)})
+        tv_path = os.path.join(tmp, "densenet121.pth")
+        torch.save(tv, tv_path)
+        cfg = run_config("flagship_aspp2", bf16=True)
+        cfg.model.pretrained_path = tv_path
+        fresh = Session(cfg)
+        fresh.init_state()
+        got = fresh.model.features.backbone.state_dict()
+        names = [k for k in trunk.state_dict() if not k.endswith("num_batches_tracked")]
+        for k in names:
+            check(torch.equal(got[k].cpu(), trunk.state_dict()[k]), f"pretrained: {k} differs")
+        print(f"[pretrained] -pretrained_path with a torchvision densenet121 dict: all {len(names)} "
+              f"trunk tensors equal after the load", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_options(card: str) -> dict:
+    """Phase 9: the flagship family's options on densenet121 at full width
+    and depth. The aspp-2 flagship serves (16 pairs of 512x960, corr1d twice
+    a batch) and trains (8 pairs of 256x512, corr1d and its backward twice a
+    step); every configuration of ``OPTIONS`` runs its fp32 forward on the
+    card against the CPU and one bf16 train step; each of ``LOSS_STACKS``
+    holds its loss value and trains; a reference ``.pth.tar`` restores
+    bit-equal. Returns the launches of each path."""
+    serve = phase_serve("flagship_aspp2", *SERVE["flagship_aspp2"])
+    train = phase_train("flagship_aspp2", TRAIN_WARMUP, TRAIN_STEPS, card)
+    for run in OPTIONS:
+        phase_option_forward(run)
+        if run != "flagship_aspp2":  # trained above
+            finite_step(run)
+    for stack, dataset in LOSS_STACKS:
+        phase_loss_stack(stack, dataset)
+    return {"serve": serve, "train": train, "restore": phase_restore(card)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net and time it")
+    ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net (or flagship_aspp2) "
+                    "and time it")
     ap.add_argument("--train", nargs="?", const="sdnet_mini_ext", choices=sorted(TRAIN),
-                    help="only train this net (the flagship by default) and time it")
+                    help="only train this net (the flagship by default; or flagship_aspp2) and "
+                         "time it")
     ap.add_argument("--backward", nargs="?", const="corr1d", choices=sorted(BACKWARDS),
                     help="only hold this backward kernel (corr1d's by default) against its "
                          "plain version at the training and serving shapes and time it")
@@ -1030,6 +1313,10 @@ def main() -> int:
     ap.add_argument("--files", action="store_true",
                     help="only train, resume and evaluate the flagship from PNG files through "
                          "the CLI (phase 8)")
+    ap.add_argument("--options", action="store_true",
+                    help="only run the flagship family's options (phase 9): the aspp-2 flagship "
+                         "serves and trains, every other configuration and loss stack, the "
+                         ".pth.tar restore")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -1041,10 +1328,12 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.serve or args.train or args.backward or args.files:
+    if args.serve or args.train or args.backward or args.files or args.options:
         try:
             if args.files:
                 phase_files(card)
+            elif args.options:
+                phase_options(card)
             elif args.serve:
                 phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1])
             elif args.train:
@@ -1066,7 +1355,7 @@ def main() -> int:
         for net, corr_type in (("sdnet_mini_ext", "1dcorr"), ("sdnet", "2dcorr"),
                                ("sdnet_mini_ext", "2dcorr")):
             phase_small_forward(net, corr_type)
-        for net in TRAIN:
+        for net in ("sdnet_mini_ext", "sdnet"):
             phase_small_train(net)
         records["corr1d"]["launches"] = phase_serve("sdnet_mini_ext", *SERVE["sdnet_mini_ext"])["corr1d"]
         phase_serve("sdnet", *SERVE["sdnet"])
@@ -1080,6 +1369,13 @@ def main() -> int:
         # and one eval batch)
         for name, n in phase_files(card).items():
             records[name]["launches_cli"] = n
+        # phase 9: the aspp-2 flagship's launches (two corr1d sites) serving,
+        # training and through the eval CLI's restore
+        paths = phase_options(card)
+        records["corr1d"]["launches_aspp2_serve"] = paths["serve"]["corr1d"]
+        records["corr1d"]["launches_aspp2_train"] = paths["train"]["corr1d"]
+        records["corr1d"]["launches_aspp2_restore_eval"] = paths["restore"]["corr1d"]
+        records["corr1d_backward"]["launches_aspp2_train"] = paths["train"]["corr1d_backward"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -117,10 +117,12 @@ def batch_norm(c: int) -> BatchNorm2d:
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of ``model`` from ``generator`` with
-    the JAX package's initialisers (BatchNorm: scale 1, bias 0, running mean
-    0, running var 1)."""
+    the JAX package's initialisers (convolutions by their ``init_rule``,
+    their biases 0; BatchNorm: scale 1, bias 0, running mean 0, running var
+    1; an embedding: normal with std 1/sqrt(features), flax's ``nn.Embed``;
+    any other parameter, e.g. a log-variance of the multitask loss: 0)."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
             scale, mode, truncated = _INIT_RULES[m.init_rule]
             receptive = m.weight[0, 0].numel()
             fan = receptive * (m.in_channels if mode == "fan_in" else m.out_channels)
@@ -130,12 +132,19 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
             else:
                 m.weight.normal_(0.0, std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.weight.fill_(1.0)
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
             m.num_batches_tracked.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim), generator=generator)
+        else:
+            for p in m.parameters(recurse=False):
+                p.zero_()
     return model
 
 

@@ -4,8 +4,12 @@ The port's child names follow the flax module names, so a flax leaf at
 ``a/b/c/<leaf>`` fills the port's ``a.b.c.<name>``:
 
     params/.../kernel  (kh,kw,I,O)  -> weight (O,I,kh,kw), transpose(3,2,0,1)
+    params/.../kernel  (k,I,O)      -> weight (O,I,k), transpose(2,1,0) (Conv1d)
     params/.../scale                -> weight          (BatchNorm)
-    params/.../bias                 -> bias            (BatchNorm)
+    params/.../bias                 -> bias            (BatchNorm, Conv1d)
+    params/.../embedding            -> weight          (nn.Embedding)
+    params/<name>                   -> <name>          (a free parameter, e.g.
+                                                        log_var_disp)
     batch_stats/.../mean            -> running_mean
     batch_stats/.../var             -> running_var
 
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -40,10 +44,12 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[
             yield prefix + (k,), v
 
 
-def _port_name(path: Tuple[str, ...], leaves: Dict[str, str]) -> str:
-    if path[-1] not in leaves:
-        raise KeyError(f"unknown flax leaf {'/'.join(path)}")
-    return ".".join(path[:-1] + (leaves[path[-1]],))
+def _port_name(path: Tuple[str, ...], leaves: Dict[str, str], targets) -> str:
+    if path[-1] in leaves:
+        return ".".join(path[:-1] + (leaves[path[-1]],))
+    if ".".join(path) in targets:  # a free parameter of a module
+        return ".".join(path)
+    raise KeyError(f"unknown flax leaf {'/'.join(path)}")
 
 
 @torch.no_grad()
@@ -61,7 +67,7 @@ def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
     filled = set()
     for tree, leaves in ((params, _PARAM_LEAVES), (batch_stats, _STAT_LEAVES)):
         for path, value in _flatten(tree):
-            name = _port_name(path, leaves)
+            name = _port_name(path, leaves, targets)
             if name not in targets:
                 raise KeyError(f"flax leaf {'/'.join(path)} has no port tensor {name!r}")
             if name in filled:
@@ -69,6 +75,8 @@ def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
             value = np.array(value, dtype=np.float32)
             if value.ndim == 4:
                 value = np.ascontiguousarray(value.transpose(3, 2, 0, 1))  # HWIO -> OIHW
+            elif value.ndim == 3:
+                value = np.ascontiguousarray(value.transpose(2, 1, 0))  # (k, I, O) -> OIk
             dst = targets[name]
             if tuple(value.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {value.shape} does not fit "

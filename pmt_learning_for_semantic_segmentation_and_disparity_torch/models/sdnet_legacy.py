@@ -105,7 +105,7 @@ class DSNet(nn.Module):
         seg1 = upsample_nearest(self.cdu2_out(self.cdu2(x1)), 8)
         return x, x1, F.log_softmax(resize_bilinear(seg1, full_hw), dim=1)
 
-    def forward(self, input_a: torch.Tensor, input_b: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, input_a: torch.Tensor, input_b: torch.Tensor, **_) -> Dict[str, torch.Tensor]:
         left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
         full_hw = tuple(left.shape[-2:])
         a, b = trunk_taps(self.features, left, right)

@@ -9,8 +9,10 @@ from .correlation import (  # noqa: F401
     correlation_plain,
 )
 from .resize import (  # noqa: F401
+    adaptive_avg_pool,
     avg_pool,
     resize_bilinear,
+    resize_bilinear_align_corners,
     resize_nearest,
     upsample_nearest,
 )

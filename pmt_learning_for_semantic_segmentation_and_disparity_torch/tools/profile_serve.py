@@ -2,11 +2,12 @@
 CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.profile_serve \
-        [--net sdnet_mini_ext] [--train] [--out report.json]
+        [--net sdnet_mini_ext] [--aspp 0|1|2] [--train] [--out report.json]
 
 Runs the eval forward of one net of the port (the flagship ``sdnet_mini_ext``
 by default; ``get_network`` + ``make_forward_fn`` with the bf16 policy, random
-weights from a seed) on 16 stereo pairs of 512x960, the serving shape of
+weights from a seed; ``--aspp`` sets the flagship family's head-2 mode) on
+16 stereo pairs of 512x960, the serving shape of
 ``chip_smoke.py``, twice as a warm-up, then ``ITERS``
 batches under ``torch.profiler``. Prints the device time of the kernels by
 family and the heaviest kernels by name, the device busy share of the window
@@ -72,6 +73,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--net", default="sdnet_mini_ext", choices=sorted(MODELS.keys()),
                     help="the net to serve or train (default: the flagship)")
+    ap.add_argument("--aspp", type=int, default=0, choices=(0, 1, 2),
+                    help="-aspp of the flagship family (default 0)")
     ap.add_argument("--train", action="store_true",
                     help="profile the net's train step instead of the serving forward")
     ap.add_argument("--out", default=None, help="write the report as JSON here")
@@ -84,6 +87,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     cfg = PMTConfig()
     cfg.model.net = args.net
+    cfg.model.aspp = args.aspp
     cfg.parallel.bf16 = True
     g = torch.Generator(device="cuda").manual_seed(2)
     if args.train:
@@ -130,7 +134,7 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     report = {
         "card": card, "device": torch.cuda.get_device_name(0),
-        "net": args.net, "mode": "train" if args.train else "serve",
+        "net": args.net, "aspp": args.aspp, "mode": "train" if args.train else "serve",
         "shape": list(shape), "dtype": "bf16", "iters": ITERS,
         "wall_ms_per_batch": wall_ms / ITERS,
         "kernel_ms_per_batch": kernel_ms / ITERS,
@@ -140,7 +144,7 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": n[:160], "ms_per_batch": ms / ITERS,
                          "calls_per_batch": c / ITERS} for n, (ms, c) in top],
     }
-    print(f"[profile] {report['mode']} {args.net} {'x'.join(map(str, shape))} bf16: wall {report['wall_ms_per_batch']:.3f} ms/batch, "
+    print(f"[profile] {report['mode']} {args.net} aspp {args.aspp} {'x'.join(map(str, shape))} bf16: wall {report['wall_ms_per_batch']:.3f} ms/batch, "
           f"kernels {report['kernel_ms_per_batch']:.3f} ms/batch, "
           f"device busy {report['device_busy_share']}", flush=True)
     for fam, ms in report["by_family_ms_per_batch"].items():

@@ -4,9 +4,10 @@ package's ``training/loop.py`` on one device.
 
 datasets -> model -> optimizer -> restore -> epochs of train steps with
 periodic per-row eval and checkpointing. The device is the card unless the
-caller passes ``device="cpu"``. Not ported yet: ``-pretrained_path`` and the
-import of a torch reference ``.pth``/``.pth.tar`` (ROADMAP.md queue 1, item
-11.3), and several cards (item 10).
+caller passes ``device="cpu"``. A torch reference checkpoint (``.pth``,
+``.pth.tar``, ``.pt``) restores through ``utils.torch_import``, and
+``-pretrained_path`` grafts a torchvision densenet121 into the trunk. Not
+ported yet: several cards (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -25,15 +26,28 @@ from .optim import build_optimizer
 from .state import TrainState
 from .step import make_eval_step, make_train_step
 
-_ITEM_11_3 = "(ROADMAP.md queue 1, item 11.3)"
+
+def load_pretrained_backbone(cfg: PMTConfig, model: torch.nn.Module) -> None:
+    """``-pretrained_path``: a torchvision densenet121 state dict (or the
+    reference's own densenet) into the model's trunk (the JAX package's
+    ``init_state``, loop.py:159-190); every trunk tensor is replaced."""
+    from ..utils.torch_import import (
+        block_config_of,
+        import_densenet121,
+        load_port_state,
+        load_torch_state_dict,
+    )
+
+    if cfg.model.backbone != "densenet":
+        raise NotImplementedError(f"-pretrained_path for a {cfg.model.backbone} trunk is not "
+                                  f"ported yet (ROADMAP.md queue 1, item 12.6)")
+    sd = load_torch_state_dict(cfg.model.pretrained_path)
+    load_port_state(model.features.backbone, import_densenet121(sd, block_config_of(model)))
 
 
 class Session:
     def __init__(self, cfg: PMTConfig, device: Optional[Union[str, torch.device]] = None):
         cfg.validate()
-        if cfg.model.pretrained_path:
-            raise NotImplementedError(f"-pretrained_path (a torch backbone import) is not ported "
-                                      f"yet {_ITEM_11_3}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = None
@@ -55,6 +69,8 @@ class Session:
         through ``models.load_jax_variables``."""
         cfg = self.cfg
         self.model = get_network(cfg, self.device, seed=cfg.run.seed)
+        if cfg.model.pretrained_path:
+            load_pretrained_backbone(cfg, self.model)
         tx = build_optimizer(cfg.optim, cfg.model.net, len(cfg.loss.losses), steps_per_epoch)
         self.state = TrainState.create(self.model, tx)
         self._train_step = make_train_step(cfg, self.model, self.device)
@@ -208,13 +224,16 @@ class Session:
         utilTorch_loadweight.py:6-115): full state + start epoch + metric
         history — or by-name partial params when the head layout changed
         (hanet / convDeconvOut / deeplab_mod trigger by-name loading in the
-        reference, torch_implementation.py:865). A torch reference
-        checkpoint (``.pth``/``.pth.tar``/``.pt``) raises: its importer is
-        not ported yet."""
+        reference, torch_implementation.py:865). A ``.pth``/``.pth.tar``/
+        ``.pt`` path imports a torch reference checkpoint of the net
+        (``utils.torch_import``), the migration path for reference-trained
+        weights; the optimizer starts afresh at epoch 0."""
         cfg = self.cfg
         if ckpt_dir.endswith((".pth", ".pth.tar", ".pt")):
-            raise NotImplementedError(f"restoring a torch reference checkpoint ({ckpt_dir}) is "
-                                      f"not ported yet {_ITEM_11_3}")
+            from ..utils.torch_import import import_checkpoint
+
+            import_checkpoint(cfg, self.model, ckpt_dir)
+            return 0, []
         src = CheckpointManager(ckpt_dir)
         by_name = (cfg.model.hanet or bool(cfg.model.conv_deconv_out)
                    or cfg.model.net == "deeplab_mod")

@@ -30,10 +30,27 @@ def _is_bn(m: torch.nn.Module) -> bool:
 
 def _bf16_weights(model: torch.nn.Module):
     """(name, parameter) of every parameter the bf16 policy casts: all but
-    the BatchNorm ones."""
+    the BatchNorm ones and the multitask loss's log-variances."""
     return [(f"{mod_name}.{n}" if mod_name else n, p)
             for mod_name, m in model.named_modules() if not _is_bn(m)
-            for n, p in m.named_parameters(recurse=False)]
+            for n, p in m.named_parameters(recurse=False) if not n.startswith("log_var")]
+
+
+def _model_kwargs(cfg: PMTConfig, batch: Dict[str, torch.Tensor], device: torch.device,
+                  bf16: bool) -> Dict[str, torch.Tensor]:
+    """The model's keyword inputs by output type (netForward,
+    torch_implementation.py:118-152; the JAX package's ``_model_inputs``):
+    the ground truth for the multitask terms, HANet's coordinate grids."""
+    kwargs = {}
+    if cfg.model.output_type == "multitask":
+        disp = batch["disp"].to(device)
+        kwargs["disp_gt"] = disp.to(torch.bfloat16) if bf16 else disp
+        kwargs["seg_labels"] = batch["seg"].to(device).argmax(-1)
+    if cfg.model.hanet:
+        from ..models.hanet import build_pos_grid
+
+        kwargs["pos"] = build_pos_grid(*batch["left"].shape[1:3], device=device)
+    return kwargs
 
 
 def _set_train_mode(cfg: PMTConfig, model: torch.nn.Module, train: bool) -> None:
@@ -52,10 +69,11 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
     card by default; raises without one unless ``device="cpu"``; the model is
     moved there and set to eval mode).
 
-    ``batch`` holds NHWC ``left``/``right`` images; the outputs are the
-    model's dict of NHWC tensors in fp32. ``train=True`` runs the train-mode
-    forward (batch statistics, running-stat updates, dropout); the nets
-    without one raise."""
+    ``batch`` holds NHWC ``left``/``right`` images (and ``seg``/``disp`` for
+    the multitask output type, whose terms ``mt`` the model computes); the
+    outputs are the model's dict of NHWC tensors in fp32. ``train=True``
+    runs the train-mode forward (batch statistics, running-stat updates,
+    dropout); the nets without one raise."""
     device = resolve_device(device)
     if cfg.model.edges:
         raise NotImplementedError("edge-input nets are not ported yet (ROADMAP.md queue 1, item 12.7)")
@@ -68,11 +86,14 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
             _set_train_mode(cfg, model, train)
         left = batch["left"].to(device)
         right = batch["right"].to(device)
+        kwargs = _model_kwargs(cfg, batch, device, bf16)
         if not bf16:
-            return model(left, right)
+            return model(left, right, **kwargs)
         weights = {n: p.to(torch.bfloat16) for n, p in cast}
-        out = functional_call(model, weights, (left.to(torch.bfloat16), right.to(torch.bfloat16)))
-        return {k: v.float() for k, v in out.items()}
+        out = functional_call(model, weights, (left.to(torch.bfloat16), right.to(torch.bfloat16)),
+                              kwargs)
+        return {k: tuple(t.float() for t in v) if isinstance(v, tuple) else v.float()
+                for k, v in out.items()}
 
     return forward
 
@@ -80,36 +101,51 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
 # output types whose head-2 loss mirrors head 1's, so only head 1 counts
 # (the JAX package's ``_SINGLE_HEAD``, ``step.py:42``)
 _SINGLE_HEAD = ("smallOutPair", "deeplab", "edgeOut", "pspnet")
-# the output types of the ported nets: sdnet_mini_ext, sdnet_mini, sdnet and sdnetv2
-PORTED_OUTPUT_TYPES = ("smallOutSeg", "smallOutPair", "two_out")
+# the output types of the ported nets: the flagship family (smallOutSeg,
+# hanet, multitask), sdnet_mini (smallOutPair), sdnet and sdnetv2 (two_out)
+PORTED_OUTPUT_TYPES = ("smallOutSeg", "smallOutPair", "two_out", "hanet", "multitask")
 
 
-def _unported_output_type(ot: str) -> str:
-    item = "12.4" if ot == "hanet" else "12.7"
-    return f"the losses of output type {ot!r} are not ported yet (ROADMAP.md queue 1, item {item})"
+def _split(generator: Optional[torch.Generator]):
+    """Two generators for the two heads, seeded from ``generator``, as the
+    JAX step splits its key (None: both heads draw from the default
+    generator)."""
+    if generator is None:
+        return None, None
+    seeds = torch.randint(0, 2**62, (2,), generator=generator, device=generator.device)
+    return tuple(torch.Generator(generator.device).manual_seed(int(s)) for s in seeds)
 
 
 def make_losses_fn(cfg: PMTConfig):
-    """Returns ``losses(out, batch) -> (loss, logs)`` on the model's outputs:
-    head 1's cross entropy on seg1, head 2's configured stack on seg2 (not
-    for the single-head output types, e.g. ``sdnet_mini``'s), and the masked
-    L1 on disp1 (the JAX package's ``step.py:175-220``, for the output types
-    of the ported nets; any other raises)."""
+    """Returns ``losses(out, batch, generator=None) -> (loss, logs)`` on the
+    model's outputs (the JAX package's ``step.py:175-220`` for the output
+    types of the ported nets; any other raises): head 1's cross entropy on
+    seg1, head 2's configured stack on seg2 (not for the single-head output
+    types, e.g. ``sdnet_mini``'s), and the disparity stack on disp1; for the
+    multitask output type, the means of the model's Kendall terms ``mt``.
+    ``dual_edge_reg`` draws from ``generator``, split per head."""
     ot = cfg.model.output_type
     if ot not in PORTED_OUTPUT_TYPES:
-        raise NotImplementedError(_unported_output_type(ot))
+        raise NotImplementedError(f"the losses of output type {ot!r} are not ported yet "
+                                  f"(ROADMAP.md queue 1, item 12.7)")
     d = cfg.data
     head1_loss = compose_seg_loss(["cross_entropy"], d.dataset_name, d.n_labels, cfg.loss.seg_weight)
     head2_loss = compose_seg_loss(cfg.loss.losses, d.dataset_name, d.n_labels, cfg.loss.seg_weight)
     disp_loss = compose_disp_loss(cfg.loss.losses, d.dataset_name, ot)
     two_heads = ot not in _SINGLE_HEAD
 
-    def losses(out, batch):
+    def losses(out, batch, generator: Optional[torch.Generator] = None):
         seg = batch["seg"]
-        loss_seg = head1_loss(out["seg1"], seg)
-        if two_heads:
-            loss_seg = loss_seg + head2_loss(out["seg2"], seg)
-        loss_disp = disp_loss(batch["disp"], out["disp1"])
+        if ot == "multitask":
+            mt_d, mt_s1, mt_s2 = out["mt"]
+            loss_seg = mt_s1.mean() + mt_s2.mean()
+            loss_disp = mt_d.mean()
+        else:
+            g1, g2 = _split(generator)
+            loss_seg = head1_loss(out["seg1"], seg, g1)
+            if two_heads:
+                loss_seg = loss_seg + head2_loss(out["seg2"], seg, g2)
+            loss_disp = disp_loss(batch["disp"], out["disp1"], batch.get("left"), seg)
         loss = loss_seg + loss_disp
         return loss, {"loss": loss, "loss_seg": loss_seg, "loss_disp": loss_disp}
 
@@ -160,7 +196,8 @@ def make_train_step(cfg: PMTConfig, model: torch.nn.Module,
         if cfg.optim.freeze_bn:
             _zero_bn_grads(state.model)
         with torch.no_grad():
-            metrics = compute_metrics(cfg, {k: v.detach() for k, v in out.items()}, batch)
+            metrics = compute_metrics(cfg, {k: v.detach() for k, v in out.items() if k != "mt"},
+                                      batch)
             metrics.update({k: v.detach() for k, v in logs.items()})
         return state.apply_gradients(), metrics
 
@@ -210,7 +247,11 @@ def eval_rows(cfg: PMTConfig, losses, out: Dict[str, torch.Tensor],
               batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Per-row metrics and losses (``losses`` from ``make_losses_fn``) of a
     batch's outputs: each row's are those of that row alone, stacked along a
-    leading batch dimension."""
+    leading batch dimension. For the multitask output type the loss columns
+    are the per-row means of the model's per-pixel Kendall terms, as in the
+    JAX package (their batch mean is the training loss)."""
+    multitask = cfg.model.output_type == "multitask"
+    mt = out.get("mt")
     out = {k: out[k] for k in _EVAL_OUT_KEYS if out.get(k) is not None}
     batch = {k: batch[k] for k in _EVAL_BATCH_KEYS if k in batch}
     rows = []
@@ -218,9 +259,30 @@ def eval_rows(cfg: PMTConfig, losses, out: Dict[str, torch.Tensor],
         o = {k: v[r:r + 1] for k, v in out.items()}
         b = {k: v[r:r + 1] for k, v in batch.items()}
         m = _eval_metrics_full(cfg, o, b)
-        m.update(losses(o, b)[1])
+        if not multitask:
+            m.update(losses(o, b)[1])
         rows.append(m)
-    return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+    metrics = {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+    if multitask:
+        n = len(rows)
+
+        def rowmean(x):
+            if x.dim() >= 1 and x.shape[0] == n:
+                return x.reshape(n, -1).mean(dim=1)
+            return x.mean().expand(n)
+
+        mt_d, mt_s1, mt_s2 = mt
+        metrics["loss_disp"] = rowmean(mt_d)
+        metrics["loss_seg"] = rowmean(mt_s1) + rowmean(mt_s2)
+        metrics["loss"] = metrics["loss_disp"] + metrics["loss_seg"]
+    return metrics
+
+
+def _cat_rows(rows):
+    """The outputs of one-row forwards as one batch (``mt`` term by term)."""
+    return {k: (tuple(torch.cat(t) for t in zip(*(o[k] for o in rows)))
+                if isinstance(rows[0][k], tuple) else torch.cat([o[k] for o in rows]))
+            for k in rows[0]}
 
 
 def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
@@ -239,11 +301,14 @@ def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
     forward gives a row other rounding, and other metrics, at another ``-b``;
     one row at a time, a row's outputs do not depend on the batch it came in.
     ``slide_window`` 1 and 2 run the windows of ``tiled_inference`` over a
-    row as one batched forward. ``tta`` (the deeplab net's) and the
-    multitask output raise."""
+    row as one batched forward (not for the multitask output type, as in
+    the JAX package). ``tta`` (the deeplab net's) raises."""
     if cfg.run.tta:
         raise NotImplementedError("-tta applies to the deeplab net, which is not ported yet "
                                   "(ROADMAP.md queue 1, item 12.7)")
+    if cfg.run.slide_window and cfg.model.output_type == "multitask":
+        raise ValueError("-slide_window tiling is defined for the plain stereo nets (the "
+                         "reference gates it the same way, torch_implementation.py:119)")
     forward = make_forward_fn(cfg, model, device)
     losses = make_losses_fn(cfg)
     device = resolve_device(device)
@@ -266,9 +331,8 @@ def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor]):
         batch = {k: v.to(device) for k, v in batch.items() if isinstance(v, torch.Tensor)}
-        rows = [forward_eval({"left": batch["left"][r:r + 1], "right": batch["right"][r:r + 1]})
-                for r in range(batch["left"].shape[0])]
-        out = {k: torch.cat([o[k] for o in rows]) for k in rows[0]}
+        out = _cat_rows([forward_eval({k: v[r:r + 1] for k, v in batch.items()})
+                         for r in range(batch["left"].shape[0])])
         return out, eval_rows(cfg, losses, out, batch)
 
     return step

@@ -1,0 +1,489 @@
+"""Import the torch reference's state dicts (``.pth``, ``.pth.tar``, ``.pt``
+training checkpoints and torchvision's densenet121) straight into the
+port's modules, the counterpart of the JAX package's ``utils/torch_import.py``.
+
+The port's modules are torch modules already, so most entries are a rename
+of a key. An importer is a list of entries (port name, reference keys,
+transform), and it reads the same reference keys the JAX package's importer
+of the same name reads, each once:
+
+* ``copy``   -- the tensor as it is: convolutions (OIHW), Conv1d (OIk),
+  BatchNorm, embeddings;
+* ``deconv`` -- a stride-1 'same' ``ConvTranspose2d`` (I, O, kh, kw), which
+  the port runs as a SAME convolution: flipped in space, I and O swapped
+  (``deconv_as_conv_kernel``); also the stride-2 ``DeconvBN`` of the legacy
+  nets, whose ``SameConvTranspose2d`` keeps a conv's layout;
+* ``cat``    -- several tensors concatenated along dim 0: the reference's
+  four 3->1 ``conv2d_ba{0..3}`` image convs of the flagship, merged into the
+  port's one 3->4 ``conv2d_ba`` in the channel order ba0, ba2, ba1, ba3
+  (the forward's binding, dsnet_t2.py:1176-1179), and sdnet_mini's ba0,
+  ba1.
+
+``load_port_state`` fills a model from such a dict and raises unless every
+parameter and BatchNorm statistic is filled exactly once with its shape, as
+``models.load_jax_variables`` does. ``export_state_dict`` inverts an
+importer: the reference-layout dict that imports back to a model's tensors.
+
+Not imported: the resnet, mobilenet and efficientnet trunks (ROADMAP.md
+queue 1, item 12.6), the nets other than the four flagship variants,
+sdnet_mini, sdnet and sdnetv2 (item 12.7), and the multitask log-variance
+and decoder-only modules, which the JAX package's importer does not map
+either (item 11.3).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Entry = Tuple[str, Tuple[str, ...], str]  # (port name, reference keys, transform)
+DENSENET121_BLOCKS = (6, 12, 24, 16)
+_BN = ("weight", "bias", "running_mean", "running_var")
+
+
+def deconv_as_conv_kernel(w: torch.Tensor) -> torch.Tensor:
+    """torch ConvTranspose2d (I, O, kh, kw) -> the port's SAME conv (O, I,
+    kh, kw): flip the spatial dims, swap I and O."""
+    return w.flip(-2, -1).transpose(0, 1).contiguous()
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v.detach().cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+
+
+def _bn(port: str, ref: str) -> List[Entry]:
+    return [(f"{port}.{leaf}", (f"{ref}.{leaf}",), "copy") for leaf in _BN]
+
+
+def _convbn(port: str, ref: str) -> List[Entry]:
+    """convbn (dsnet_t2.py:16-46): Sequential(conv2dSame, BN)."""
+    return [(f"{port}.conv.weight", (f"{ref}.layers.0.c2d.weight",), "copy")] + _bn(
+        f"{port}.bn", f"{ref}.layers.1")
+
+
+def _deconvbn(port: str, ref: str) -> List[Entry]:
+    """deconvbn (dsnet_t2.py:48-77): Sequential(ConvTranspose2dSame, BN)."""
+    return [(f"{port}.deconv.weight", (f"{ref}.layers.0.ct2d.weight",), "deconv")] + _bn(
+        f"{port}.bn", f"{ref}.layers.1")
+
+
+def _cdu(port: str, ref: str, last: bool = True) -> List[Entry]:
+    """Conv2DownUp (dsnet_t2.py:80-117): each unit is Sequential(unit, ReLU,
+    Dropout), so its keys sit under index 0."""
+    e = [x for name in ("c1", "c2", "c3") for x in _convbn(f"{port}.{name}", f"{ref}.{name}.0")]
+    return e + [x for name in ("d3", "d4") + (("d5",) if last else ())
+                for x in _deconvbn(f"{port}.{name}", f"{ref}.{name}.0")]
+
+
+def _conv_plain(port: str, ref: str) -> List[Entry]:
+    """conv2dSame inside a Sequential -> a bias-free ConvBN(batchnorm=False)."""
+    return [(f"{port}.conv.weight", (f"{ref}.0.c2d.weight",), "copy")]
+
+
+def _deconv_out(port: str, ref: str) -> List[Entry]:
+    """ConvTranspose2dSame head -> ConvOut."""
+    return [(f"{port}.conv.weight", (f"{ref}.ct2d.weight",), "deconv")]
+
+
+def _image_convs(port: str, order: Sequence[int]) -> List[Entry]:
+    """The reference's 3->1 ``conv2d_ba{i}`` convbns merged into one."""
+    pre = [f"conv2d_ba{i}.0.layers" for i in order]
+    return [(f"{port}.conv.weight", tuple(f"{p}.0.c2d.weight" for p in pre), "cat")] + [
+        (f"{port}.bn.{leaf}", tuple(f"{p}.1.{leaf}" for p in pre), "cat") for leaf in _BN]
+
+
+def _densenet(port: str, block_config: Sequence[int]) -> List[Entry]:
+    """torchvision densenet keys (``features.*``) -> ``DenseNetFeatures``."""
+    e = [(f"{port}.conv0.weight", ("features.conv0.weight",), "copy")]
+    e += _bn(f"{port}.norm0", "features.norm0")
+    for bi, n_layers in enumerate(block_config, start=1):
+        for li in range(1, n_layers + 1):
+            layer = f"denseblock{bi}.denselayer{li}"
+            for norm, conv in (("norm1", "conv1"), ("norm2", "conv2")):
+                e += _bn(f"{port}.{layer}.{norm}", f"features.{layer}.{norm}")
+                e.append((f"{port}.{layer}.{conv}.weight", (f"features.{layer}.{conv}.weight",),
+                          "copy"))
+        if bi < len(block_config):
+            e += _bn(f"{port}.transition{bi}.norm", f"features.transition{bi}.norm")
+            e.append((f"{port}.transition{bi}.conv.weight",
+                      (f"features.transition{bi}.conv.weight",), "copy"))
+    return e + _bn(f"{port}.norm5", "features.norm5")
+
+
+def ref_densenet_to_torchvision_keys(sd: Mapping[str, object]) -> Dict[str, object]:
+    """The reference's densenet (models/densenet.py:150-206) keeps blocks and
+    transitions in one ModuleList ``denseblock`` (even indices blocks, odd
+    ones transitions) with ``conv0`` and ``norm5`` out of ``features``:
+    rewrite its keys in torchvision's style."""
+    out = {}
+    for k, v in sd.items():
+        if "num_batches_tracked" in k or k.startswith("classifier."):
+            continue
+        m = re.match(r"denseblock\.(\d+)\.(.*)", k)
+        if m:
+            idx, rest = int(m.group(1)), m.group(2)
+            kind = "denseblock" if idx % 2 == 0 else "transition"
+            out[f"features.{kind}{idx // 2 + 1}.{rest}"] = v
+        elif k.startswith(("conv0.", "norm5.")):
+            out[f"features.{k}"] = v
+        else:
+            out[k] = v  # features.norm0.* is in place already
+    return out
+
+
+def _torchvision_to_ref_densenet_keys(sd: Mapping[str, object]) -> Dict[str, object]:
+    """The inverse of ``ref_densenet_to_torchvision_keys``."""
+    out = {}
+    for k, v in sd.items():
+        m = re.match(r"features\.(denseblock|transition)(\d+)\.(.*)", k)
+        if m:
+            idx = 2 * (int(m.group(2)) - 1) + (m.group(1) == "transition")
+            out[f"denseblock.{idx}.{m.group(3)}"] = v
+        elif k.startswith(("features.conv0.", "features.norm5.")):
+            out[k[len("features."):]] = v
+        else:
+            out[k] = v
+    return out
+
+
+def _torchvision_style(sd: Mapping[str, object]) -> Dict[str, object]:
+    """A densenet state dict in torchvision's key style, whichever it was
+    written in (legacy dotted ``norm.1`` names included)."""
+    if "features.conv0.weight" not in sd:
+        sd = ref_densenet_to_torchvision_keys(sd)
+    return {k.replace("norm.1", "norm1").replace("norm.2", "norm2")
+            .replace("conv.1", "conv1").replace("conv.2", "conv2"): v for k, v in sd.items()}
+
+
+def _apply(entries: List[Entry], sd: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    out = {}
+    for port, refs, kind in entries:
+        missing = [r for r in refs if r not in sd]
+        if missing:
+            raise KeyError(f"the state dict has no {missing[0]!r} (for the port's {port})")
+        ts = [_as_tensor(sd[r]) for r in refs]
+        if kind == "copy":
+            out[port] = ts[0].clone()
+        elif kind == "deconv":
+            out[port] = deconv_as_conv_kernel(ts[0])
+        else:
+            out[port] = torch.cat(ts, dim=0)
+    return out
+
+
+def _trunk_entries(block_config, branches) -> List[Entry]:
+    """piramidNet2 / piramidNet: the densenet under
+    ``resnet_features.resnet_features`` and the branch convbns (Sequential:
+    0 AvgPool, 1 convbn, 2 ReLU)."""
+    entries = [(p, tuple(f"resnet_features.resnet_features.{r}" for r in refs), kind)
+               for p, refs, kind in _densenet("features.backbone", block_config)]
+    for tap, n in branches:
+        for k in range(n):
+            entries += _convbn(f"features.branch{tap}_{k}", f"resnet_features.branch{tap}_{k}.1")
+    return entries
+
+
+def _trunk_view(sd: Mapping[str, object]) -> Dict[str, object]:
+    """The trunk's keys of a reference dict in torchvision's style, under
+    their full prefix; every other key as it is."""
+    pre = "resnet_features.resnet_features."
+    bb = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    if not bb:
+        return dict(sd)
+    rest = {k: v for k, v in sd.items() if not k.startswith(pre)}
+    rest.update((pre + k, v) for k, v in _torchvision_style(bb).items())
+    return rest
+
+
+def ext_entries(use_att: bool = True, conv_deconv_out: int = 0, ablation: Sequence[str] = (),
+                aspp_mod: int = 0, hanet: bool = False, variant: str = "ext",
+                block_config: Sequence[int] = DENSENET121_BLOCKS,
+                hanet_embedding: bool = False) -> List[Entry]:
+    """The entries of minidsnetExt and its variants (the JAX package's
+    ``import_minidsnet_ext``). ``variant``: "ext"; "v2" (one self-gate
+    ``conv1d_at``); "piramid" (the flagship's modules); "piramid_res"
+    (plain ``dispoutConv`` and ``convSegOut`` heads, an unwrapped
+    ``Conv2DownUp11``). ``hanet_embedding``: HANet's learned position
+    embedding (is_encoding 0)."""
+    e = _trunk_entries(block_config, ((0, 5), (1, 4), (2, 3)))
+    e += _image_convs("conv2d_ba", (0, 2, 1, 3))
+    e += _conv_plain("segNet.conv1d_1", "segNet.conv1d_1")
+    e += _cdu("segNet.cdu1", "segNet.Conv2DownUp1")
+    e += _conv_plain("segNet.conv1d_2", "segNet.conv1d_2")
+    e += _cdu("segNet.cdu2", "segNet.Conv2DownUp2.0", last=False)
+    e += _deconv_out("segNet.out", "segNet.Conv2DownUp2.1")
+    e += _conv_plain("corrConv2d", "corrConv2d")
+    e += _cdu("cdu3", "Conv2DownUp3")
+    e += _cdu("cdu4", "Conv2DownUp4")
+    e += _conv_plain("conv1d_2", "conv1d_2")
+    e += _cdu("cdu5", "Conv2DownUp5", last=False)
+    if variant == "piramid_res":  # a plain conv2dSame head (dsnet_t2.py:2293)
+        e.append(("dispoutConv.conv.weight", ("dispoutConv.c2d.weight",), "copy"))
+    else:
+        e += _deconv_out("dispoutConv", "dispoutConv")
+    e += _conv_plain("conv1d_4", "conv1d_4")  # conv1d_3: built, never used by the forward
+    e += _cdu("cdu6", "Conv2DownUp6")
+    if "no_dec3" not in ablation:
+        if variant == "v2":
+            e += _cdu("cdu7", "Conv2DownUp7") + _cdu("cdu9", "Conv2DownUp9")
+            e += _conv_plain("conv1d_at", "conv1d_at")
+        elif use_att:
+            e += _cdu("cdu7", "Conv2DownUp7") + _cdu("cdu9", "Conv2DownUp9")
+            e += _conv_plain("conv1d_at_d", "conv1d_at_d")
+            e += _conv_plain("conv1d_at_s", "conv1d_at_s")
+        e += _cdu("cdu8", "Conv2DownUp8")
+    e += _cdu("cdu10", "Conv2DownUp10")
+    e += _conv_plain("conv1d_5", "conv1d_5")
+    if aspp_mod in (1, 2):
+        e += _aspp("aspp", "aspp")
+    if hanet:
+        e += _hanet("hanet_last", "hanet_last", hanet_embedding)
+    if conv_deconv_out:
+        e += _cdu("cdu11", "Conv2DownUp11.0", last=False)
+        e.append(("convOutput2.weight", ("convOutput2.c2d.weight",), "copy"))
+        if conv_deconv_out == 2:
+            e += _deconv_out("convOutput", "convOutput")
+    elif variant == "piramid_res":
+        e += _cdu("cdu11", "Conv2DownUp11", last=False)
+        e.append(("cdu11_out.conv.weight", ("convSegOut.c2d.weight",), "copy"))
+    else:
+        e += _cdu("cdu11", "Conv2DownUp11.0", last=False)
+        e += _deconv_out("cdu11_out", "Conv2DownUp11.1")
+    return e
+
+
+def _aspp(port: str, ref: str) -> List[Entry]:
+    """The dsnet-flavour ASPP (models/aspp.py:34-112)."""
+    e = []
+    for i in (1, 2, 3, 4):
+        e.append((f"{port}.aspp{i}_conv.weight", (f"{ref}.aspp{i}.atrous_conv.weight",), "copy"))
+        e += _bn(f"{port}.aspp{i}_bn", f"{ref}.aspp{i}.bn")
+    e.append((f"{port}.gp_conv.weight", (f"{ref}.global_avg_pool.1.weight",), "copy"))
+    e += _bn(f"{port}.gp_bn", f"{ref}.global_avg_pool.2")
+    e.append((f"{port}.proj_conv.weight", (f"{ref}.conv1.weight",), "copy"))
+    e += _bn(f"{port}.proj_bn", f"{ref}.bn1")
+    return e
+
+
+def _hanet(port: str, ref: str, embedding: bool) -> List[Entry]:
+    """HANet_Conv (models_hanet/HANet.py:9-128), three layers."""
+    e = [(f"{port}.att1_conv.weight", (f"{ref}.attention_first.0.weight",), "copy")]
+    e += _bn(f"{port}.att1_bn", f"{ref}.attention_first.1")
+    for mine, theirs in (("att2_conv", "attention_second.0"), ("att3_conv", "attention_third.0")):
+        e += [(f"{port}.{mine}.{leaf}", (f"{ref}.{theirs}.{leaf}",), "copy")
+              for leaf in ("weight", "bias")]
+    e += _bn(f"{port}.att2_bn", f"{ref}.attention_second.1")
+    if embedding:  # PosEmbedding1D (is_encoding 0, PosEmbedding.py:88-120)
+        e.append((f"{port}.pos_emb1d_2nd.weight", (f"{ref}.pos_emb1d_2nd.pos_embedding.weight",),
+                  "copy"))
+    return e
+
+
+def _head1_segnet() -> List[Entry]:
+    e = _conv_plain("segNet.conv1d_1", "segNet.conv1d_1")
+    e += _cdu("segNet.cdu1", "segNet.Conv2DownUp1")
+    e += _conv_plain("segNet.conv1d_2", "segNet.conv1d_2")
+    e += _cdu("segNet.cdu2", "segNet.Conv2DownUp2.0", last=False)
+    return e + _deconv_out("segNet.out", "segNet.Conv2DownUp2.1")
+
+
+def _disp_head() -> List[Entry]:
+    e = _conv_plain("corrConv2d", "corrConv2d")
+    e += _cdu("cdu3", "Conv2DownUp3") + _cdu("cdu4", "Conv2DownUp4")
+    e += _conv_plain("conv1d_2", "conv1d_2")
+    e += _cdu("cdu5", "Conv2DownUp5", last=False)
+    return e + _deconv_out("dispoutConv", "dispoutConv")
+
+
+def minidsnet_entries(block_config: Sequence[int] = DENSENET121_BLOCKS) -> List[Entry]:
+    """minidsnet, ``sdnet_mini`` (the JAX package's ``import_minidsnet``):
+    the original piramidNet, ba0 and ba1 merged (ba2, ba3 and conv1d_3 are
+    built but unused by the forward)."""
+    e = _trunk_entries(block_config, ((0, 5), (1, 3)))
+    e += _image_convs("conv2d_ba", (0, 1))
+    return e + _head1_segnet() + _disp_head()
+
+
+def _dsnet_tail() -> List[Entry]:
+    """The cascade shared by dsnet and dsnetv2 after the disparity head."""
+    e = _conv_plain("conv1d_3", "conv1d_3") + _cdu("cdu6", "Conv2DownUp6")
+    e += _conv_plain("conv1d_4", "conv1d_4")
+    e += _deconvbn("deconv_ba1", "conv2DT_BA1.0")
+    e += _conv_plain("conv1d_5", "conv1d_5")
+    e += _deconvbn("deconv_ba2", "conv2DT_BA2.0")
+    e += _conv_plain("conv1d_6", "conv1d_6")
+    e += _cdu("cdu7", "Conv2DownUp7", last=False)
+    e += _deconv_out("branchConv", "branchConv")
+    e += _conv_plain("conv1d_9", "conv1d_9")  # conv1d_7: built, never used
+    e += _cdu("cdu8", "Conv2DownUp8") + _cdu("cdu9", "Conv2DownUp9")
+    e += _conv_plain("conv1d_8", "conv1d_8")
+    e += _cdu("cdu10", "Conv2DownUp10.0", last=False)
+    return e + _deconv_out("cdu10_out", "Conv2DownUp10.1")
+
+
+def dsnet_entries(block_config: Sequence[int] = DENSENET121_BLOCKS) -> List[Entry]:
+    """dsnet, ``sdnet`` (the JAX package's ``import_dsnet``): head 1 inline,
+    no conv2d_ba0."""
+    e = _trunk_entries(block_config, ((0, 5), (1, 3)))
+    for i in (1, 2, 3):
+        e += _convbn(f"conv2d_ba{i}", f"conv2d_ba{i}.0")
+    e += _conv_plain("conv1d_1", "conv1d_1") + _cdu("cdu1", "Conv2DownUp1")
+    e += _cdu("cdu2", "Conv2DownUp2.0", last=False)
+    e += _deconv_out("cdu2_out", "Conv2DownUp2.1")
+    return e + _disp_head() + _dsnet_tail()
+
+
+def dsnetv2_entries(block_config: Sequence[int] = DENSENET121_BLOCKS) -> List[Entry]:
+    """dsnetv2, ``sdnetv2`` (the JAX package's ``import_dsnetv2``)."""
+    e = _trunk_entries(block_config, ((0, 5), (1, 3)))
+    for i in range(4):
+        e += _convbn(f"conv2d_ba{i}", f"conv2d_ba{i}.0")
+    return e + _head1_segnet() + _disp_head() + _dsnet_tail()
+
+
+def import_minidsnet_ext(state_dict, use_att: bool = True, conv_deconv_out: int = 0,
+                         ablation=(), aspp_mod: int = 0, hanet: bool = False,
+                         variant: str = "ext",
+                         block_config: Sequence[int] = DENSENET121_BLOCKS) -> Dict[str, torch.Tensor]:
+    """A reference minidsnetExt state dict -> {port name: tensor}. HANet's
+    learned embedding is read when the dict has it, as in the JAX package."""
+    emb = "hanet_last.pos_emb1d_2nd.pos_embedding.weight" in state_dict
+    return _apply(ext_entries(use_att, conv_deconv_out, ablation, aspp_mod, hanet, variant,
+                              block_config, emb), _trunk_view(state_dict))
+
+
+def import_minidsnet(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
+                     ) -> Dict[str, torch.Tensor]:
+    return _apply(minidsnet_entries(block_config), _trunk_view(state_dict))
+
+
+def import_dsnet(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
+                 ) -> Dict[str, torch.Tensor]:
+    return _apply(dsnet_entries(block_config), _trunk_view(state_dict))
+
+
+def import_dsnetv2(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
+                   ) -> Dict[str, torch.Tensor]:
+    return _apply(dsnetv2_entries(block_config), _trunk_view(state_dict))
+
+
+def import_densenet121(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
+                       ) -> Dict[str, torch.Tensor]:
+    """A torchvision densenet121 (``features.*``, the legacy dotted names too)
+    or the reference's own densenet -> {name in ``DenseNetFeatures``: tensor}."""
+    return {k[len("bb."):]: v
+            for k, v in _apply(_densenet("bb", block_config),
+                               _torchvision_style(state_dict)).items()}
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth``/``.pth.tar``/``.pt`` file's state dict on the host: the
+    ``state_dict`` entry of a training checkpoint if there is one, with
+    DataParallel's ``module.`` prefix stripped."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k): _as_tensor(v)
+            for k, v in obj.items()}
+
+
+def _fillable(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    out = dict(model.named_parameters())
+    out.update((n, b) for n, b in model.named_buffers() if not n.endswith("num_batches_tracked"))
+    return out
+
+
+@torch.no_grad()
+def load_port_state(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+    """Copy {port name: tensor} into ``model`` in place; raises ``KeyError``
+    unless every parameter and BatchNorm statistic gets exactly one tensor
+    and every tensor has a home, ``ValueError`` on a shape mismatch."""
+    targets = _fillable(model)
+    extra = sorted(set(tensors) - set(targets))
+    missing = sorted(set(targets) - set(tensors))
+    if extra or missing:
+        raise KeyError(f"{len(missing)} port tensors got no reference tensor (e.g. {missing[:5]}), "
+                       f"{len(extra)} imported tensors have no port tensor (e.g. {extra[:5]})")
+    for name, dst in targets.items():
+        src = tensors[name]
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+        dst.copy_(src)
+    return model
+
+
+def export_state_dict(model: torch.nn.Module, entries: List[Entry]) -> Dict[str, torch.Tensor]:
+    """The reference-layout state dict that ``entries`` import back to
+    ``model``'s tensors (its densenet in the reference's own key style)."""
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out = {}
+    for port, refs, kind in entries:
+        t = state[port]
+        if kind == "copy":
+            out[refs[0]] = t.clone()
+        elif kind == "deconv":
+            out[refs[0]] = t.transpose(0, 1).flip(-2, -1).contiguous()
+        else:
+            out.update(zip(refs, (c.clone() for c in t.chunk(len(refs), dim=0))))
+    pre = "resnet_features.resnet_features."
+    bb = {k[len(pre):]: v for k, v in out.items() if k.startswith(pre)}
+    out = {k: v for k, v in out.items() if not k.startswith(pre)}
+    out.update((pre + k, v) for k, v in _torchvision_to_ref_densenet_keys(bb).items())
+    return out
+
+
+def block_config_of(model: torch.nn.Module) -> Tuple[int, ...]:
+    """The densenet block config of a port model's trunk."""
+    bb = model.features.backbone
+    return tuple(len(getattr(bb, f"denseblock{i + 1}")) for i in range(bb.n_blocks))
+
+
+_EXT_VARIANTS = {"sdnet_mini_ext": "ext", "sdnet_mini_ext_v2": "v2",
+                 "sdnet_mini_ext_piramid": "piramid", "sdnet_mini_ext_piramid_res": "piramid_res"}
+
+
+def _check_ported(cfg) -> None:
+    m = cfg.model
+    if m.backbone != "densenet":
+        raise NotImplementedError(f"importing a {m.backbone} trunk is not ported yet "
+                                  f"(ROADMAP.md queue 1, item 12.6)")
+    if m.net in _EXT_VARIANTS and m.multaskloss:
+        raise NotImplementedError("importing the multitask modes' weights is not ported: the JAX "
+                                  "package's importer does not map them either "
+                                  "(ROADMAP.md queue 1, item 11.3)")
+    if m.net not in _EXT_VARIANTS and m.net not in ("sdnet_mini", "sdnet", "sdnetv2"):
+        raise NotImplementedError(f"importing a torch checkpoint of -net {m.net} is not ported "
+                                  f"yet (ROADMAP.md queue 1, item 12.7)")
+
+
+def entries_for(cfg, model: torch.nn.Module) -> List[Entry]:
+    """The importer's entries of the configured net (a ``PMTConfig``), for
+    ``model`` (its trunk depth, HANet's encoding): what ``export_state_dict``
+    inverts."""
+    _check_ported(cfg)
+    m, blocks = cfg.model, block_config_of(model)
+    if m.net in _EXT_VARIANTS:
+        return ext_entries(m.use_att, m.conv_deconv_out, m.ablation, m.aspp, bool(m.hanet),
+                           _EXT_VARIANTS[m.net], blocks,
+                           hanet_embedding=bool(m.hanet) and not m.hanet_is_encoding)
+    return {"sdnet_mini": minidsnet_entries, "sdnet": dsnet_entries,
+            "sdnetv2": dsnetv2_entries}[m.net](blocks)
+
+
+def import_state_dict(cfg, model: torch.nn.Module, state_dict) -> Dict[str, torch.Tensor]:
+    """A reference state dict of the configured net -> {port name: tensor},
+    through the JAX package's importer of the same name."""
+    _check_ported(cfg)
+    m, blocks = cfg.model, block_config_of(model)
+    if m.net in _EXT_VARIANTS:
+        return import_minidsnet_ext(state_dict, m.use_att, m.conv_deconv_out, m.ablation, m.aspp,
+                                    bool(m.hanet), _EXT_VARIANTS[m.net], blocks)
+    return {"sdnet_mini": import_minidsnet, "sdnet": import_dsnet,
+            "sdnetv2": import_dsnetv2}[m.net](state_dict, blocks)
+
+
+def import_checkpoint(cfg, model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Fill ``model`` from a reference checkpoint file of the configured net."""
+    return load_port_state(model, import_state_dict(cfg, model, load_torch_state_dict(path)))

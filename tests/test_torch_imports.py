@@ -15,6 +15,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         f"import {PORT}, {PORT}.models, {PORT}.ops, {PORT}.metrics, {PORT}.training, {PORT}.core\n"
         f"import {PORT}.data, {PORT}.data.native, {PORT}.evaluation, {PORT}.cli.train\n"
+        f"import {PORT}.utils.torch_import, {PORT}.models.aspp, {PORT}.models.hanet\n"
+        f"import {PORT}.losses.edge, {PORT}.losses.multitask, {PORT}.ops.edges\n"
         f"banned = {BANNED!r}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "print(bad)\n"

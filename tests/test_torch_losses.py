@@ -6,7 +6,10 @@ max|ref| (fp32 summation order; the Lovász cumulative sums over 1024 sorted
 pixels are the longest chains). Lovász runs at C = 2 (the JAX package's
 single-sort path) and C = 9; Tversky's gradient ignores the upstream factor
 and forces alpha = 0.7, beta = 0.3 in both packages. ``make_losses_fn``
-is held against the JAX package's for the output type of every ported net.
+is held against the JAX package's for the output type of every ported net
+(hanet and multitask included), and ``compose_seg_loss`` on stacks that mix
+the losses of the eighth slice with the main path's; those losses alone are
+held in ``test_torch_seg_losses.py`` and ``test_torch_edge_losses.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -44,7 +47,7 @@ def logits_and_labels(c, seed=0, ignore=None):
 
 def compare(jax_fn, torch_fn, x, *args):
     """Value and d/dx of jax_fn(x, *args) and torch_fn(x, *args)."""
-    ref, ref_g = jax.value_and_grad(lambda a: jax_fn(a, *args))(jnp.asarray(x))
+    ref, ref_g = jax.jit(jax.value_and_grad(lambda a: jax_fn(a, *args)))(jnp.asarray(x))
     xt = torch.from_numpy(np.array(x)).requires_grad_()
     got = torch_fn(xt, *args)
     got.backward()
@@ -180,12 +183,35 @@ def test_compose_disp_loss(dataset):
             lambda x, g: tfn(torch.from_numpy(g), x), pred, gt)
 
 
-@pytest.mark.parametrize("name", ["area_ce", "dice_loss", "binary_ce"])
-def test_unported_losses_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.compose_seg_loss(["cross_entropy", name], "roses", 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.compose_disp_loss(["smooth_grad"], "roses")
+# stacks that mix the losses ported in the eighth slice with the main path's;
+# dual_edge_reg needs the trailing ignore channel (cityscapes)
+MIXED_CASES = {
+    "area_ce_twice": (("cross_entropy", "lovasz_loss", "area_ce"), "roses"),
+    "binary_ce_first": (("binary_ce", "tversky_loss2", "categoricalNlll", "area_hinge"), "roses"),
+    "dual_edge_reg": (("dual_edge_reg", "ohm_loss", "cross_entropy", "diceEntropy"), "cityscapes"),
+    "dice_weighted": (("dice_loss", "area_ce", "tversky_loss", "categoricalNlll"), "kitti"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MIXED_CASES))
+def test_compose_seg_loss_mixed_stacks(case):
+    """The JAX order, weights and quirks (binary_ce hands the sigmoid on,
+    area_ce twice beside cross_entropy), with class weights on the
+    cityscapes/kitti cases; dual_edge_reg fed the uniform sample JAX draws
+    from the key it is given."""
+    losses, dataset = MIXED_CASES[case]
+    n = 2 if dataset == "roses" else 19
+    logits, labels = logits_and_labels(n, seed=13)
+    if dataset != "roses":
+        labels[np.random.default_rng(14).random(SHAPE) < 0.2] = 19
+    gt_full = np.eye(n + (dataset != "roses"), dtype=np.float32)[labels]
+    key = jax.random.PRNGKey(3)
+    uniform = torch.from_numpy(np.array(jax.random.uniform(key, SHAPE + (n,))))
+    weighted = dataset != "roses"
+    jfn = jdispatch.compose_seg_loss(losses, dataset, n, seg_weight=weighted)
+    tfn = tl.compose_seg_loss(losses, dataset, n, seg_weight=weighted)
+    compare(lambda x, g: jfn(x, g, key), lambda x, g: tfn(x, torch.from_numpy(g), uniform=uniform),
+            logits, gt_full)
 
 
 # every ported net, by output type: sdnet_mini_ext smallOutSeg, sdnet_mini
@@ -234,11 +260,41 @@ def test_make_losses_fn_matches_jax(net):
         assert loss_seg > head1.item() * (1 + 1e-3)
 
 
+@pytest.mark.parametrize("output_type", ["hanet", "multitask"])
+def test_make_losses_fn_hanet_and_multitask_match_jax(output_type):
+    """The flagship with -hanet 1 (head 2's stack as smallOutSeg's) and with
+    -multaskloss 1 (the means of the model's per-pixel Kendall terms ``mt``),
+    against the JAX package's ``make_losses_fn``, within 1e-5 relative."""
+    rng = np.random.default_rng(8)
+    out = {k: (2 * rng.standard_normal(SHAPE + (c,))).astype(np.float32)
+           for k, c in (("seg1", 2), ("seg2", 2), ("disp1", 1), ("disp2", 1))}
+    labels = rng.integers(0, 2, SHAPE)
+    batch = {"left": rng.standard_normal(SHAPE + (3,), dtype=np.float32),
+             "seg": np.eye(2, dtype=np.float32)[labels],
+             "disp": rng.random(SHAPE + (1,), dtype=np.float32)}
+    mt = (rng.random(SHAPE + (1,), dtype=np.float32), rng.random(SHAPE, dtype=np.float32),
+          rng.random(SHAPE, dtype=np.float32))
+    jcfg, tcfg = loss_configs("sdnet_mini_ext")
+    for cfg in (jcfg, tcfg):
+        setattr(cfg.model, "hanet" if output_type == "hanet" else "multaskloss", 1)
+    assert tcfg.model.output_type == jcfg.model.output_type == output_type
+    jout = {k: jnp.asarray(v) for k, v in out.items()}
+    tout = {k: torch.from_numpy(v) for k, v in out.items()}
+    if output_type == "multitask":
+        jout["mt"] = tuple(jnp.asarray(t) for t in mt)
+        tout["mt"] = tuple(torch.from_numpy(t) for t in mt)
+    ref_loss, ref_logs = jax_make_losses_fn(jcfg)(
+        jout, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    _, logs = make_losses_fn(tcfg)(tout, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(logs) == set(ref_logs)
+    for k, v in logs.items():
+        assert abs(v.item() - float(ref_logs[k])) <= REL * abs(float(ref_logs[k])), (k, v, ref_logs[k])
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("net", "sdnet_seg", "12.7"), ("net", "dsnet_warp", "12.7"), ("net", "dsnet_warp_disp", "12.7"),
     ("net", "dsnet_warp_disp_consist", "12.7"), ("net", "sdnet_mini_ext_edge", "12.7"),
-    ("net", "deeplab", "12.7"), ("net", "pspnet", "12.7"), ("hanet", True, "12.4"),
-    ("multaskloss", 1, "12.7"),
+    ("net", "deeplab", "12.7"), ("net", "pspnet", "12.7"),
 ])
 def test_unported_output_types_raise(field, value, item):
     _, cfg = loss_configs("sdnet_mini_ext")

@@ -61,3 +61,23 @@ def test_avg_pool(window):
     np.testing.assert_allclose(_port(tr.avg_pool, x, window, window),
                                np.asarray(jr.avg_pool(jnp.asarray(x), window, window)),
                                rtol=0, atol=TOL)
+
+
+# align_corners=True: the 1x1 map of ASPP's pooled branch (a broadcast), then
+# up, down and mixed sizes; the same gather-and-lerp arithmetic as the JAX op
+@pytest.mark.parametrize("in_hw,size", [((1, 1), (9, 14)), ((1, 1), (32, 60)), ((12, 20), (23, 41)),
+                                        ((12, 20), (5, 7)), ((12, 20), (1, 1))])
+def test_resize_bilinear_align_corners(in_hw, size):
+    x = _x(5, (2,) + in_hw + (3,))
+    np.testing.assert_allclose(_port(tr.resize_bilinear_align_corners, x, size),
+                               np.asarray(jr.resize_bilinear_align_corners(jnp.asarray(x), size)),
+                               rtol=0, atol=TOL)
+
+
+def test_adaptive_avg_pool():
+    x = _x(6, (2, 9, 14, 4))
+    np.testing.assert_allclose(_port(tr.adaptive_avg_pool, x, (1, 1)),
+                               np.asarray(jr.adaptive_avg_pool(jnp.asarray(x), (1, 1))),
+                               rtol=0, atol=TOL)
+    with pytest.raises(NotImplementedError):
+        tr.adaptive_avg_pool(torch.zeros(1, 1, 4, 4), (2, 2))

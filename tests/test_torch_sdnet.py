@@ -148,14 +148,32 @@ def test_entry_points_need_a_card_unless_told_cpu(flagship):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("aspp", 1), ("hanet", True), ("multaskloss", 1), ("conv_deconv_out", 1), ("edges", True),
-    ("use_att", False), ("ablation", ("no_dec1",)), ("backbone", "dn169"),
+    ("edges", True), ("backbone", "dn169"), ("backbone", "mobilenet"), ("backbone", "resnet50"),
 ])
 def test_unported_options_raise(field, value):
     cfg = PMTConfig()
     setattr(cfg.model, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodels.get_network(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("aspp", 1), ("hanet", True), ("multaskloss", 1), ("conv_deconv_out", 1), ("use_att", False),
+    ("ablation", ("no_dec1",)),
+])
+def test_ported_options_build_and_serve(field, value):
+    """Each option alone builds at reduced depth and serves 1x32x64: finite
+    outputs of the flagship's shapes (parity with the JAX model:
+    test_torch_sdnet_options.py)."""
+    cfg = PMTConfig()
+    setattr(cfg.model, field, value)
+    g = torch.Generator().manual_seed(0)
+    left, right = torch.randn(1, 32, 64, 3, generator=g), torch.randn(1, 32, 64, 3, generator=g)
+    with reduced_depth():
+        port = tmodels.get_network(cfg, device="cpu")
+    with torch.inference_mode():
+        out = port(left, right)
+    assert all(torch.isfinite(out[k]).all() and out[k].shape[:3] == (1, 32, 64) for k in OUTPUTS)
 
 
 def test_train_mode_forward_per_view_batch_norm(flagship):

@@ -11,7 +11,9 @@ a 4+3-image roses fixture of 64x128, at ``-b 2``, with the eval bucket at
   ``model_best_IOU{x}_Derr{y}``), and ``max_to_keep`` keeps the newest.
 * The eval CLI's mean±std summary is the same at ``-b 2`` and ``-b 3``
   (a padded tail either way) within 1e-5 relative in fp32.
-* What is not ported raises ``NotImplementedError`` naming its ROADMAP item.
+* A reference ``.pth.tar``, ``-pretrained_path``, ``-multaskloss 1`` and
+  ``-hanet 1`` run through the eval CLI; what is not ported raises
+  ``NotImplementedError`` naming its ROADMAP item.
 """
 import os
 import re
@@ -134,17 +136,51 @@ def test_eval_cli_is_batch_invariant(runs):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("-pretrained_path dn121.pth", "11.3"),
-    ("-load_weights model.pth.tar", "11.3"),
     ("-tta 1", "12.7"),
-    ("-multaskloss 1", "12.7"),
-    ("-hanet 1", "12.4"),
     ("-net deeplab", "12"),
 ])
 def test_unported_options_name_their_items(fixture_argv, extra, item):
     root, argv = fixture_argv
     with pytest.raises(NotImplementedError, match=re.escape(f"(ROADMAP.md queue 1, item {item})")):
         run(argv + ["-train", "0", "-w_savePath", str(root / "x")] + extra.split())
+
+
+@pytest.mark.parametrize("extra", ["-pretrained_path", "-load_weights", "-multaskloss 1", "-hanet 1"])
+def test_ported_options_run_through_the_eval_cli(fixture_argv, tmp_path, extra):
+    """The eval CLI with a torchvision densenet as ``-pretrained_path`` (the
+    trunk's tensors are the file's), a reference ``.pth.tar`` (``module.``
+    prefix, ``state_dict`` wrapper) as ``-load_weights`` (every tensor is
+    the file's), ``-multaskloss 1`` (the loss columns are the per-row means
+    of the Kendall terms) and ``-hanet 1``: finite summaries."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import
+
+    root, argv = fixture_argv
+    argv = argv + ["-train", "0", "-w_savePath", str(root / "x")]
+    with reduced_depth():
+        source = models.get_network(config_from_args(argv), device="cpu", seed=7)
+    if extra == "-pretrained_path":
+        path = str(tmp_path / "densenet.pth")
+        torch.save({"features." + k: v for k, v in source.features.backbone.state_dict().items()}, path)
+        argv += [extra, path]
+    elif extra == "-load_weights":
+        path = str(tmp_path / "model.pth.tar")
+        ref = torch_import.export_state_dict(
+            source, torch_import.entries_for(config_from_args(argv), source))
+        torch.save({"state_dict": {"module." + k: v for k, v in ref.items()}, "epoch": 3}, path)
+        argv += [extra, path]
+    else:
+        argv += extra.split()
+    session = run(argv)
+    assert session.accumulator.rows and all(np.isfinite(v) for v in session.eval_summary.values())
+    got, want = session.model.state_dict(), source.state_dict()
+    if extra == "-pretrained_path":
+        assert all(torch.equal(got[k], want[k]) for k in want if k.startswith("features.backbone."))
+    if extra == "-load_weights":
+        assert all(torch.equal(got[k], v) for k, v in want.items())
+    if extra == "-multaskloss 1":
+        rows = session.accumulator.rows
+        assert all(r["loss"] == pytest.approx(r["loss_seg"] + r["loss_disp"]) for r in rows)
 
 
 def test_session_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -1,5 +1,6 @@
 """Helpers shared by the PyTorch port's parity tests (``test_torch_*.py``).
 
+* ``OPTION_CONFIGS`` names the flagship family's option configurations.
 * ``reduced_depth()`` runs the densenet121 trunk at block config (2, 2, 2, 2)
   in both packages (the registry entry "densenet" of each), so a JAX
   reference of a whole net traces and compiles in seconds. Widths, heads,
@@ -53,6 +54,19 @@ from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import tver
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import densenet as jd
 
 REDUCED_BLOCKS = (2, 2, 2, 2)
+# the flagship family's options, combined where the flags allow (name ->
+# (net, model options)): the configurations of test_torch_sdnet_options.py
+# and test_torch_pth_import.py
+OPTION_CONFIGS = {
+    "v2_aspp1_no_dec1": ("sdnet_mini_ext_v2", {"aspp": 1, "ablation": ("no_dec1",)}),
+    "piramid_att0_cdo2_hanet1": ("sdnet_mini_ext_piramid", {
+        "use_att": False, "conv_deconv_out": 2, "hanet": True, "hanet_is_encoding": 1}),
+    "piramid_res_no_dec3_cdo1_hanet0": ("sdnet_mini_ext_piramid_res", {
+        "ablation": ("no_dec3",), "conv_deconv_out": 1, "hanet": True, "hanet_is_encoding": 0}),
+    "aspp2": ("sdnet_mini_ext", {"aspp": 2}),
+    "multitask1": ("sdnet_mini_ext", {"multaskloss": 1}),
+    "multitask2": ("sdnet_mini_ext", {"multaskloss": 2}),
+}
 ADAM_B1 = 0.9  # optax.adam's default, the JAX package's Adam
 TORCH_THREADS = 2
 
@@ -82,8 +96,30 @@ def torch_threads():
     torch.set_num_threads(before)
 
 
-_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _to_flax_layout(a):
+    """A port tensor in flax's layout: conv kernels OIHW -> HWIO, Conv1d
+    kernels OIk -> (k, I, O)."""
+    if a.ndim == 4:
+        return a.transpose(2, 3, 1, 0)
+    return a.transpose(2, 1, 0) if a.ndim == 3 else a
+
+
+def _from_flax_layout(a):
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    return a.transpose(2, 1, 0) if a.ndim == 3 else a
+
+
+def _port_key(keys, names):
+    """The port's name of a flax leaf path (without its collection); a
+    leaf that is none of ``names`` is a free parameter (log_var_disp)."""
+    if keys[-1] in names:
+        return ".".join(keys[:-1] + [names[keys[-1]]])
+    return ".".join(keys)
 
 
 def variables_from_port(port: torch.nn.Module, init, *args) -> dict:
@@ -94,8 +130,7 @@ def variables_from_port(port: torch.nn.Module, init, *args) -> dict:
     def leaf(path, shape):
         keys = [k.key for k in path]
         names = _LEAVES if keys[0] == "params" else _STATS
-        a = state[".".join(keys[1:-1] + [names[keys[-1]]])].detach().numpy()
-        a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+        a = _to_flax_layout(state[_port_key(keys[1:], names)].detach().numpy())
         assert a.shape == shape.shape, (keys, a.shape, shape.shape)
         return np.array(a, np.float32)
 
@@ -111,36 +146,40 @@ def flax_to_port(tree) -> dict:
             if isinstance(v, dict) or hasattr(v, "items"):
                 walk(v, path + (k,))
             else:
-                a = np.asarray(v, np.float64)
-                out[".".join(path + (_LEAVES[k],))] = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+                out[_port_key(list(path + (k,)), _LEAVES)] = _from_flax_layout(np.asarray(v, np.float64))
     walk(tree, ())
     return out
 
 
 
-def check_per_view_batch_norm(port, left, right, head_bn):
+def check_per_view_batch_norm(port, left, right, head_bn, per_view_bn=(), **inputs):
     """Run ``port`` (an eval-mode net, left unchanged) in train mode on the
     NHWC numpy images and check that it runs the trunk once per view, left
     then right: each pass normalises by its own view's batch statistics and
     moves the running statistics, so they move twice in that order (flax
     momentum 0.9, biased variance), while ``head_bn`` (the name of a head's
-    BatchNorm) moves once. Returns the outputs."""
+    BatchNorm) moves once. The BatchNorms named in ``per_view_bn`` (a module
+    shared by both views, e.g. aspp 2's ASPP) move twice, as the trunk's do.
+    ``inputs`` are the model's keyword inputs. Returns the outputs."""
     port = copy.deepcopy(port).train()
-    trunk_bn, head_bn = port.features.backbone.norm0, port.get_submodule(head_bn)
-    seen = {"trunk": [], "head": []}
-    for key, bn in (("trunk", trunk_bn), ("head", head_bn)):
+    bns = {"trunk": port.features.backbone.norm0, "head": port.get_submodule(head_bn)}
+    bns.update((name, port.get_submodule(name)) for name in per_view_bn)
+    seen = {key: [] for key in bns}
+    for key, bn in bns.items():
         bn.register_forward_pre_hook(lambda m, args, key=key: seen[key].append(args[0].detach().clone()))
-    before = {k: (bn.running_mean.clone(), bn.running_var.clone())
-              for k, bn in (("trunk", trunk_bn), ("head", head_bn))}
-    out = port(torch.from_numpy(left), torch.from_numpy(right))
+    before = {k: (bn.running_mean.clone(), bn.running_var.clone()) for k, bn in bns.items()}
+    out = port(torch.from_numpy(left), torch.from_numpy(right), **inputs)
     nb = left.shape[0]
     assert [x.shape[0] for x in seen["trunk"]] == [nb, nb]  # L, then R
     assert [x.shape[0] for x in seen["head"]] == [nb]
-    for key, bn in (("trunk", trunk_bn), ("head", head_bn)):
+    for name in per_view_bn:
+        assert [x.shape[0] for x in seen[name]] == [nb, nb]
+    for key, bn in bns.items():
         mean, var = before[key]
         for x in seen[key]:
-            mean = 0.9 * mean + 0.1 * x.mean(dim=(0, 2, 3))
-            var = 0.9 * var + 0.1 * x.var(dim=(0, 2, 3), unbiased=False)
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = 0.9 * mean + 0.1 * x.mean(dim=dims)
+            var = 0.9 * var + 0.1 * x.var(dim=dims, unbiased=False)
         torch.testing.assert_close(bn.running_mean, mean, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(bn.running_var, var, rtol=1e-5, atol=1e-6)
     # the left view's pass is the model's conv0 on the left image
