@@ -81,7 +81,24 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    on the card against the CPU within ``LOSS_RTOL`` and trains one step;
    the aspp-2 flagship's weights written in the reference's ``.pth.tar``
    layout restore through the eval CLI bit-equal (weights and bf16
-   outputs), and ``-pretrained_path`` grafts a torchvision densenet121.
+   outputs), and ``-pretrained_path`` grafts a torchvision densenet121;
+10. the zoo's trunks and the nets built on them at full width and depth:
+   phase 2 above also holds corr1d and its backward at the trunks' sites
+   (``TRUNK_SITES``: C = 480, 608, 1024, 136 at the serving and training
+   shapes, 144-160 at the training shape) and corr2d's at 608 and 1024,
+   both dtypes, printing the plan each bf16 launch takes and timing the
+   serving-shape forwards against their byte bounds. The flagship on
+   resnet101 and ``sdnet_mini_ext_dlab`` serve 16
+   pairs of 512x960 (corr1d once a batch) and train at 8x256x512 (corr1d
+   and its backward once a step); every other trunk under the flagship
+   (``OTHER_TRUNKS``) runs its fp32 forward card vs CPU, one bf16 train
+   step and one timed serving batch; the Ext_small nets, ``-edges`` on
+   the flagship and ``sdnetv2`` (batches with a sobel ``edges`` target)
+   and the dlab net with ``2dcorr`` run card vs CPU and one bf16 step,
+   each forward launching its correlation once and each step its backward
+   once too (phase 9's the same); a resnet101 flagship's ``.pth.tar`` restores
+   bit-equal through the eval CLI and ``-pretrained_path`` grafts a
+   MobileNetV3-Large in cuevhv's layout.
 
 The third-to-last line of stdout is a JSON object with one record per
 kernel, the second-to-last the card's name and power limit, and the last
@@ -99,7 +116,8 @@ four timed cases of phase 2, without the HMMA count).
 ``python3 chip_smoke.py --kernels`` runs phases 1 and 2 only and prints the
 kernels' record but no result line; ``python3 chip_smoke.py --files`` runs
 phase 8 only, ``--options`` phase 9 only (``--serve flagship_aspp2`` and
-``--train flagship_aspp2`` time that path alone).
+``--train flagship_aspp2`` time that path alone), ``--trunks`` phase 10
+only (``--serve dlab``, ``--train flagship_resnet101`` and the like).
 """
 from __future__ import annotations
 
@@ -130,11 +148,30 @@ H100_PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BATCH, H, W = 16, 512, 960          # the serving shape of the JAX package's bench
 CORR_SHAPE = (BATCH, H // 8, W // 8, 352)  # a_py2 / b_py2 at 512x960
 SMALL = (1, 64, 128, 3)
+# phase 10: the zoo's trunks and the nets built on them. The slice's two
+# full-width paths (the flagship on resnet101, corr1d at C = 608; the dlab
+# net, corr1d over ResNet-101's layer 3 at C = 1024), every other trunk
+# under the flagship, the Ext_small nets, -edges, and the dlab net with the
+# 17x17 correlation
+TRUNK_PATHS = {"flagship_resnet101": ("sdnet_mini_ext", {"backbone": "resnet101"}),
+               "dlab": ("sdnet_mini_ext_dlab", {})}
+OTHER_TRUNKS = ("dn169", "dn201", "dn161", "resnet50", "efficientnet-b2", "efficientnet-b3",
+                "efficientnet-b4", "efficientnet-b5", "mobilenet")
+EDGE_RUNS = {"ext_small": ("sdnet_mini_ext_small", {}),
+             "ext_small_edge": ("sdnet_mini_ext_small_edge", {}),
+             "ext_small_edgev2": ("sdnet_mini_ext_small_edgev2", {}),
+             "flagship_edges": ("sdnet_mini_ext", {"edges": True}),
+             "sdnetv2_edges": ("sdnetv2", {"edges": True}),
+             "dlab_2dcorr": ("sdnet_mini_ext_dlab", {"corr_type": "2dcorr"})}
+TRUNK_RUNS = {**TRUNK_PATHS, **{f"flagship_{b}": ("sdnet_mini_ext", {"backbone": b})
+                                for b in OTHER_TRUNKS}, **EDGE_RUNS}
 # net served -> (batches, each kernel's launches per batch): each path's own
 # kernel once per batch, the other never
 SERVE = {"sdnet_mini_ext": (4, {"corr1d": 1, "corr2d": 0}),
          "sdnet": (3, {"corr2d": 1, "corr1d": 0}),
-         "flagship_aspp2": (4, {"corr1d": 2, "corr2d": 0})}  # both corr1d sites
+         "flagship_aspp2": (4, {"corr1d": 2, "corr2d": 0}),  # both corr1d sites
+         **{run: (4, {"corr1d": 1, "corr2d": 0}) for run in TRUNK_PATHS}}
+TRUNK_SERVE_BATCHES = 2  # phase 10's other trunks: a warm-up and one timed batch
 SERVE_BATCHES = 10  # batches --serve serves, the first a warm-up
 # training: the JAX package's bench (bench.py:192-198)
 TRAIN_BATCH, TRAIN_H, TRAIN_W = 8, 256, 512
@@ -204,6 +241,21 @@ BACKWARD2_CASES = [
     ((1, 16, 70, 36), torch.float32, 1),    # inputs off 16-byte alignment
     ((1, 16, 17, 352), torch.float32, 2),
 ]
+# phase 2, the trunks' sites (phase 10's nets): corr1d correlates the
+# enriched tap 2 (the trunk's tap-2 channels + 96) at /8, and the dlab net
+# ResNet-101's layer 3 (1024 channels at /8); C -> the nets that bring it
+TRUNK_SITES = {480: "dn161", 608: "resnet50, resnet101", 1024: "sdnet_mini_ext_dlab",
+               136: "mobilenet", 144: "efficientnet-b2, -b3", 152: "efficientnet-b4",
+               160: "efficientnet-b5"}
+SITE_SERVE_CS = (480, 608, 1024, 136)          # held at the serving and training shapes
+SITE_TRAIN_CS = SITE_SERVE_CS + (144, 152, 160)  # at the training shape only
+SITE_CORR2D_CS = (608, 1024)                   # corr2d, training shape (the 2dcorr variants)
+
+
+def site_shape(c: int, serving: bool):
+    return (BATCH, H // 8, W // 8, c) if serving else (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, c)
+
+
 # backward kernel -> (wrapper, plain VJP, cases, the TPU code it replaces,
 # the name of its bf16 function)
 BACKWARDS = {
@@ -227,14 +279,16 @@ OPTIONS = {
     "multitask2": ("sdnet_mini_ext", {"multaskloss": 2}),
 }
 # run name -> (net, model options): the nets of phases 3-8 as they are, and
-# phase 9's
-RUNS = {"sdnet_mini_ext": ("sdnet_mini_ext", {}), "sdnet": ("sdnet", {}), **OPTIONS}
+# phases 9's and 10's
+RUNS = {"sdnet_mini_ext": ("sdnet_mini_ext", {}), "sdnet": ("sdnet", {}), **OPTIONS, **TRUNK_RUNS}
 # run trained -> each kernel's launches per step: its path's forward and
 # backward kernels once each (aspp 2: twice, its two corr1d sites), the
 # other correlation's never
 TRAIN = {"sdnet_mini_ext": {"corr1d": 1, "corr1d_backward": 1, "corr2d": 0, "corr2d_backward": 0},
          "sdnet": {"corr2d": 1, "corr2d_backward": 1, "corr1d": 0, "corr1d_backward": 0},
-         "flagship_aspp2": {"corr1d": 2, "corr1d_backward": 2, "corr2d": 0, "corr2d_backward": 0}}
+         "flagship_aspp2": {"corr1d": 2, "corr1d_backward": 2, "corr2d": 0, "corr2d_backward": 0},
+         **{run: {"corr1d": 1, "corr1d_backward": 1, "corr2d": 0, "corr2d_backward": 0}
+            for run in TRUNK_PATHS}}
 # phase 9's loss stacks with their datasets: between them every loss name
 # ported in the eighth slice (each stack is head 2's and the disparity
 # head's, as -loss sets them); dual_edge_reg reads the trailing ignore
@@ -339,6 +393,31 @@ def correlation_module():
 
 def wrapper(name: str):
     return getattr(correlation_module(), KERNELS[name][0])
+
+
+def counters() -> dict:
+    """The four wrappers whose ``launches`` count a train step's launches."""
+    correlation = correlation_module()
+    return {"corr1d": correlation.correlation1d_cuda,
+            "corr1d_backward": correlation.correlation1d_backward_cuda,
+            "corr2d": correlation.correlation2d_cuda,
+            "corr2d_backward": correlation.correlation2d_backward_cuda}
+
+
+def one_correlation(run: str, step: bool = False) -> dict:
+    """The launches of one card forward (``step``: one train step) of a run
+    of phases 9 and 10 other than the aspp-2 flagship: its correlation's
+    kernel once, and in a step its backward once; the other correlation's
+    kernels never. Multitask mode 2 takes both heads from a4 alone and
+    correlates nothing."""
+    m = run_config(run).model
+    corr = "corr2d" if m.corr_type == "2dcorr" else "corr1d"
+    other = "corr1d" if corr == "corr2d" else "corr2d"
+    n = 0 if m.multaskloss == 2 else 1
+    out = {corr: n, other: 0}
+    if step:
+        out.update({f"{corr}_backward": n, f"{other}_backward": 0})
+    return out
 
 
 def phase_build():
@@ -570,6 +649,95 @@ def phase_backward(name: str, sass, cases=None, autograd: bool = True):
     return record
 
 
+def byte_bound_ms(nbytes: float, ops: float, dtype):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over its peak for the dtype."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def plan_text(plan: dict) -> str:
+    return (f"{plan['stages']} stages x {plan['boxes_per_stage']} boxes, f1 "
+            f"{'resident' if plan['f1_resident'] else 'staged'}, {plan['smem_bytes']} B")
+
+
+def site_cases(name: str):
+    """(shape, dtype) of ``name``'s cases at the trunks' sites."""
+    if name == "corr2d":
+        shapes = [site_shape(c, False) for c in SITE_CORR2D_CS]
+    else:
+        shapes = ([site_shape(c, True) for c in SITE_SERVE_CS]
+                  + [site_shape(c, False) for c in SITE_TRAIN_CS])
+    return [(shape, dtype) for shape in shapes for dtype in (torch.float32, torch.bfloat16)]
+
+
+def phase_sites(name: str) -> list:
+    """Phase 2 at the trunks' sites (``TRUNK_SITES``): the forward kernel
+    ``name`` and its backward against their plain versions in fp32 and bf16
+    (corr1d at the serving and training shapes, corr2d at the training
+    shape); each bf16 forward's plan (``forward_plan``) printed; the bf16
+    forward at corr1d's serving shapes and corr2d's training shapes timed, a
+    launch alone (warm) and back to back, against its byte bound; each bf16
+    backward timed alone with the L2 flushed. Returns one record a case."""
+    correlation = correlation_module()
+    patch = correlation.KERNEL_PATCH[name]
+    arg = patch[1] if name == "corr1d" else patch
+    fn = wrapper(name)
+    bwd_name, plain_bwd, *_ = BACKWARDS[name]
+    bwd = getattr(correlation, bwd_name)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    records = []
+    for shape, dtype in site_cases(name):
+        tag = f"[{name} site {TRUNK_SITES[shape[-1]]}] {tuple(shape)} {str(dtype)[6:]}"
+        f1, f2 = (inputs(shape, dtype, g) for _ in range(2))
+        out = fn(f1, f2, arg)
+        ref = correlation.correlation_plain(f1, f2, patch)
+        check(out.shape == ref.shape and out.dtype == dtype, f"{tag} shape/dtype")
+        err = (out.float() - ref.float()).abs().max().item()
+        bound = tol[dtype] * ref.float().abs().max().item()
+        print(f"{tag}: forward max|d| = {err:.6g} (tolerance {bound:.6g})", flush=True)
+        check(err <= bound, f"{tag}: forward max|d| {err} > {bound}")
+        rec = {"shape": list(shape), "dtype": str(dtype)[6:], "site": TRUNK_SITES[shape[-1]],
+               "max_abs_err": err}
+        del out, ref
+        grad = inputs(tuple(shape[:3]) + (patch[0] * patch[1],), dtype, g)
+        got = bwd(f1, f2, grad)
+        want = getattr(correlation, plain_bwd)(f1, f2, grad, arg)
+        errs = []
+        for k, a, b in (("df1", got[0], want[0]), ("df2", got[1], want[1])):
+            check(a.shape == b.shape == f1.shape and a.dtype == dtype, f"{tag} backward {k}")
+            e = (a.float() - b.float()).abs().max().item()
+            bd = tol[dtype] * b.float().abs().max().item()
+            check(e <= bd, f"{tag}: backward {k} max|d| {e} > {bd}")
+            errs.append(e / bd if bd else 0.0)
+        print(f"{tag}: backward df1, df2 within tolerance ({max(errs):.3g} of it at most)", flush=True)
+        rec["backward_err_share_of_tolerance"] = max(errs)
+        del got, want
+        if dtype == torch.bfloat16:
+            rec["plan"] = correlation.forward_plan(name, shape[-1])
+            nbytes = (f1.numel() + f2.numel() + f1.numel() // shape[-1] * patch[0] * patch[1]) * 2
+            ops = 2 * f1.numel() * patch[0] * patch[1]
+            rec["bound_ms"], rec["bound_by"] = byte_bound_ms(nbytes, ops, dtype)
+            line = f"{tag}: plan {plan_text(rec['plan'])}; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+            if name == "corr2d" or shape[0] == BATCH:
+                launch = lambda: fn(f1, f2, arg)
+                rec["ms"], _ = event_time_ms(launch, 30, flush=False)
+                rec["ms_back_to_back"] = cuda_time_ms(launch, iters=30)
+                line += (f"; {rec['ms']:.4f} ms a launch alone ({rec['bound_ms'] / rec['ms']:.1%} "
+                         f"of the bound), {rec['ms_back_to_back']:.4f} back to back")
+            # the backward: read f1, f2, g once, write df1, df2 once
+            bbytes = (4 * f1.numel() + grad.numel()) * 2
+            rec["backward_bound_ms"], _ = byte_bound_ms(bbytes, 2 * ops, dtype)
+            rec["backward_ms_flushed"], _ = event_time_ms(lambda: bwd(f1, f2, grad), 20, flush=True)
+            line += (f"; backward {rec['backward_ms_flushed']:.4f} ms flushed (bound "
+                     f"{rec['backward_bound_ms']:.4f}, {rec['backward_bound_ms'] / rec['backward_ms_flushed']:.1%})")
+            print(line, flush=True)
+        records.append(rec)
+        del f1, f2, grad
+    return records
+
+
 def config(net: str, corr_type: str = "1dcorr", bf16: bool = False, options: dict = None):
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
 
@@ -586,6 +754,19 @@ def run_config(run: str, bf16: bool = False):
     """The config of a run of ``RUNS`` (a net and its model options)."""
     net, options = RUNS[run]
     return config(net, bf16=bf16, options=options)
+
+
+def trunk_name(cfg) -> str:
+    """The trunk a config's net runs on, for the printed lines."""
+    if cfg.model.net == "sdnet_mini_ext_dlab":
+        return "resnet101 (3x3x3 stem, output stride 8)"
+    return {"densenet": "densenet121"}.get(cfg.model.backbone, cfg.model.backbone)
+
+
+def needs_edges(cfg) -> bool:
+    """Whether the net reads the batch's sobel ``edges`` (-edges, the edge
+    nets' loss)."""
+    return bool(cfg.model.edges) or cfg.model.output_type == "edgeOut"
 
 
 def phase_small_forward(net: str, corr_type: str):
@@ -605,20 +786,37 @@ def phase_small_forward(net: str, corr_type: str):
         check(err <= bound, f"small forward {net} {corr_type} {k}: {err} > {bound}")
 
 
-def train_batch(shape, g, device, dataset: str = "roses"):
-    """A random batch (images, one-hot labels, disparity) of ``shape`` (B, H,
-    W) from the generator ``g``: roses' 2 classes, or cityscapes' 19 and its
-    ignore channel (a fifth of the pixels)."""
+def sobel_target(shape, g, device):
+    """(B, H, W, 1) binary edge maps as the loader makes them: the port's
+    ``sobel_edges`` of an instance map, here blocks of 16x16 pixels with
+    random ids."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.ops.edges import sobel_edges
+
+    b, h, w = shape
+    ids = torch.randint(0, 6, (b, -(-h // 16), -(-w // 16)), generator=g, device=g.device).cpu()
+    inst = ids.repeat_interleave(16, 1).repeat_interleave(16, 2)[:, :h, :w].numpy()
+    edges = np.stack([sobel_edges(m) for m in inst])[..., None]
+    return torch.from_numpy(edges).to(device)
+
+
+def train_batch(shape, g, device, dataset: str = "roses", edges: bool = False):
+    """A random batch (images, one-hot labels, disparity; with ``edges``, a
+    sobel edge map, ``sobel_target``) of ``shape`` (B, H, W) from the
+    generator ``g``: roses' 2 classes, or cityscapes' 19 and its ignore
+    channel (a fifth of the pixels)."""
     n = 2 if dataset == "roses" else 19
     labels = torch.randint(0, n, shape, device=device, generator=g)
     if dataset != "roses":
         ignore = torch.rand(shape, device=device, generator=g) < 0.2
         labels = torch.where(ignore, torch.full_like(labels, n), labels)
         n += 1
-    return {"left": torch.randn(shape + (3,), device=device, generator=g),
-            "right": torch.randn(shape + (3,), device=device, generator=g),
-            "seg": torch.nn.functional.one_hot(labels, n).float(),
-            "disp": torch.rand(shape + (1,), device=device, generator=g)}
+    batch = {"left": torch.randn(shape + (3,), device=device, generator=g),
+             "right": torch.randn(shape + (3,), device=device, generator=g),
+             "seg": torch.nn.functional.one_hot(labels, n).float(),
+             "disp": torch.rand(shape + (1,), device=device, generator=g)}
+    if edges:
+        batch["edges"] = sobel_target(shape, g, device)
+    return batch
 
 
 def train_setup(run: str, device: str, bf16: bool, freeze_bn: bool = False,
@@ -817,11 +1015,7 @@ def phase_train(net: str, n_warmup: int, n_steps: int, card: str):
     """Train ``net`` at full width (bf16 policy, the bench loss stack, Adam);
     returns each kernel's launches in the timed steps, the counts set to 0
     just before them."""
-    correlation = correlation_module()
-    kernels = {"corr1d": correlation.correlation1d_cuda,
-               "corr1d_backward": correlation.correlation1d_backward_cuda,
-               "corr2d": correlation.correlation2d_cuda,
-               "corr2d_backward": correlation.correlation2d_backward_cuda}
+    kernels = counters()
     expect = TRAIN[net]
     _, state, step = train_setup(net, "cuda", bf16=True)
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -850,7 +1044,7 @@ def phase_train(net: str, n_warmup: int, n_steps: int, card: str):
               f"expected {per_step} per step")
     timed = times[n_warmup:]
     ms = 1e3 * sum(timed) / len(timed)
-    print(f"[train {net}] densenet121 bf16, CE + Lovasz + MultiTversky + OHEM, Adam, "
+    print(f"[train {net}] {trunk_name(run_config(net))} bf16, CE + Lovasz + MultiTversky + OHEM, Adam, "
           f"{TRAIN_BATCH} pairs of {TRAIN_H}x{TRAIN_W}: {ms:.2f} ms/step, "
           f"{TRAIN_BATCH / ms * 1e3:.2f} training pairs/s over {len(timed)} steps (per step: "
           f"{', '.join(f'{1e3 * t:.2f}' for t in times)} ms, the first {n_warmup} warm-ups); "
@@ -917,7 +1111,7 @@ def phase_serve(net: str, n_batches: int, expect: dict):
     timed = times[1:]
     ms = 1e3 * sum(timed) / len(timed)
     print(f"[serve {net}] metrics of the last batch: {json.dumps(metrics)}", flush=True)
-    print(f"[serve {net}] densenet121 bf16, {BATCH} pairs of {H}x{W}: "
+    print(f"[serve {net}] {trunk_name(cfg)} bf16, {BATCH} pairs of {H}x{W}: "
           f"{ms:.2f} ms/batch, {BATCH / ms * 1e3:.2f} pairs/s over {len(timed)} batches "
           f"(per batch: {', '.join(f'{1e3 * t:.2f}' for t in times)} ms, the first a warm-up); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
@@ -1107,48 +1301,64 @@ def phase_files(card: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_option_forward(run: str) -> None:
-    """Phase 9: the eval forward of a configuration on the card against the
-    CPU at 1x64x128 in fp32, through ``make_forward_fn`` (HANet's grids and
-    the multitask ground truth come from the batch), each output and each
-    multitask term within 1e-3 * max|ref|."""
+def phase_option_forward(run: str, tag: str = "options", expect: dict = None) -> None:
+    """Phases 9 and 10: the eval forward of a configuration on the card
+    against the CPU at 1x64x128 in fp32, through ``make_forward_fn``
+    (HANet's grids, the multitask ground truth, the edge map and the edge
+    nets' ``left_e`` come from the batch), each output and each multitask
+    term within 1e-3 * max|ref|; ``expect`` (kernel -> launches), the card
+    forward's launches, the counts set to 0 just before it."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_forward_fn
 
     cfg = run_config(run)
-    batch = train_batch(SMALL[:3], torch.Generator().manual_seed(1), "cpu")
+    batch = train_batch(SMALL[:3], torch.Generator().manual_seed(1), "cpu", edges=needs_edges(cfg))
     outs = {}
     for device in ("cpu", "cuda"):
         model = models.get_network(cfg, device=device, seed=0)
+        forward = make_forward_fn(cfg, model, device)
+        for name in (expect or {}):
+            wrapper(name).launches = 0
         with torch.inference_mode():
-            outs[device] = make_forward_fn(cfg, model, device)(batch)
+            outs[device] = forward(batch)
+    launches = {name: wrapper(name).launches for name in (expect or {})}
+    check(launches == (expect or {}), f"[{tag} {run}] card forward launches {launches}, "
+          f"expected {expect}")
     ref, got = outs["cpu"], outs["cuda"]
-    check(set(got) == set(ref), f"[options {run}] outputs {sorted(got)} vs {sorted(ref)}")
+    check(set(got) == set(ref), f"[{tag} {run}] outputs {sorted(got)} vs {sorted(ref)}")
     pairs = [(k, got[k], ref[k]) for k in ref if k != "mt"]
     pairs += [(f"mt[{i}]", a, b) for i, (a, b) in enumerate(zip(got.get("mt", ()), ref.get("mt", ())))]
     worst = []
     for k, a, b in pairs:
         err = (a.cpu() - b).abs().max().item()
         bound = 1e-3 * b.abs().max().item()
-        check(err <= bound, f"[options {run}] forward {k}: card vs CPU max|d| {err} > {bound}")
+        check(err <= bound, f"[{tag} {run}] forward {k}: card vs CPU max|d| {err} > {bound}")
         worst.append((err / bound if bound else 0.0, k))
-    print(f"[options {run}] 1x64x128 fp32 forward, card vs CPU: {len(pairs)} outputs within "
-          f"1e-3 * max|ref|; the closest to its bound: {max(worst)[1]} at {max(worst)[0]:.3g} of it",
-          flush=True)
+    print(f"[{tag} {run}] {trunk_name(cfg)}, 1x64x128 fp32 forward, card vs CPU: {len(pairs)} "
+          f"outputs within 1e-3 * max|ref|; the closest to its bound: {max(worst)[1]} at "
+          f"{max(worst)[0]:.3g} of it" + (f"; launches {launches}" if launches else ""), flush=True)
 
 
 def finite_step(run: str, losses=TRAIN_LOSSES, tag: str = None, dataset: str = "roses") -> float:
     """One bf16 train step of the run at 8x256x512 on the card (Adam):
-    finite loss, metrics and gradients; returns its ms (the first step of a
-    model, so with cuDNN's first calls)."""
+    finite loss, metrics and gradients, and its correlation's forward and
+    backward kernels launched once each (``one_correlation``, the counts set
+    to 0 just before the step); returns its ms (the first step of a model,
+    so with cuDNN's first calls)."""
     model, state, step = train_setup(run, "cuda", bf16=True, losses=losses, dataset=dataset)
     batch = train_batch((TRAIN_BATCH, TRAIN_H, TRAIN_W), torch.Generator(device="cuda").manual_seed(8),
-                        "cuda", dataset)
+                        "cuda", dataset, edges=needs_edges(run_config(run)))
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
     t0 = time.perf_counter()
     _, metrics = step(state, batch)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
+    launches = {name: k.launches for name, k in kernels.items()}
     tag = tag or f"[options {run}]"
+    check(launches == one_correlation(run, step=True),
+          f"{tag} train step launches {launches}, expected {one_correlation(run, step=True)}")
     check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
           f"{tag} train step: a metric or loss is not finite: {metrics}")
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -1156,7 +1366,7 @@ def finite_step(run: str, losses=TRAIN_LOSSES, tag: str = None, dataset: str = "
           f"{tag} train step: a gradient is not finite")
     print(f"{tag} one bf16 train step, {TRAIN_BATCH} pairs of {TRAIN_H}x{TRAIN_W}, losses "
           f"{'+'.join(losses)}: loss {metrics['loss'].item():.6g}, {len(grads)} finite gradient "
-          f"tensors, {ms:.1f} ms (first step)", flush=True)
+          f"tensors, {ms:.1f} ms (first step); launches {launches}", flush=True)
     del model, state, step
     return ms
 
@@ -1289,12 +1499,122 @@ def phase_options(card: str) -> dict:
     serve = phase_serve("flagship_aspp2", *SERVE["flagship_aspp2"])
     train = phase_train("flagship_aspp2", TRAIN_WARMUP, TRAIN_STEPS, card)
     for run in OPTIONS:
-        phase_option_forward(run)
+        phase_option_forward(run, expect=SERVE["flagship_aspp2"][1] if run == "flagship_aspp2"
+                             else one_correlation(run))
         if run != "flagship_aspp2":  # trained above
             finite_step(run)
     for stack, dataset in LOSS_STACKS:
         phase_loss_stack(stack, dataset)
     return {"serve": serve, "train": train, "restore": phase_restore(card)}
+
+
+def phase_trunk_restore(card: str) -> dict:
+    """Phase 10: a resnet101 flagship's seeded weights (seed 7) written in
+    the reference's ``.pth.tar`` layout (the port's importer inverted: the
+    dilated ResNet's ``conv1``/``layer{l}.{b}`` keys, ``aspp_4``) restore
+    through the eval CLI bit-equal (weights and bf16 outputs); then
+    ``-pretrained_path`` grafts a MobileNetV3-Large in cuevhv's layout
+    (``features.N``, a classifier ignored) into a mobilenet flagship's trunk.
+    Returns the eval's launches."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.mobilenetv3 import (
+        MobileNetV3LargeFeatures,
+    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
+        Session,
+        make_forward_fn,
+    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import
+
+    kernels = {name: wrapper(name) for name in ("corr1d", "corr2d")}
+    kernels.update((f"{name}_backward", getattr(correlation_module(), fn))
+                   for name, (fn, *_) in BACKWARDS.items())
+    tmp = tempfile.mkdtemp(prefix="pmt_trunk_restore_")
+    try:
+        cfg = run_config("flagship_resnet101", bf16=True)
+        source = models.get_network(cfg, seed=7)
+        ref = torch_import.export_state_dict(source, torch_import.entries_for(cfg, source))
+        check("aspp_4.conv1.weight" in ref and
+              "resnet_features.resnet_features.layer3.22.conv3.weight" in ref,
+              "trunk restore: the reference dict lacks ResNet-101's or aspp_4's keys")
+        path = os.path.join(tmp, "flagship_resnet101.pth.tar")
+        torch.save({"state_dict": {"module." + k: v for k, v in ref.items()}, "epoch": 0}, path)
+        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=2, n_test=2, hw=(256, 512), seed=0)
+        data = []
+        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
+                          ("-inst", "inst")):
+            data += [flag, m[key], flag + "_test", m[key + "_t"]]
+        argv = data + FILES_TRAIN + ["-backbone", "resnet101", "-train", "0", "-b", "2",
+                                     "-load_weights", path, "-w_savePath", os.path.join(tmp, "runs")]
+        session, _, launches = cli_run(argv, kernels)
+        check(session.cfg.model.backbone == "resnet101", "trunk restore: the CLI's backbone")
+        hold_cli_launches("[trunk restore eval]", session, launches)
+        mine, theirs = session.model.state_dict(), source.state_dict()
+        check(set(mine) == set(theirs), "trunk restore: other tensor names")
+        for k, v in theirs.items():
+            check(k.endswith("num_batches_tracked") or torch.equal(mine[k], v),
+                  f"trunk restore: {k} differs")
+        batch = train_batch((1, H, W), torch.Generator(device="cuda").manual_seed(12), "cuda")
+        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                                                benchmark=False, allow_tf32=False):
+            a = make_forward_fn(session.cfg, session.model)(batch)
+            b = make_forward_fn(session.cfg, source)(batch)
+        for k in ("seg1", "seg2", "disp1", "disp2"):
+            check(torch.equal(a[k], b[k]), f"trunk restore: output {k} differs from the source's")
+        print(f"[trunk restore] the resnet101 flagship from a reference-layout .pth.tar "
+              f"({len(ref)} tensors) through the eval CLI: every weight and statistic and the bf16 "
+              f"outputs at 1x{H}x{W} bit-equal to the source model's; launches {launches}; {card}",
+              flush=True)
+        del session, source
+
+        trunk = models.init_parameters(MobileNetV3LargeFeatures(), torch.Generator().manual_seed(9))
+        holder = torch.nn.Module()
+        holder.bb = trunk
+        sd = torch_import.export_state_dict(holder, torch_import.backbone_entries(trunk, "bb", ""))
+        sd.update({"classifier.0.weight": torch.zeros(1280, 960),
+                   "classifier.0.bias": torch.zeros(1280)})
+        mb_path = os.path.join(tmp, "mobilenetv3-large.pth")
+        torch.save(sd, mb_path)
+        cfg = run_config("flagship_mobilenet", bf16=True)
+        cfg.model.pretrained_path = mb_path
+        fresh = Session(cfg)
+        fresh.init_state()
+        got = fresh.model.features.backbone.state_dict()
+        names = [k for k in trunk.state_dict() if not k.endswith("num_batches_tracked")]
+        for k in names:
+            check(torch.equal(got[k].cpu(), trunk.state_dict()[k]), f"pretrained mobilenet: {k} differs")
+        print(f"[pretrained] -pretrained_path with a MobileNetV3-Large in cuevhv's layout "
+              f"({len(sd)} keys): all {len(names)} trunk tensors equal after the load", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_trunks(card: str) -> dict:
+    """Phase 10: the zoo's trunks and the nets built on them at full width
+    and depth. The flagship on resnet101 and the dlab net serve 16 pairs of
+    512x960 (corr1d once a batch) and train at 8x256x512 (corr1d and its
+    backward once a step); every other trunk under the flagship runs its
+    fp32 forward card vs CPU at 1x64x128, one bf16 train step and one timed
+    serving batch; the Ext_small nets, -edges on the flagship and sdnetv2,
+    and the dlab net with 2dcorr (corr2d once a forward) run card vs CPU
+    and one bf16 step; a resnet101 ``.pth.tar`` restores bit-equal and a
+    MobileNetV3-Large grafts. Returns the launches of each path."""
+    paths = {}
+    for run in TRUNK_PATHS:
+        paths[f"{run}_serve"] = phase_serve(run, *SERVE[run])
+        paths[f"{run}_train"] = phase_train(run, TRAIN_WARMUP, TRAIN_STEPS, card)
+    for b in OTHER_TRUNKS:
+        run = f"flagship_{b}"
+        phase_option_forward(run, "trunks", one_correlation(run))
+        finite_step(run, tag=f"[trunks {run}]")
+        phase_serve(run, TRUNK_SERVE_BATCHES, {"corr1d": 1, "corr2d": 0})
+    for run in EDGE_RUNS:
+        phase_option_forward(run, "trunks", one_correlation(run))
+        finite_step(run, tag=f"[trunks {run}]")
+    paths["restore"] = phase_trunk_restore(card)
+    return paths
 
 
 def main() -> int:
@@ -1313,6 +1633,10 @@ def main() -> int:
     ap.add_argument("--files", action="store_true",
                     help="only train, resume and evaluate the flagship from PNG files through "
                          "the CLI (phase 8)")
+    ap.add_argument("--trunks", action="store_true",
+                    help="only run the zoo's trunks and the nets built on them (phase 10): the "
+                         "resnet101 flagship and the dlab net serve and train, every other trunk, "
+                         "the Ext_small nets, -edges, the resnet101 .pth.tar restore")
     ap.add_argument("--options", action="store_true",
                     help="only run the flagship family's options (phase 9): the aspp-2 flagship "
                          "serves and trains, every other configuration and loss stack, the "
@@ -1328,10 +1652,12 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.serve or args.train or args.backward or args.files or args.options:
+    if args.serve or args.train or args.backward or args.files or args.options or args.trunks:
         try:
             if args.files:
                 phase_files(card)
+            elif args.trunks:
+                phase_trunks(card)
             elif args.options:
                 phase_options(card)
             elif args.serve:
@@ -1349,6 +1675,13 @@ def main() -> int:
         records = {name: phase_kernel(name, sass) for name in KERNELS}
         for name in BACKWARDS:
             records[f"{name}_backward"] = phase_backward(name, sass)
+        for name in KERNELS:  # the trunks' sites: each case's forward and backward
+            sites = phase_sites(name)
+            records[name]["trunk_sites"] = [
+                {k: v for k, v in r.items() if not k.startswith("backward")} for r in sites]
+            records[f"{name}_backward"]["trunk_sites"] = [
+                {k: v for k, v in r.items() if k in ("shape", "dtype", "site") or k.startswith("backward")}
+                for r in sites]
         if args.kernels:
             print(json.dumps({"kernels": list(records.values())}), flush=True)
             return 0
@@ -1376,6 +1709,14 @@ def main() -> int:
         records["corr1d"]["launches_aspp2_train"] = paths["train"]["corr1d"]
         records["corr1d"]["launches_aspp2_restore_eval"] = paths["restore"]["corr1d"]
         records["corr1d_backward"]["launches_aspp2_train"] = paths["train"]["corr1d_backward"]
+        # phase 10: the resnet101 flagship's and the dlab net's launches
+        # (corr1d at C = 608 and 1024) serving and training
+        paths = phase_trunks(card)
+        for run in TRUNK_PATHS:
+            records["corr1d"][f"launches_{run}_serve"] = paths[f"{run}_serve"]["corr1d"]
+            records["corr1d"][f"launches_{run}_train"] = paths[f"{run}_train"]["corr1d"]
+            records["corr1d_backward"][f"launches_{run}_train"] = paths[f"{run}_train"]["corr1d_backward"]
+        records["corr1d"]["launches_trunk_restore_eval"] = paths["restore"]["corr1d"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

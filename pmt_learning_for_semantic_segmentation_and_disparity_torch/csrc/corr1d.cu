@@ -379,6 +379,14 @@ int corr1d_forward(const void* f1, const void* f2, void* out, int B, int H, int 
                  : launch<float>(f1, f2, out, B, H, W, C, vec != 0, s);
 }
 
+// The plan the bf16 band's launch takes for C channels: out = {stages,
+// 64-channel boxes a stage, f1 resident in shared memory, dynamic shared
+// memory bytes}.
+void corr1d_forward_plan(int C, int* out) {
+  const band::Plan p = band::plan(C, 1, kBoxes, kSmemBudget);
+  out[0] = p.ns, out[1] = p.kb, out[2] = (int)p.f1_res, out[3] = (int)p.smem;
+}
+
 // The gradients of corr1d_forward: f1, f2, df1, df2 contiguous (B,H,W,C), g
 // contiguous (B,H,W,17), one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
 // any alignment of the element type. vec: C a multiple of 16 / sizeof(dtype)

@@ -419,6 +419,12 @@ int corr2d_forward(const void* f1, const void* f2, void* out, int B, int H, int 
                  : launch<float>(f1, f2, out, B, H, W, C, vec != 0, s);
 }
 
+// The plan the bf16 band's launch takes for C channels, as corr1d_forward_plan.
+void corr2d_forward_plan(int C, int* out) {
+  const band::Plan p = band::plan(C, kRows, kBoxes, band::kSmemMax);
+  out[0] = p.ns, out[1] = p.kb, out[2] = (int)p.f1_res, out[3] = (int)p.smem;
+}
+
 // The gradients of corr2d_forward (no normalize): f1, f2, df1, df2 contiguous
 // (B,H,W,C), one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); any
 // alignment of the element type. g, the output gradient, contiguous: fp32

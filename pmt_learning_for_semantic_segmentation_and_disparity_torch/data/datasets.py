@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.config import DataConfig, ROSES_BASELINE, ROSES_FOCAL
+from ..ops.edges import sobel_edges
 from . import imageio as io
 from .augment import RandomCropAugment, color_jitter_pair
 from .labels import garden_one_hot, img_id2train_id, roses_one_hot
@@ -38,28 +39,6 @@ from .labels import garden_one_hot, img_id2train_id, roses_one_hot
 # the decoder each dataset built in this process chose: "native" (the
 # library built from native/pmt_dataio.cc) or "png" (data/png.py)
 DECODERS: List[str] = []
-
-
-def sobel_edges(gray: np.ndarray) -> np.ndarray:
-    """Host-side sobel magnitude > 0 binary edge map, matching
-    skimage.filters.sobel on the instance map (utilTorchDataLoader.py:152-155):
-    the ``edges`` target of every sample (a copy of the JAX package's
-    ``ops/edges.py:sobel_edges``, which is numpy; the native decoder computes
-    the same map)."""
-    g = gray.astype(np.float64)
-    # skimage sobel kernels (normalized by 4). skimage/scipy 'reflect'
-    # duplicates the edge sample == np.pad mode='symmetric'.
-    p = np.pad(g, 1, mode="symmetric")
-    gx = (
-        (p[:-2, 2:] + 2 * p[1:-1, 2:] + p[2:, 2:])
-        - (p[:-2, :-2] + 2 * p[1:-1, :-2] + p[2:, :-2])
-    ) / 4.0
-    gy = (
-        (p[2:, :-2] + 2 * p[2:, 1:-1] + p[2:, 2:])
-        - (p[:-2, :-2] + 2 * p[:-2, 1:-1] + p[:-2, 2:])
-    ) / 4.0
-    mag = np.sqrt(gx * gx + gy * gy) / np.sqrt(2.0)
-    return (mag > 0).astype(np.float32)
 
 
 def _rgb2gray(img: np.ndarray) -> np.ndarray:

@@ -1,8 +1,7 @@
-"""The losses of the JAX package's ``losses/`` (all but the edge nets'
-``balanced_edge_bce``), NHWC tensors."""
+"""The losses of the JAX package's ``losses/``, NHWC tensors."""
 from .disp import masked_l1, smoothing_gradients  # noqa: F401
 from .dispatch import compose_disp_loss, compose_seg_loss, seg_class_weights  # noqa: F401
-from .edge import dual_task_loss  # noqa: F401
+from .edge import balanced_edge_bce, dual_task_loss  # noqa: F401
 from .lovasz import lovasz_softmax  # noqa: F401
 from .multitask import multitask_loss  # noqa: F401
 from .ohem import ohem_cross_entropy  # noqa: F401

@@ -1,11 +1,12 @@
-"""The GSCNN-style dual-task regularizer of the JAX package's
-``losses/edge.py`` (utilTorchGate.py:256-306): the boundary map of a
-gumbel-softmax sample of the logits against the ground truth's.
+"""The edge losses of the JAX package's ``losses/edge.py``: the
+class-balanced BCE of the edge nets' edge head (multiLosses.py:166-182), and
+the GSCNN-style dual-task regularizer (utilTorchGate.py:256-306): the
+boundary map of a gumbel-softmax sample of the logits against the ground
+truth's.
 
 The uniform sample is drawn from a ``torch.Generator`` (the default one when
 none is given) on the logits' device, or passed in as ``uniform`` (so a test
 can feed the sample ``jax.random.uniform(key, shape)`` draws).
-``balanced_edge_bce`` (the edge nets' loss) is ROADMAP.md queue 1, item 12.7.
 """
 from __future__ import annotations
 
@@ -14,6 +15,19 @@ from typing import Optional
 import torch
 
 from ..ops.edges import compute_grad_mag
+
+
+def balanced_edge_bce(edge_logits: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Class-balanced BCE-with-logits on binary sobel edge maps, mean over
+    every element: pixels of 1 weighted by the share of 0s, pixels of 0 by
+    the share of 1s, any other value by 0."""
+    e = edges.to(edge_logits.dtype)
+    pos, neg = (e == 1.0).sum(), (e == 0.0).sum()
+    total = pos + neg
+    w = torch.where(e == 1.0, neg / total, torch.where(e == 0.0, pos / total, 0.0))
+    z = edge_logits
+    bce = z.clamp_min(0.0) - z * e + torch.log1p(torch.exp(-z.abs()))
+    return (w * bce).mean()
 
 
 def _gumbel_softmax_sample(logits: torch.Tensor, uniform: torch.Tensor, tau: float = 0.5,

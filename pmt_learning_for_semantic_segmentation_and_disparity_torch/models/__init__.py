@@ -1,5 +1,7 @@
-"""Model zoo + factory (the ported part: ``sdnet_mini_ext`` with 1dcorr or
-2dcorr, ``sdnet_mini``, ``sdnet`` and ``sdnetv2``, all on densenet121)."""
+"""Model zoo + factory (the ported part: the flagship family
+``sdnet_mini_ext``/``_v2``/``_piramid``/``_piramid_res`` on every trunk of
+``VALID_BACKBONES``, the Ext_small nets, ``sdnet_mini_ext_dlab``,
+``sdnet_mini``, ``sdnet`` and ``sdnetv2``)."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -12,7 +14,12 @@ from ..core.registry import BACKBONES, MODELS  # noqa: F401
 
 # importing registers the factories
 from . import densenet  # noqa: F401
+from . import efficientnet  # noqa: F401
+from . import ext_small  # noqa: F401
+from . import mobilenetv3  # noqa: F401
+from . import resnet_deeplab  # noqa: F401
 from . import sdnet  # noqa: F401
+from . import sdnet_dlab  # noqa: F401
 from . import sdnet_legacy  # noqa: F401
 from .blocks import (  # noqa: F401
     Conv2DownUp,
@@ -24,7 +31,9 @@ from .blocks import (  # noqa: F401
 )
 from .jax_weights import load_jax_variables  # noqa: F401
 from .pyramid import PiramidNet2, PiramidNetV1  # noqa: F401
+from .ext_small import ExtSmall  # noqa: F401
 from .sdnet import MiniDSNet, MiniDSNetExt, SegNetHead  # noqa: F401
+from .sdnet_dlab import MiniDSNetExtDeeplab  # noqa: F401
 from .sdnet_legacy import DSNet, DSNetV2  # noqa: F401
 
 

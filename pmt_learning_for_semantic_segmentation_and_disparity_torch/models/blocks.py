@@ -4,10 +4,14 @@ Counterparts of the JAX package's ``models/blocks.py``. Child and parameter
 names follow the flax modules (``conv``/``deconv``/``bn``, ``c1``..``d5``) so
 ``models/jax_weights.py`` can carry a flax variable tree across by path.
 
-* every convolution is bias-free, stride 1 with an odd kernel, so TF-'SAME'
-  padding is the symmetric ``dilation * (k - 1) // 2``;
-* BatchNorm has eps 1e-5 and torch's momentum 0.1 (flax momentum 0.9); in
-  train mode it moves its running variance toward the biased batch
+* the heads' convolutions are bias-free, stride 1 with an odd kernel, so
+  TF-'SAME' padding is the symmetric ``dilation * (k - 1) // 2``; the trunks
+  add biased, grouped (depthwise) and explicitly padded convolutions
+  (``conv2d``) and flax's ``padding="SAME"`` at stride 2, which pads
+  asymmetrically (``SameConv2d``);
+* BatchNorm has eps 1e-5 and torch's momentum 0.1 (flax momentum 0.9) by
+  default, EfficientNet's eps 1e-3 and flax momentum 0.99 (``batch_norm``);
+  in train mode it moves its running variance toward the biased batch
   variance, as flax does (``BatchNorm2d``);
 * the stride-1 ``DeconvBN`` is a SAME convolution, as in the JAX package
   (a stride-1 'same' transposed conv is a conv with a flipped kernel, and the
@@ -19,7 +23,7 @@ names follow the flax modules (``conv``/``deconv``/``bn``, ``c1``..``d5``) so
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -39,17 +43,52 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def conv2d(cin: int, cout: int, kernel: int, *, stride: int = 1, dilation: int = 1,
-           padding: Optional[int] = None, init: str = "he_fan_out") -> nn.Conv2d:
-    """Bias-free conv; SAME padding for an odd kernel unless ``padding`` is
-    given. ``init`` names the JAX initialiser that ``init_parameters`` uses."""
+           padding: Optional[int] = None, groups: int = 1, bias: bool = False,
+           init: str = "he_fan_out") -> nn.Conv2d:
+    """Conv, bias-free unless ``bias``; SAME padding for a stride-1 odd
+    kernel unless ``padding`` (symmetric) is given; ``groups`` = ``cin`` is a
+    depthwise conv. ``init`` names the JAX initialiser that
+    ``init_parameters`` uses (a bias starts at 0)."""
     if padding is None:
         if kernel % 2 == 0 or stride != 1:
-            raise ValueError("SAME padding is implemented for stride-1 odd kernels only")
+            raise ValueError("SAME padding is implemented for stride-1 odd kernels only "
+                             "(SameConv2d pads flax's SAME at any stride)")
         padding = dilation * (kernel - 1) // 2
     conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding, dilation=dilation,
-                     bias=False)
+                     groups=groups, bias=bias)
     conv.init_rule = init
     return conv
+
+
+def same_padding(n: int, kernel: int, stride: int, dilation: int = 1) -> Tuple[int, int]:
+    """flax's (lax's) ``padding="SAME"`` along one axis of size ``n``: the
+    output has ceil(n / stride) samples, and the total padding is split with
+    the smaller half first."""
+    total = max((-(-n // stride) - 1) * stride + (kernel - 1) * dilation + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """flax ``nn.Conv(padding="SAME")`` at any stride (EfficientNet's stem and
+    depthwise convs; efficientnet_pytorch's static-same padding). At stride 2
+    on an even input the padding is asymmetric, (0, 1) for a 3x3 kernel and
+    (1, 2) for a 5x5: torch's symmetric ``padding=`` would shift the map by a
+    pixel. The input is padded here, then convolved unpadded."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
+                 bias: bool = False, init: str = "he_fan_out"):
+        super().__init__(cin, cout, kernel, stride=stride, groups=groups, bias=bias)
+        self.init_rule = init
+
+    def forward(self, x):
+        (k, _), (s, _), (d, _) = self.kernel_size, self.stride, self.dilation
+        top, bottom = same_padding(x.shape[-2], k, s, d)
+        left, right = same_padding(x.shape[-1], k, s, d)
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left), self.dilation,
+                            self.groups)
+        x = F.pad(x, (left, right, top, bottom))
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
 
 
 class SameConvTranspose2d(nn.Conv2d):
@@ -84,10 +123,11 @@ class SameConvTranspose2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose train-mode running update is flax's:
+    """``nn.BatchNorm2d`` whose train-mode running update is flax's (flax
+    momentum m, 0.9 unless ``batch_norm`` is told otherwise):
 
-        mean <- 0.9 * mean + 0.1 * batch mean
-        var  <- 0.9 * var  + 0.1 * biased batch variance
+        mean <- m * mean + (1 - m) * batch mean
+        var  <- m * var  + (1 - m) * biased batch variance
 
     where torch's own update takes the unbiased variance, n/(n-1) times
     larger for n pixels per channel (8/7 at the deepest taps of a 1x64x128
@@ -110,22 +150,35 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def batch_norm(c: int) -> BatchNorm2d:
-    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
+def batch_norm(c: int, eps: float = 1e-5, momentum: float = 0.9) -> BatchNorm2d:
+    """flax ``nn.BatchNorm(epsilon=eps, momentum=momentum)``: flax's momentum
+    is the running statistics' share kept a step, torch's the batch's, so
+    torch's is ``1 - momentum`` (EfficientNet: eps 1e-3, flax 0.99, a step
+    moves the running statistics by 0.01)."""
+    return BatchNorm2d(c, eps=eps, momentum=1.0 - momentum)
 
 
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of ``model`` from ``generator`` with
-    the JAX package's initialisers (convolutions by their ``init_rule``,
-    their biases 0; BatchNorm: scale 1, bias 0, running mean 0, running var
-    1; an embedding: normal with std 1/sqrt(features), flax's ``nn.Embed``;
-    any other parameter, e.g. a log-variance of the multitask loss: 0)."""
+    the JAX package's initialisers (convolutions by their ``init_rule``, or
+    flax ``nn.Conv``'s default lecun normal where they have none, their
+    biases 0; a grouped convolution's fan-in is that of one group, as flax's
+    (k, k, C/groups, O) kernel gives it; ``nn.Linear``: flax ``nn.Dense``'s
+    lecun normal, bias 0; BatchNorm: scale 1, bias 0, running mean 0,
+    running var 1; an embedding: normal with std 1/sqrt(features), flax's
+    ``nn.Embed``; any other parameter, e.g. a log-variance of the multitask
+    loss: 0)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
-            scale, mode, truncated = _INIT_RULES[m.init_rule]
-            receptive = m.weight[0, 0].numel()
-            fan = receptive * (m.in_channels if mode == "fan_in" else m.out_channels)
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            rule = "lecun" if isinstance(m, nn.Linear) else getattr(m, "init_rule", "lecun")
+            scale, mode, truncated = _INIT_RULES[rule]
+            if isinstance(m, nn.Linear):
+                receptive, fan_in, fan_out = 1, m.in_features, m.out_features
+            else:
+                receptive = m.weight[0, 0].numel()
+                fan_in, fan_out = m.in_channels // m.groups, m.out_channels
+            fan = receptive * (fan_in if mode == "fan_in" else fan_out)
             std = math.sqrt(scale / fan)
             if truncated:
                 std /= _TRUNC_STD

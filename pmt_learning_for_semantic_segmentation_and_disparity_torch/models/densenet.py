@@ -1,8 +1,9 @@
 """DenseNet trunk returning 5 per-stage feature taps (NCHW).
 
-Counterpart of the JAX package's ``models/densenet.py``: the torchvision
-DenseNet without its classifier, returning [conv0, trans1, trans2, trans3,
-relu(norm5)] at strides /2../32. Each transition's tap is taken BEFORE its
+Counterpart of the JAX package's ``models/densenet.py`` (densenet121, 169,
+201 and 161, registered as "densenet", "dn169", "dn201" and "dn161"): the
+torchvision DenseNet without its classifier, returning [conv0, trans1,
+trans2, trans3, relu(norm5)] at strides /2../32. Each transition's tap is taken BEFORE its
 average pool (reference densenet.py:229-232), so tap k has the pre-pool
 resolution; conv0's tap is taken before norm0.
 """
@@ -90,5 +91,20 @@ class DenseNetFeatures(nn.Module):
 
 
 @BACKBONES.register("densenet")
-def densenet121() -> DenseNetFeatures:
-    return DenseNetFeatures((6, 12, 24, 16), 32, 64)
+def densenet121(in_channels: int = 3) -> DenseNetFeatures:
+    return DenseNetFeatures((6, 12, 24, 16), 32, 64, in_channels)
+
+
+@BACKBONES.register("dn169")
+def densenet169(in_channels: int = 3) -> DenseNetFeatures:
+    return DenseNetFeatures((6, 12, 32, 32), 32, 64, in_channels)
+
+
+@BACKBONES.register("dn201")
+def densenet201(in_channels: int = 3) -> DenseNetFeatures:
+    return DenseNetFeatures((6, 12, 48, 32), 32, 64, in_channels)
+
+
+@BACKBONES.register("dn161")
+def densenet161(in_channels: int = 3) -> DenseNetFeatures:
+    return DenseNetFeatures((6, 12, 36, 24), 48, 96, in_channels)

@@ -5,6 +5,8 @@ The port's child names follow the flax module names, so a flax leaf at
 
     params/.../kernel  (kh,kw,I,O)  -> weight (O,I,kh,kw), transpose(3,2,0,1)
     params/.../kernel  (k,I,O)      -> weight (O,I,k), transpose(2,1,0) (Conv1d)
+    params/.../kernel  (I,O)        -> weight (O,I), transpose (nn.Dense ->
+                                       nn.Linear)
     params/.../scale                -> weight          (BatchNorm)
     params/.../bias                 -> bias            (BatchNorm, Conv1d)
     params/.../embedding            -> weight          (nn.Embedding)
@@ -18,7 +20,10 @@ nets) is also (kh,kw,I,O) and lands in the same (O,I,kh,kw) layout:
 ``blocks.SameConvTranspose2d`` keeps its weight as a conv's and transposes
 and flips it for ``conv_transpose2d`` itself. (torch's ``ConvTranspose2d``
 layout (I,O,kh,kw) would load a square 32->32 kernel without a shape error
-and compute another function.)
+and compute another function.) The same trap stands at a flax ``Dense``
+(MobileNetV3's squeeze-excite): its (in, out) kernel fits a square
+``nn.Linear`` weight (out, in) untransposed, so every 2-D kernel is
+transposed.
 
 The JAX package's variables are the same with ``s2d_heads`` on or off
 (``PhaseBatchNorm`` owns the plain (C,) variables), so either model's tree
@@ -77,6 +82,8 @@ def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
                 value = np.ascontiguousarray(value.transpose(3, 2, 0, 1))  # HWIO -> OIHW
             elif value.ndim == 3:
                 value = np.ascontiguousarray(value.transpose(2, 1, 0))  # (k, I, O) -> OIk
+            elif value.ndim == 2 and path[-1] == "kernel":
+                value = np.ascontiguousarray(value.T)  # Dense (I, O) -> Linear (O, I)
             dst = targets[name]
             if tuple(value.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {value.shape} does not fit "

@@ -5,7 +5,8 @@ average-pools with kernel = stride = POOL_VALS[t + k] (clamped to the map
 size), applies convbn(32, 3x3) + ReLU and resizes bilinearly back; an
 enriched map concatenates the tap with its branches.
 
-* ``PiramidNet2`` (the flagship's):
+* ``PiramidNet2`` (the flagship's, over any registered trunk: each exposes
+  its ``tap_channels``):
 
       b0 = cat(tap0, 5 branches)  -> C0 + 160 channels (at /2)
       b1 = cat(tap1, 4 branches)  -> C1 + 128          (at /4)
@@ -16,6 +17,9 @@ enriched map concatenates the tap with its branches.
   sdnet_mini, dsnet_t2.py:324-397): densenet121 only, no enriched tap 1;
   returns (tap0..tap4, b2, b0). Its tap-2 branches are named ``branch1_k``
   as in the reference, so the weights cross by name.
+
+``in_channels`` is the trunk's input: 4 for ``sdnet`` with ``-edges``, whose
+JAX model hands its trunk the edge channel too (``sdnet_legacy.py:36-42``).
 """
 from __future__ import annotations
 
@@ -37,9 +41,9 @@ class _Pyramid(nn.Module):
 
     ENRICH: Tuple[Tuple[int, str, int], ...] = ()
 
-    def __init__(self, backbone: str):
+    def __init__(self, backbone: str, in_channels: int = 3):
         super().__init__()
-        self.backbone = BACKBONES.get(backbone)()
+        self.backbone = BACKBONES.get(backbone)(in_channels=in_channels)
         taps = self.backbone.tap_channels
         for t, prefix, n in self.ENRICH:
             for k in range(n):
@@ -65,12 +69,12 @@ class _Pyramid(nn.Module):
 class PiramidNet2(_Pyramid):
     ENRICH = ((0, "branch0", 5), (1, "branch1", 4), (2, "branch2", 3))
 
-    def __init__(self, backbone: str = "densenet"):
-        super().__init__(backbone)
+    def __init__(self, backbone: str = "densenet", in_channels: int = 3):
+        super().__init__(backbone, in_channels)
 
 
 class PiramidNetV1(_Pyramid):
     ENRICH = ((0, "branch0", 5), (2, "branch1", 3))
 
-    def __init__(self):
-        super().__init__("densenet")
+    def __init__(self, in_channels: int = 3):
+        super().__init__("densenet", in_channels)

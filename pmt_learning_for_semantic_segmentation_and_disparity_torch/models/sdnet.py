@@ -1,7 +1,11 @@
 """The SDNet models of the JAX package's ``models/sdnet.py``: the flagship
 family (MiniDSNetExt: ``sdnet_mini_ext``, ``_v2``, ``_piramid``,
-``_piramid_res``, with every option of the JAX model on densenet121 but
-``-edges``) and ``sdnet_mini`` (MiniDSNet), eval and train forward.
+``_piramid_res``, with every option of the JAX model on every registered
+trunk) and ``sdnet_mini`` (MiniDSNet), eval and train forward.
+
+``-edges`` (``cfg.edges``): the images carry a fourth channel, the sobel
+edge map. The trunk takes the first three; the image conv ``conv2d_ba``
+takes all four (``sdnet.py:141-142, 181-186``).
 
 Either correlation (``1dcorr``: the 1-D (1, 17) patch; ``2dcorr``: the 17x17
 patch, normalized by the channel count) runs on the plain (non
@@ -38,17 +42,25 @@ def corr_patch(m: ModelConfig) -> Tuple[int, int]:
     return (1, 17) if m.corr_type == "1dcorr" else (17, 17)
 
 
-def trunk_taps(features: nn.Module, left: torch.Tensor, right: torch.Tensor):
-    """The trunk's taps of each view, (left's, right's). In train mode the
-    trunk runs once per view, left then right, as in the JAX package, so each
-    view normalises by its own batch statistics and the running statistics
-    move twice in that order. In eval mode one pass over L and R stacked in
-    the batch computes the same as two."""
-    if features.training:
-        return features(left), features(right)
-    nb = left.shape[0]
-    both = features(torch.cat([left, right], dim=0))
-    return [t[:nb] for t in both], [t[nb:] for t in both]
+def image_channels(m: ModelConfig) -> int:
+    """The channels of an input image: 3, and the edge map's under -edges."""
+    return 4 if m.edges else 3
+
+
+def both_views(module: nn.Module, a: torch.Tensor, b: torch.Tensor):
+    """``module`` over each view, (a's, b's): a trunk over the two images,
+    an ASPP over their maps. In train mode it runs once per view, a then b,
+    as in the JAX package, so each view normalises by its own batch
+    statistics and the running statistics move twice in that order. In eval
+    mode one pass over both stacked in the batch computes the same as two.
+    The module returns a tensor or a sequence of them (a trunk's taps)."""
+    if module.training:
+        return module(a), module(b)
+    n = a.shape[0]
+    out = module(torch.cat([a, b], dim=0))
+    if isinstance(out, torch.Tensor):
+        return out[:n], out[n:]
+    return [t[:n] for t in out], [t[n:] for t in out]
 
 
 def nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -73,11 +85,11 @@ class SegNetHead(nn.Module):
 
     Returns (x @ deepest/2, x1 @ deepest/4, seg logits @ full res)."""
 
-    def __init__(self, cin: int, labels: int, dropout: float = 0.0):
+    def __init__(self, cin: int, labels: int, dropout: float = 0.0, skip_channels: int = 1):
         super().__init__()
         self.conv1d_1 = ConvBN(cin, 64, 1, batchnorm=False, relu=True)
         self.cdu1 = Conv2DownUp(64, 32, 3, dropout=dropout)
-        self.conv1d_2 = ConvBN(32 + 1, 32, 1, batchnorm=False, relu=True)
+        self.conv1d_2 = ConvBN(32 + skip_channels, 32, 1, batchnorm=False, relu=True)
         self.cdu2 = Conv2DownUp(32, 32, 3, last_layer=False, dropout=dropout)
         self.out = ConvOut(32, labels, 3)
 
@@ -89,14 +101,6 @@ class SegNetHead(nn.Module):
         return x, x1, resize_nearest(seg, full_hw)
 
 
-def _unported(m: ModelConfig) -> str:
-    if m.backbone != "densenet":
-        return f"backbone {m.backbone!r} (ROADMAP.md queue 1, item 12.6)"
-    if m.edges:
-        return "edges (ROADMAP.md queue 1, item 12.7)"
-    return ""
-
-
 # the variants of the flagship family: "ext" (minidsnetExt), "v2"
 # (minidsnetExt2: one self-gate, dsnet_t2.py:1888-1891), "piramid"
 # (ExtPiramid: the pyramid's /2 map as the final skip, :1547-1559) and
@@ -106,13 +110,14 @@ VARIANTS = ("ext", "v2", "piramid", "piramid_res")
 
 
 class MiniDSNetExt(nn.Module):
-    """minidsnetExt (dsnet_t2.py:941-1299) and its variants on densenet121:
-    aspp 0/1/2, the cross-task attention gates on or off (``use_att``), the
+    """minidsnetExt (dsnet_t2.py:941-1299) and its variants on any trunk
+    (the ResNet trunks add ``aspp_4``, one ASPP at output stride 16 over both
+    views' tap 4, ``sdnet.py:191-196``), with ``-edges``; aspp 0/1/2, the cross-task attention gates on or off (``use_att``), the
     ``no_dec1``/``no_dec3`` ablations, ``convDeconvOut`` 1/2, HANet on the
     head-2 logits and the Kendall multitask modes 1/2, with either
     correlation (2dcorr normalized, as ``sdnet.py:206-208``).
 
-    The trunk runs as ``trunk_taps`` says (``sdnet.py:147-151``); in train
+    The trunk runs as ``both_views`` says (``sdnet.py:147-151``); in train
     mode dropout follows ``cfg.dropout`` (ASPP's is its own 0.5). The
     forward takes the JAX model's keyword inputs: ``pos`` (HANet's grids,
     ``hanet.build_pos_grid``), and ``disp_gt`` and ``seg_labels`` (the
@@ -120,9 +125,6 @@ class MiniDSNetExt(nn.Module):
 
     def __init__(self, cfg: ModelConfig, labels: int = 2, variant: str = "ext"):
         super().__init__()
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(f"{cfg.net} with {missing} is not ported yet")
         if variant not in VARIANTS:
             raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
         d = self.dropout = cfg.dropout
@@ -145,9 +147,13 @@ class MiniDSNetExt(nn.Module):
             self.log_var_disp = nn.Parameter(torch.zeros(1))
             self.log_var_seg1 = nn.Parameter(torch.zeros(1))
             return
-        # 5x5 dilation-2 image conv, 3 -> 4 channels (the JAX package's merge
-        # of the reference's four 3 -> 1 convs; channel 3 is unused)
-        self.conv2d_ba = ConvBN(3, 4, 5, dilation=2, relu=True)
+        # 5x5 dilation-2 image conv, 3 (4 with -edges) -> 4 channels (the JAX
+        # package's merge of the reference's four 3 -> 1 convs; channel 3 is
+        # unused)
+        self.conv2d_ba = ConvBN(image_channels(cfg), 4, 5, dilation=2, relu=True)
+        if cfg.backbone in ("resnet50", "resnet101"):
+            self.aspp_4 = ASPP(c4, output_stride=16)
+            c4 = self.aspp_4.out_channels
         self.segNet = SegNetHead(2 * c4, labels, dropout=d)
         ncorr = self.patch[0] * self.patch[1]
         if variant == "piramid_res":
@@ -242,18 +248,21 @@ class MiniDSNetExt(nn.Module):
 
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor, pos=None,
                 disp_gt=None, seg_labels=None) -> Dict[str, torch.Tensor]:
-        left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
+        image = nchw_channels_last(input_a)
+        left, right = nchw_channels_last(input_a[..., :3]), nchw_channels_last(input_b[..., :3])
         full_hw = tuple(left.shape[-2:])
 
         # taps 0..4, then the enriched b2, b1, b0 (indices 5, 6, 7)
-        a, b = trunk_taps(self.features, left, right)
+        a, b = both_views(self.features, left, right)
         a0, a1, a3, a4, a_py2, a_py1, a_py0 = (a[i] for i in (0, 1, 3, 4, 5, 6, 7))
         b3, b4, b_py2, b_py1 = (b[i] for i in (3, 4, 5, 6))
         if self.multaskloss == 2:
             return self._decoder_only(a4, full_hw, disp_gt, seg_labels)
 
-        xleft_all = self.conv2d_ba(left)
+        xleft_all = self.conv2d_ba(image)
         xleft0, xleft1, xleft2 = xleft_all[:, 0:1], xleft_all[:, 1:2], xleft_all[:, 2:3]
+        if hasattr(self, "aspp_4"):
+            a4, b4 = both_views(self.aspp_4, a4, b4)
 
         # head 1: coarse seg decoder on the concatenated deepest features
         x, x1, seg_branch = self.segNet(torch.cat([a4, b4], dim=1), full_hw, xleft0)
@@ -352,21 +361,19 @@ class MiniDSNet(nn.Module):
     """minidsnet (dsnet_t2.py:825-912), registered as ``sdnet_mini``: one seg
     and one disparity head, outputs duplicated (seg2 = seg1, disp2 = disp1),
     on the original piramidNet (``PiramidNetV1``), 1dcorr or 2dcorr (the
-    latter normalized). The trunk runs as ``trunk_taps`` says
-    (``sdnet.py:453-454``); the net has no dropout."""
+    latter normalized), with ``-edges`` as the flagship takes it. The trunk
+    runs as ``both_views`` says (``sdnet.py:453-454``); the net has no
+    dropout."""
 
     def __init__(self, cfg: ModelConfig, labels: int = 2):
         super().__init__()
-        if cfg.edges:
-            raise NotImplementedError("sdnet_mini with edges is not ported yet "
-                                      "(ROADMAP.md queue 1, item 12.7)")
         self.patch = corr_patch(cfg)
         self.normalize = cfg.corr_type != "1dcorr"
         self.features = PiramidNetV1()
         taps = self.features.out_channels
         # the JAX package's merge of the reference's image convs: channel 0
         # feeds the seg head, channel 1 the disparity head
-        self.conv2d_ba = ConvBN(3, 2, 5, dilation=2, relu=True)
+        self.conv2d_ba = ConvBN(image_channels(cfg), 2, 5, dilation=2, relu=True)
         self.segNet = SegNetHead(2 * taps[4], labels)
         self.corrConv2d = ConvBN(self.patch[0] * self.patch[1], 128, 1, batchnorm=False,
                                  relu=True)
@@ -377,13 +384,14 @@ class MiniDSNet(nn.Module):
         self.dispoutConv = ConvOut(64, 1, 5)
 
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor, **_) -> Dict[str, torch.Tensor]:
-        left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
+        image = nchw_channels_last(input_a)
+        left, right = nchw_channels_last(input_a[..., :3]), nchw_channels_last(input_b[..., :3])
         full_hw = tuple(left.shape[-2:])
-        a, b = trunk_taps(self.features, left, right)
+        a, b = both_views(self.features, left, right)
         a4, a_py2 = a[4], a[5]
         b4, b_py2 = b[4], b[5]
 
-        xleft_all = self.conv2d_ba(left)
+        xleft_all = self.conv2d_ba(image)
         x, x1, seg_branch = self.segNet(torch.cat([a4, b4], dim=1), full_hw, xleft_all[:, 0:1])
 
         y = self.corrConv2d(cost_volume(a_py2, b_py2, self.patch, self.normalize))

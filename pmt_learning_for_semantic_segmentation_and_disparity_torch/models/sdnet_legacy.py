@@ -15,9 +15,13 @@ with residual head mixing. The JAX package's quirks are kept:
   + 0.1 * seg1 mixes log-probabilities with raw logits (:232);
 * ``sdnet`` always correlates the 17x17 patch; ``sdnetv2`` takes ``1dcorr``
   or ``2dcorr`` and normalizes both (:183);
-* disp2 = 0.8 * d2 + 0.2 * disp1.
+* disp2 = 0.8 * d2 + 0.2 * disp1;
+* with ``-edges`` the image convs take the four channels of an image and its
+  edge map; ``sdnetv2``'s trunk takes the first three, but ``sdnet``'s takes
+  all four (the JAX ``DSNet`` hands ``input_a`` to its trunk whole,
+  ``sdnet_legacy.py:36-42``), so its ``conv0`` has 4 input channels there.
 
-The trunk runs as ``sdnet.trunk_taps`` says (``sdnet_legacy.py:41-42,
+The trunk runs as ``sdnet.both_views`` says (``sdnet_legacy.py:41-42,
 166-167``).
 """
 from __future__ import annotations
@@ -33,7 +37,15 @@ from ..core.registry import MODELS
 from ..ops.resize import resize_bilinear, upsample_nearest
 from .blocks import Conv2DownUp, ConvBN, ConvOut, DeconvBN
 from .pyramid import PiramidNetV1
-from .sdnet import SegNetHead, corr_patch, cost_volume, nchw_channels_last, nhwc, trunk_taps
+from .sdnet import (
+    SegNetHead,
+    both_views,
+    corr_patch,
+    cost_volume,
+    image_channels,
+    nchw_channels_last,
+    nhwc,
+)
 
 
 def _conv1x1(cin: int, cout: int) -> ConvBN:
@@ -51,17 +63,16 @@ class DSNet(nn.Module):
     """dsnet (dsnet_t2.py:119-321), registered as ``sdnet``."""
 
     IMAGE_CONVS = ("conv2d_ba1", "conv2d_ba2", "conv2d_ba3")
+    TRUNK_TAKES_EDGES = True  # the JAX DSNet's trunk takes input_a whole
 
     def __init__(self, cfg: ModelConfig, labels: int = 2):
         super().__init__()
-        if cfg.edges:
-            raise NotImplementedError(f"{type(self).__name__} with edges is not ported yet "
-                                      "(ROADMAP.md queue 1, item 12.7)")
         self.patch = self.correlation_patch(cfg)
-        self.features = PiramidNetV1()
+        img = image_channels(cfg)
+        self.features = PiramidNetV1(img if self.TRUNK_TAKES_EDGES else 3)
         c0, c1, _, _, c4, _, c_py0 = self.features.out_channels
         for name in self.IMAGE_CONVS:
-            self.add_module(name, ConvBN(3, 1, 5, dilation=2, relu=True))
+            self.add_module(name, ConvBN(img, 1, 5, dilation=2, relu=True))
         self.make_head1(2 * c4, labels)
         self.corrConv2d = _conv1x1(self.patch[0] * self.patch[1], 128)
         self.cdu3 = Conv2DownUp(32, 128, 3)
@@ -106,9 +117,11 @@ class DSNet(nn.Module):
         return x, x1, F.log_softmax(resize_bilinear(seg1, full_hw), dim=1)
 
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor, **_) -> Dict[str, torch.Tensor]:
-        left, right = nchw_channels_last(input_a), nchw_channels_last(input_b)
+        left = nchw_channels_last(input_a)
+        n = input_a.shape[-1] if self.TRUNK_TAKES_EDGES else 3
+        a, b = both_views(self.features, nchw_channels_last(input_a[..., :n]),
+                          nchw_channels_last(input_b[..., :n]))
         full_hw = tuple(left.shape[-2:])
-        a, b = trunk_taps(self.features, left, right)
         a0, a1, a4, a_py2, a_py0 = (a[i] for i in (0, 1, 4, 5, 6))
         b4, b_py2, b_py0 = (b[i] for i in (4, 5, 6))
         xleft3, xleft2, xleft1 = (_channels_last(getattr(self, f"conv2d_ba{k}")(left))
@@ -161,6 +174,7 @@ class DSNetV2(DSNet):
     the ``-corrType`` switch."""
 
     IMAGE_CONVS = DSNet.IMAGE_CONVS + ("conv2d_ba0",)
+    TRUNK_TAKES_EDGES = False  # the trunk takes input_a[..., :3] (:159-160)
 
     @staticmethod
     def correlation_patch(cfg: ModelConfig) -> Tuple[int, int]:

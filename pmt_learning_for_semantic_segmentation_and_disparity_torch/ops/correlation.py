@@ -124,6 +124,20 @@ def _check_pair(name: str, f1: torch.Tensor, f2: torch.Tensor) -> None:
         raise ValueError(f"{name} needs contiguous NHWC inputs")
 
 
+def forward_plan(name: str, c: int) -> dict:
+    """The plan the bf16 forward kernel ``name`` (corr1d, corr2d) takes for
+    ``c`` channels, as its launch computes it: stages of the ring, 64-channel
+    boxes a stage, whether f1's tile stays resident in shared memory, and the
+    dynamic shared memory of a block."""
+    fn = getattr(_kernels.load(name), f"{name}_forward_plan")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 4)()
+    fn(c, out)
+    return {"stages": out[0], "boxes_per_stage": out[1], "f1_resident": bool(out[2]),
+            "smem_bytes": out[3]}
+
+
 def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int]) -> torch.Tensor:
     """Check the inputs, then run the ``csrc/<name>.cu`` kernel on the
     current stream. Everything is checked before the kernel is built."""

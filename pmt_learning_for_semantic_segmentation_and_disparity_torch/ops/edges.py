@@ -7,12 +7,14 @@ tensors (the losses' layout).
 * ``gaussian_smooth``  -- a depthwise 2-D gaussian (fspecial's), zero SAME
   padding;
 * ``box_count``        -- a depthwise all-ones window sum, ``VALID`` or
-  ``SAME_ZERO``.
+  ``SAME_ZERO``;
+* ``sobel_edges``      -- the binary sobel edge map of a gray image, numpy
+  on the host: the ``edges`` target of every sample and the fourth input
+  channel of the nets under ``-edges``.
 
 The window sums run as sums of shifted slices in the input's dtype, not as
 convolutions: on the card a convolution may run in TF32, and the area
 losses compare a box count with the window's area exactly.
-``sobel_edges`` (the edge nets' input) is ROADMAP.md queue 1, item 12.7.
 """
 from __future__ import annotations
 
@@ -76,3 +78,19 @@ def box_count(x: torch.Tensor, size: int, padding: str = "VALID") -> torch.Tenso
     if padding not in ("VALID", "SAME_ZERO"):
         raise ValueError(f"padding {padding!r}: VALID or SAME_ZERO")
     return _window_sum(x, None, size, size // 2 if padding == "SAME_ZERO" else 0)
+
+
+def sobel_edges(gray: np.ndarray) -> np.ndarray:
+    """Host-side sobel magnitude > 0 binary edge map, matching
+    skimage.filters.sobel on the instance map (utilTorchDataLoader.py:
+    152-155), pure numpy; the native decoder computes the same map."""
+    g = gray.astype(np.float64)
+    # skimage's sobel kernels (normalized by 4); skimage/scipy 'reflect'
+    # duplicates the edge sample, numpy's mode='symmetric'
+    p = np.pad(g, 1, mode="symmetric")
+    gx = ((p[:-2, 2:] + 2 * p[1:-1, 2:] + p[2:, 2:])
+          - (p[:-2, :-2] + 2 * p[1:-1, :-2] + p[2:, :-2])) / 4.0
+    gy = ((p[2:, :-2] + 2 * p[2:, 1:-1] + p[2:, 2:])
+          - (p[:-2, :-2] + 2 * p[:-2, 1:-1] + p[:-2, 2:])) / 4.0
+    mag = np.sqrt(gx * gx + gy * gy) / np.sqrt(2.0)
+    return (mag > 0).astype(np.float32)

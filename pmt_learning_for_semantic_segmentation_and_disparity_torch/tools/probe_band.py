@@ -1,13 +1,15 @@
 """Where the bf16 correlation kernels' time goes, on one CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.probe_band \
+        [--shape B H W C] [--variants kernel,staged-f1]
         [--backward [corr1d|corr2d]] [--out report.json]
 
 Builds the bf16 band kernels of ``csrc/`` (corr1d, corr2d) as they are and in
 variants with one part cut out, each from a copy of the sources under
 ``build/probe/``, and times every variant at the main path's shape,
-f1 = f2 = (16, 64, 120, 352) bf16, with CUDA events (50 launches, after a
-warm-up; variants in turns, twice over):
+f1 = f2 = (16, 64, 120, 352) bf16 (or ``--shape``), with CUDA events (50
+launches, after a warm-up; variants in turns, twice over; ``--variants``
+takes a comma-separated subset):
 
 * ``kernel``      -- the sources as they are;
 * ``no-products`` -- the tensor-core loop runs no step: staging, stores and
@@ -44,11 +46,16 @@ ones below compute the same outputs another way, and their max|d| against
 * ``unroll-boxes`` -- corr1d with one-box stages and ``#pragma unroll 3``
   over the boxes of a stage: the same arithmetic in the source, but nvcc
   unrolls the loop with no remainder (its machine code runs three boxes for
-  every test of the loop's bound), so its max|d| is the size of that fault.
+  every test of the loop's bound), so its max|d| is the size of that fault;
+* ``staged-f1``   -- the plan never keeps f1's tile resident in shared
+  memory: each stage copies f1's boxes beside f2's, and the ring takes the
+  room f1's tile held (the launches' own plan where f1 is staged already).
 
-Each variant's tensor-core instructions (HMMA) are counted in its
-library's machine code (``cuobjdump -sass``); the libraries stay under
-``build/probe/<variant>/`` for a closer reading.
+Each variant's plan at C (stages, 64-channel boxes a stage, f1 resident,
+shared memory bytes) is printed beside its time. Its tensor-core
+instructions (HMMA) are counted in its library's machine code
+(``cuobjdump -sass``); the libraries stay under ``build/probe/<variant>/``
+for a closer reading.
 
 ``--backward`` probes corr1d's bf16 backward (``corr1d_backward``, the
 transposed band of ``csrc/corr1d.cu``) instead, at the training shape per
@@ -213,6 +220,8 @@ VARIANTS = {
                     + _tile_launch("corr1d.cu", "band::plan(C, 1, kBoxes, kSmemBudget);", TILE1)
                     + _tile_launch("corr2d.cu", "band::plan(C, kRows, kBoxes, band::kSmemMax);",
                                    TILE2)),
+    "staged-f1": (("corr1d", "corr2d"), (("corr_band.cuh", "for (int res = 1; res >= 0; --res) {",
+                                          "for (int res = 0; res >= 0; --res) {"),)),
     "unroll-boxes": (("corr1d",), (
         ("corr1d.cu", "constexpr int kBoxes = 3;", "constexpr int kBoxes = 1;"),
         ("corr_band.cuh", BOX_LOOP, "#pragma unroll 3\n" + BOX_LOOP))),
@@ -415,6 +424,10 @@ def main() -> int:
     ap.add_argument("--backward", nargs="?", const="corr1d", choices=sorted(BWD_KERNELS),
                     help="probe a bf16 backward kernel (corr1d's by default) instead of the "
                          "forward kernels")
+    ap.add_argument("--shape", type=int, nargs=4, default=SHAPE, metavar=("B", "H", "W", "C"),
+                    help="the forward probe's f1 = f2 shape (NHWC)")
+    ap.add_argument("--variants", default=None,
+                    help="the forward variants to time, comma-separated (all by default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_band: no CUDA device", file=sys.stderr)
@@ -431,12 +444,25 @@ def main() -> int:
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1)
         return 0
-    libs = build_variants(VARIANTS)
+    names = args.variants.split(",") if args.variants else list(VARIANTS)
+    unknown = sorted(set(names) - set(VARIANTS))
+    if unknown or "kernel" not in names:
+        ap.error(f"--variants: unknown {unknown}, or no 'kernel' to hold the others against")
+    libs = build_variants({n: VARIANTS[n] for n in names})
+    shape = tuple(args.shape)
     g = torch.Generator(device="cuda").manual_seed(0)
-    f1 = torch.randn(SHAPE, device="cuda", generator=g).bfloat16()
-    f2 = torch.randn(SHAPE, device="cuda", generator=g).bfloat16()
-    b, h, w, c = SHAPE
+    f1 = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    f2 = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    b, h, w, c = shape
     stream = torch.cuda.current_stream().cuda_stream
+    plans = {}  # each variant's plan at C: stages, boxes a stage, f1 resident, smem bytes
+    for (name, k), (lib, _) in libs.items():
+        fn = getattr(lib, f"{k}_forward_plan")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
+        plan = (ctypes.c_int * 4)()
+        fn(c, plan)
+        plans[f"{k} {name}"] = list(plan)
     outs, times = {}, {}
     for _ in range(2):
         for (name, k), (lib, _) in libs.items():
@@ -458,11 +484,11 @@ def main() -> int:
     diff = {f"{k} {name}": (out.float() - outs[("kernel", k)].float()).abs().max().item()
             for (name, k), out in outs.items()}
     hmma = {f"{k} {name}": sass(path).count("HMMA") for (name, k), (_, path) in libs.items()}
-    report = {"card": card, "nvcc": nvcc, "shape": list(SHAPE), "dtype": "bfloat16", "ms": times,
-              "max_abs_diff_vs_kernel": diff, "hmma": hmma}
+    report = {"card": card, "nvcc": nvcc, "shape": list(shape), "dtype": "bfloat16", "ms": times,
+              "max_abs_diff_vs_kernel": diff, "hmma": hmma, "plan": plans}
     for key, ms in times.items():
         print(f"[probe_band] {key}: {', '.join(f'{t:.4f}' for t in ms)} ms, max|d| vs kernel "
-              f"{diff[key]:.4g}, {hmma[key]} HMMA", flush=True)
+              f"{diff[key]:.4g}, {hmma[key]} HMMA, plan {plans[key]}", flush=True)
     print(json.dumps(report), flush=True)
     if args.out:
         with open(args.out, "w") as f:

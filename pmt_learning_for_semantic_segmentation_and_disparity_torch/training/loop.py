@@ -6,7 +6,8 @@ datasets -> model -> optimizer -> restore -> epochs of train steps with
 periodic per-row eval and checkpointing. The device is the card unless the
 caller passes ``device="cpu"``. A torch reference checkpoint (``.pth``,
 ``.pth.tar``, ``.pt``) restores through ``utils.torch_import``, and
-``-pretrained_path`` grafts a torchvision densenet121 into the trunk. Not
+``-pretrained_path`` grafts a torchvision densenet121 or a MobileNetV3-Large
+into the trunk. Not
 ported yet: several cards (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
@@ -29,20 +30,27 @@ from .step import make_eval_step, make_train_step
 
 def load_pretrained_backbone(cfg: PMTConfig, model: torch.nn.Module) -> None:
     """``-pretrained_path``: a torchvision densenet121 state dict (or the
-    reference's own densenet) into the model's trunk (the JAX package's
-    ``init_state``, loop.py:159-190); every trunk tensor is replaced."""
+    reference's own densenet), or a MobileNetV3-Large in cuevhv's layout,
+    into the model's trunk (the JAX package's ``init_state``,
+    loop.py:159-190); every trunk tensor is replaced. Any other trunk raises,
+    as in the JAX package."""
     from ..utils.torch_import import (
         block_config_of,
         import_densenet121,
+        import_mobilenetv3_backbone,
         load_port_state,
         load_torch_state_dict,
     )
 
-    if cfg.model.backbone != "densenet":
-        raise NotImplementedError(f"-pretrained_path for a {cfg.model.backbone} trunk is not "
-                                  f"ported yet (ROADMAP.md queue 1, item 12.6)")
+    backbone = cfg.model.backbone
+    if backbone not in ("densenet", "mobilenet"):
+        raise NotImplementedError(f"-pretrained_path is wired for densenet121 and "
+                                  f"mobilenetv3-large, not {backbone} (as in the JAX package)")
     sd = load_torch_state_dict(cfg.model.pretrained_path)
-    load_port_state(model.features.backbone, import_densenet121(sd, block_config_of(model)))
+    trunk = model.features.backbone
+    tensors = (import_mobilenetv3_backbone(sd, trunk) if backbone == "mobilenet"
+               else import_densenet121(sd, block_config_of(model)))
+    load_port_state(trunk, tensors)
 
 
 class Session:

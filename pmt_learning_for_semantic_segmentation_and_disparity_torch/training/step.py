@@ -20,6 +20,7 @@ from torch.func import functional_call
 from ..core.config import PMTConfig
 from ..core.device import resolve_device
 from ..losses.dispatch import compose_disp_loss, compose_seg_loss
+from ..losses.edge import balanced_edge_bce
 from ..metrics.dispmetrics import disp_metrics
 from ..metrics.segmetrics import seg_batch_metrics
 from .state import TrainState
@@ -36,16 +37,34 @@ def _bf16_weights(model: torch.nn.Module):
             for n, p in m.named_parameters(recurse=False) if not n.startswith("log_var")]
 
 
+def _model_images(cfg: PMTConfig, batch: Dict[str, torch.Tensor], device: torch.device):
+    """The model's two images (the JAX package's ``_model_inputs``): under
+    ``-edges`` each view carries the sample's sobel edge map as a fourth
+    channel."""
+    left, right = batch["left"].to(device), batch["right"].to(device)
+    if cfg.model.edges:
+        edges = batch["edges"].to(device)
+        left, right = torch.cat([left, edges], dim=-1), torch.cat([right, edges], dim=-1)
+    return left, right
+
+
 def _model_kwargs(cfg: PMTConfig, batch: Dict[str, torch.Tensor], device: torch.device,
                   bf16: bool) -> Dict[str, torch.Tensor]:
     """The model's keyword inputs by output type (netForward,
     torch_implementation.py:118-152; the JAX package's ``_model_inputs``):
-    the ground truth for the multitask terms, HANet's coordinate grids."""
+    the ground truth for the multitask terms, the left image's gradient
+    magnitude for the edge nets (``edgeOut``, not normalized), HANet's
+    coordinate grids."""
     kwargs = {}
     if cfg.model.output_type == "multitask":
         disp = batch["disp"].to(device)
         kwargs["disp_gt"] = disp.to(torch.bfloat16) if bf16 else disp
         kwargs["seg_labels"] = batch["seg"].to(device).argmax(-1)
+    if cfg.model.output_type == "edgeOut":
+        from ..ops.edges import compute_grad_mag
+
+        left_e = compute_grad_mag(batch["left"].to(device), normalize=False)
+        kwargs["left_e"] = left_e.to(torch.bfloat16) if bf16 else left_e
     if cfg.model.hanet:
         from ..models.hanet import build_pos_grid
 
@@ -69,14 +88,13 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
     card by default; raises without one unless ``device="cpu"``; the model is
     moved there and set to eval mode).
 
-    ``batch`` holds NHWC ``left``/``right`` images (and ``seg``/``disp`` for
-    the multitask output type, whose terms ``mt`` the model computes); the
+    ``batch`` holds NHWC ``left``/``right`` images (and ``edges`` under
+    ``-edges``, ``seg``/``disp`` for the multitask output type, whose terms
+    ``mt`` the model computes); the
     outputs are the model's dict of NHWC tensors in fp32. ``train=True``
     runs the train-mode forward (batch statistics, running-stat updates,
     dropout); the nets without one raise."""
     device = resolve_device(device)
-    if cfg.model.edges:
-        raise NotImplementedError("edge-input nets are not ported yet (ROADMAP.md queue 1, item 12.7)")
     model.to(device).eval()
     bf16 = cfg.parallel.bf16
     cast = _bf16_weights(model) if bf16 else []
@@ -84,8 +102,7 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
     def forward(batch: Dict[str, torch.Tensor], train: bool = False) -> Dict[str, torch.Tensor]:
         if model.training != train:
             _set_train_mode(cfg, model, train)
-        left = batch["left"].to(device)
-        right = batch["right"].to(device)
+        left, right = _model_images(cfg, batch, device)
         kwargs = _model_kwargs(cfg, batch, device, bf16)
         if not bf16:
             return model(left, right, **kwargs)
@@ -101,9 +118,10 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
 # output types whose head-2 loss mirrors head 1's, so only head 1 counts
 # (the JAX package's ``_SINGLE_HEAD``, ``step.py:42``)
 _SINGLE_HEAD = ("smallOutPair", "deeplab", "edgeOut", "pspnet")
-# the output types of the ported nets: the flagship family (smallOutSeg,
-# hanet, multitask), sdnet_mini (smallOutPair), sdnet and sdnetv2 (two_out)
-PORTED_OUTPUT_TYPES = ("smallOutSeg", "smallOutPair", "two_out", "hanet", "multitask")
+# the output types of the ported nets: the flagship family, the Ext_small
+# nets and the dlab net (smallOutSeg, hanet, multitask), sdnet_mini
+# (smallOutPair), sdnet and sdnetv2 (two_out), the edge nets (edgeOut)
+PORTED_OUTPUT_TYPES = ("smallOutSeg", "smallOutPair", "two_out", "hanet", "multitask", "edgeOut")
 
 
 def _split(generator: Optional[torch.Generator]):
@@ -122,8 +140,10 @@ def make_losses_fn(cfg: PMTConfig):
     types of the ported nets; any other raises): head 1's cross entropy on
     seg1, head 2's configured stack on seg2 (not for the single-head output
     types, e.g. ``sdnet_mini``'s), and the disparity stack on disp1; for the
-    multitask output type, the means of the model's Kendall terms ``mt``.
-    ``dual_edge_reg`` draws from ``generator``, split per head."""
+    multitask output type, the means of the model's Kendall terms ``mt``;
+    for ``edgeOut``, plus ``balanced_edge_bce`` of the edge head against the
+    batch's ``edges``. ``dual_edge_reg`` draws from ``generator``, split per
+    head."""
     ot = cfg.model.output_type
     if ot not in PORTED_OUTPUT_TYPES:
         raise NotImplementedError(f"the losses of output type {ot!r} are not ported yet "
@@ -147,6 +167,8 @@ def make_losses_fn(cfg: PMTConfig):
                 loss_seg = loss_seg + head2_loss(out["seg2"], seg, g2)
             loss_disp = disp_loss(batch["disp"], out["disp1"], batch.get("left"), seg)
         loss = loss_seg + loss_disp
+        if ot == "edgeOut" and out.get("edge") is not None:
+            loss = loss + balanced_edge_bce(out["edge"], batch["edges"])
         return loss, {"loss": loss, "loss_seg": loss_seg, "loss_disp": loss_disp}
 
     return losses
@@ -239,8 +261,8 @@ def _eval_metrics_full(cfg: PMTConfig, out: Dict[str, torch.Tensor],
 
 
 # outputs / batch keys read by the per-row eval metrics and losses
-_EVAL_OUT_KEYS = ("seg1", "seg2", "disp1")
-_EVAL_BATCH_KEYS = ("left", "seg", "disp", "pad_mask")
+_EVAL_OUT_KEYS = ("seg1", "seg2", "disp1", "edge")
+_EVAL_BATCH_KEYS = ("left", "seg", "disp", "edges", "pad_mask")
 
 
 def eval_rows(cfg: PMTConfig, losses, out: Dict[str, torch.Tensor],
@@ -306,7 +328,7 @@ def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
     if cfg.run.tta:
         raise NotImplementedError("-tta applies to the deeplab net, which is not ported yet "
                                   "(ROADMAP.md queue 1, item 12.7)")
-    if cfg.run.slide_window and cfg.model.output_type == "multitask":
+    if cfg.run.slide_window and (cfg.model.edges or cfg.model.output_type == "multitask"):
         raise ValueError("-slide_window tiling is defined for the plain stereo nets (the "
                          "reference gates it the same way, torch_implementation.py:119)")
     forward = make_forward_fn(cfg, model, device)

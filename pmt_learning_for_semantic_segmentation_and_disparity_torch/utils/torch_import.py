@@ -1,6 +1,7 @@
 """Import the torch reference's state dicts (``.pth``, ``.pth.tar``, ``.pt``
-training checkpoints and torchvision's densenet121) straight into the
-port's modules, the counterpart of the JAX package's ``utils/torch_import.py``.
+training checkpoints, torchvision's densenet121, a MobileNetV3-Large)
+straight into the port's modules, the counterpart of the JAX package's
+``utils/torch_import.py`` and ``utils/torch_import_families.py``.
 
 The port's modules are torch modules already, so most entries are a rename
 of a key. An importer is a list of entries (port name, reference keys,
@@ -19,16 +20,22 @@ of the same name reads, each once:
   (the forward's binding, dsnet_t2.py:1176-1179), and sdnet_mini's ba0,
   ba1.
 
+``entries_for`` gives the configured net's entries and ``import_state_dict``
+applies them to a reference dict: the one import path of every net.
 ``load_port_state`` fills a model from such a dict and raises unless every
 parameter and BatchNorm statistic is filled exactly once with its shape, as
 ``models.load_jax_variables`` does. ``export_state_dict`` inverts an
 importer: the reference-layout dict that imports back to a model's tensors.
 
-Not imported: the resnet, mobilenet and efficientnet trunks (ROADMAP.md
-queue 1, item 12.6), the nets other than the four flagship variants,
-sdnet_mini, sdnet and sdnetv2 (item 12.7), and the multitask log-variance
-and decoder-only modules, which the JAX package's importer does not map
-either (item 11.3).
+Every trunk is imported (``backbone_entries``: densenet121/169/201/161 in
+torchvision's style, the dilated ResNets, EfficientNet in
+efficientnet_pytorch's layout, MobileNetV3-Large in cuevhv's for
+``-pretrained_path``), inside the four flagship variants, the Ext_small
+nets, ``sdnet_mini_ext_dlab`` (HANet's deeplabV3plus), sdnet_mini, sdnet and
+sdnetv2. Not imported, as the JAX package's importers do not map them
+either: the multitask log-variance and decoder-only modules (ROADMAP.md
+queue 1, item 11.3), a mobilenet trunk inside a net and the Ext_small nets'
+ASPPs (queue 3); the nets of item 12.7.
 """
 from __future__ import annotations
 
@@ -173,12 +180,107 @@ def _apply(entries: List[Entry], sd: Mapping[str, object]) -> Dict[str, torch.Te
     return out
 
 
-def _trunk_entries(block_config, branches) -> List[Entry]:
-    """piramidNet2 / piramidNet: the densenet under
+_TRUNK_REF = "resnet_features.resnet_features."  # piramidNet2's trunk in a reference dict
+
+
+def _resnet(port: str, ref: str, trunk) -> List[Entry]:
+    """The reference's dilated ResNet (models/resnet_deeplab.py:45-170: a 7x7
+    ``conv1``/``bn1`` stem) or HANet's ResNet3X3 (Resnet.py:137-163: the
+    ``layer0`` Sequential, convs at 0/3/6 and BNs at 1/4/7) -> the port's
+    ``ResNetDeeplabFeatures``; a projected residual is ``downsample.0/1``."""
+    if trunk.stem == "3x3x3":
+        e = []
+        for i, (conv, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"))):
+            e.append((f"{port}.{conv}.weight", (f"{ref}layer0.{3 * i}.weight",), "copy"))
+            e += _bn(f"{port}.{bn}", f"{ref}layer0.{3 * i + 1}")
+    else:
+        e = [(f"{port}.conv1.weight", (f"{ref}conv1.weight",), "copy")] + _bn(f"{port}.bn1",
+                                                                            f"{ref}bn1")
+    for li, names in enumerate(trunk.names, start=1):
+        for bi, name in enumerate(names):
+            pre, block = f"{ref}layer{li}.{bi}", getattr(trunk, name)
+            for k in (1, 2, 3):
+                e.append((f"{port}.{name}.conv{k}.weight", (f"{pre}.conv{k}.weight",), "copy"))
+                e += _bn(f"{port}.{name}.bn{k}", f"{pre}.bn{k}")
+            if block.downsample:
+                e.append((f"{port}.{name}.down_conv.weight", (f"{pre}.downsample.0.weight",),
+                          "copy"))
+                e += _bn(f"{port}.{name}.down_bn", f"{pre}.downsample.1")
+    return e
+
+
+def _efficientnet(port: str, ref: str, trunk) -> List[Entry]:
+    """efficientnet_pytorch's layout (``_conv_stem``, ``_blocks.i``,
+    ``_conv_head``; models/dsnet_t2.py:1956) -> ``EfficientNetFeatures``."""
+    e = [(f"{port}.stem.weight", (f"{ref}_conv_stem.weight",), "copy")]
+    e += _bn(f"{port}.stem_bn", f"{ref}_bn0")
+    for i in range(trunk.n_blocks):
+        pre, mine = f"{ref}_blocks.{i}", f"{port}.block{i}"
+        if getattr(trunk, f"block{i}").has_expand:
+            e.append((f"{mine}.expand.weight", (f"{pre}._expand_conv.weight",), "copy"))
+            e += _bn(f"{mine}.expand_bn", f"{pre}._bn0")
+        e.append((f"{mine}.dw.weight", (f"{pre}._depthwise_conv.weight",), "copy"))
+        e += _bn(f"{mine}.dw_bn", f"{pre}._bn1")
+        for ours, theirs in (("se_reduce", "_se_reduce"), ("se_expand", "_se_expand")):
+            e += [(f"{mine}.{ours}.{leaf}", (f"{pre}.{theirs}.{leaf}",), "copy")
+                  for leaf in ("weight", "bias")]
+        e.append((f"{mine}.project.weight", (f"{pre}._project_conv.weight",), "copy"))
+        e += _bn(f"{mine}.project_bn", f"{pre}._bn2")
+    e.append((f"{port}.head.weight", (f"{ref}_conv_head.weight",), "copy"))
+    return e + _bn(f"{port}.head_bn", f"{ref}_bn1")
+
+
+def _mobilenetv3(port: str, ref: str, trunk) -> List[Entry]:
+    """cuevhv's mobilenetv3.pytorch layout (``features.0`` the stem,
+    ``features.1..15`` the InvertedResiduals, models/mobilenetv3.py:91-131;
+    the JAX package's ``import_mobilenetv3_backbone``) ->
+    ``MobileNetV3LargeFeatures``. A block whose expansion is 1 lists dw,
+    bn, act, SE, pw-lin, bn; any other pw, bn, act, dw, bn, SE, act,
+    pw-lin, bn."""
+    from ..models.mobilenetv3 import LARGE_CFG
+
+    e = [(f"{port}.stem.weight", (f"{ref}features.0.0.weight",), "copy")]
+    e += _bn(f"{port}.stem_bn", f"{ref}features.0.1")
+    for i in range(1, len(LARGE_CFG) + 1):
+        pre, mine, block = f"{ref}features.{i}.conv", f"{port}.block{i}", getattr(trunk, f"block{i}")
+        idx = dict(dw=3, dw_bn=4, se=5, pw_lin=7, pw_lin_bn=8) if block.expand else dict(
+            dw=0, dw_bn=1, se=3, pw_lin=4, pw_lin_bn=5)
+        if block.expand:
+            e.append((f"{mine}.pw.weight", (f"{pre}.0.weight",), "copy"))
+            e += _bn(f"{mine}.pw_bn", f"{pre}.1")
+        e.append((f"{mine}.dw.weight", (f"{pre}.{idx['dw']}.weight",), "copy"))
+        e += _bn(f"{mine}.dw_bn", f"{pre}.{idx['dw_bn']}")
+        if block.se is not None:  # SE: Linear, ReLU, Linear, h_sigmoid
+            e += [(f"{mine}.se.{fc}.{leaf}", (f"{pre}.{idx['se']}.fc.{k}.{leaf}",), "copy")
+                  for fc, k in (("fc1", 0), ("fc2", 2)) for leaf in ("weight", "bias")]
+        e.append((f"{mine}.pw_lin.weight", (f"{pre}.{idx['pw_lin']}.weight",), "copy"))
+        e += _bn(f"{mine}.pw_lin_bn", f"{pre}.{idx['pw_lin_bn']}")
+    return e
+
+
+def backbone_entries(trunk, port: str = "features.backbone", ref: str = _TRUNK_REF) -> List[Entry]:
+    """The entries of a port trunk module (by its class) under the port
+    prefix ``port``, its reference keys under ``ref``: densenet121/169/201/
+    161 (torchvision's ``features.*`` style), the dilated ResNets,
+    EfficientNet, MobileNetV3-Large."""
+    from ..models.densenet import DenseNetFeatures
+    from ..models.efficientnet import EfficientNetFeatures
+    from ..models.mobilenetv3 import MobileNetV3LargeFeatures
+    from ..models.resnet_deeplab import ResNetDeeplabFeatures
+
+    if isinstance(trunk, DenseNetFeatures):
+        blocks = tuple(len(getattr(trunk, f"denseblock{i + 1}")) for i in range(trunk.n_blocks))
+        return [(p, tuple(ref + r for r in refs), kind) for p, refs, kind in _densenet(port, blocks)]
+    maker = {ResNetDeeplabFeatures: _resnet, EfficientNetFeatures: _efficientnet,
+             MobileNetV3LargeFeatures: _mobilenetv3}[type(trunk)]
+    return maker(port, ref, trunk)
+
+
+def _trunk_entries(trunk, branches) -> List[Entry]:
+    """piramidNet2 / piramidNet: the trunk under
     ``resnet_features.resnet_features`` and the branch convbns (Sequential:
     0 AvgPool, 1 convbn, 2 ReLU)."""
-    entries = [(p, tuple(f"resnet_features.resnet_features.{r}" for r in refs), kind)
-               for p, refs, kind in _densenet("features.backbone", block_config)]
+    entries = backbone_entries(trunk)
     for tap, n in branches:
         for k in range(n):
             entries += _convbn(f"features.branch{tap}_{k}", f"resnet_features.branch{tap}_{k}.1")
@@ -186,28 +288,36 @@ def _trunk_entries(block_config, branches) -> List[Entry]:
 
 
 def _trunk_view(sd: Mapping[str, object]) -> Dict[str, object]:
-    """The trunk's keys of a reference dict in torchvision's style, under
-    their full prefix; every other key as it is."""
-    pre = "resnet_features.resnet_features."
+    """A reference dict with its densenet trunk's keys (if it has one) in
+    torchvision's style, under their full prefix; every other key as it
+    is."""
+    pre = _TRUNK_REF
     bb = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
-    if not bb:
+    if not any(k.startswith(("features.conv0.", "conv0.")) for k in bb):
         return dict(sd)
     rest = {k: v for k, v in sd.items() if not k.startswith(pre)}
     rest.update((pre + k, v) for k, v in _torchvision_style(bb).items())
     return rest
 
 
-def ext_entries(use_att: bool = True, conv_deconv_out: int = 0, ablation: Sequence[str] = (),
-                aspp_mod: int = 0, hanet: bool = False, variant: str = "ext",
-                block_config: Sequence[int] = DENSENET121_BLOCKS,
-                hanet_embedding: bool = False) -> List[Entry]:
-    """The entries of minidsnetExt and its variants (the JAX package's
-    ``import_minidsnet_ext``). ``variant``: "ext"; "v2" (one self-gate
+def _aspp_4(trunk) -> List[Entry]:
+    """The ResNet trunks' ASPP over tap 4 (``aspp_4``, dsnet_t2.py:957-960)."""
+    from ..models.resnet_deeplab import ResNetDeeplabFeatures
+
+    return _aspp("aspp_4", "aspp_4") if isinstance(trunk, ResNetDeeplabFeatures) else []
+
+
+def ext_entries(trunk, use_att: bool = True, conv_deconv_out: int = 0,
+                ablation: Sequence[str] = (), aspp_mod: int = 0, hanet: bool = False,
+                variant: str = "ext", hanet_embedding: bool = False) -> List[Entry]:
+    """The entries of minidsnetExt and its variants on the port trunk
+    ``trunk`` (the JAX package's ``import_minidsnet_ext``; a ResNet trunk
+    adds ``aspp_4``). ``variant``: "ext"; "v2" (one self-gate
     ``conv1d_at``); "piramid" (the flagship's modules); "piramid_res"
     (plain ``dispoutConv`` and ``convSegOut`` heads, an unwrapped
     ``Conv2DownUp11``). ``hanet_embedding``: HANet's learned position
     embedding (is_encoding 0)."""
-    e = _trunk_entries(block_config, ((0, 5), (1, 4), (2, 3)))
+    e = _trunk_entries(trunk, ((0, 5), (1, 4), (2, 3)))
     e += _image_convs("conv2d_ba", (0, 2, 1, 3))
     e += _conv_plain("segNet.conv1d_1", "segNet.conv1d_1")
     e += _cdu("segNet.cdu1", "segNet.Conv2DownUp1")
@@ -238,13 +348,11 @@ def ext_entries(use_att: bool = True, conv_deconv_out: int = 0, ablation: Sequen
     e += _conv_plain("conv1d_5", "conv1d_5")
     if aspp_mod in (1, 2):
         e += _aspp("aspp", "aspp")
+    e += _aspp_4(trunk)
     if hanet:
         e += _hanet("hanet_last", "hanet_last", hanet_embedding)
     if conv_deconv_out:
-        e += _cdu("cdu11", "Conv2DownUp11.0", last=False)
-        e.append(("convOutput2.weight", ("convOutput2.c2d.weight",), "copy"))
-        if conv_deconv_out == 2:
-            e += _deconv_out("convOutput", "convOutput")
+        e += _conv_deconv_out(conv_deconv_out)
     elif variant == "piramid_res":
         e += _cdu("cdu11", "Conv2DownUp11", last=False)
         e.append(("cdu11_out.conv.weight", ("convSegOut.c2d.weight",), "copy"))
@@ -252,6 +360,14 @@ def ext_entries(use_att: bool = True, conv_deconv_out: int = 0, ablation: Sequen
         e += _cdu("cdu11", "Conv2DownUp11.0", last=False)
         e += _deconv_out("cdu11_out", "Conv2DownUp11.1")
     return e
+
+
+def _conv_deconv_out(mode: int) -> List[Entry]:
+    """convDeconvOut 1/2: ``Conv2DownUp11``'s body, the plain ``convOutput2``
+    and (mode 2) the transposed ``convOutput``."""
+    e = _cdu("cdu11", "Conv2DownUp11.0", last=False)
+    e.append(("convOutput2.weight", ("convOutput2.c2d.weight",), "copy"))
+    return e + (_deconv_out("convOutput", "convOutput") if mode == 2 else [])
 
 
 def _aspp(port: str, ref: str) -> List[Entry]:
@@ -297,11 +413,11 @@ def _disp_head() -> List[Entry]:
     return e + _deconv_out("dispoutConv", "dispoutConv")
 
 
-def minidsnet_entries(block_config: Sequence[int] = DENSENET121_BLOCKS) -> List[Entry]:
+def minidsnet_entries(trunk) -> List[Entry]:
     """minidsnet, ``sdnet_mini`` (the JAX package's ``import_minidsnet``):
     the original piramidNet, ba0 and ba1 merged (ba2, ba3 and conv1d_3 are
     built but unused by the forward)."""
-    e = _trunk_entries(block_config, ((0, 5), (1, 3)))
+    e = _trunk_entries(trunk, ((0, 5), (1, 3)))
     e += _image_convs("conv2d_ba", (0, 1))
     return e + _head1_segnet() + _disp_head()
 
@@ -323,10 +439,10 @@ def _dsnet_tail() -> List[Entry]:
     return e + _deconv_out("cdu10_out", "Conv2DownUp10.1")
 
 
-def dsnet_entries(block_config: Sequence[int] = DENSENET121_BLOCKS) -> List[Entry]:
+def dsnet_entries(trunk) -> List[Entry]:
     """dsnet, ``sdnet`` (the JAX package's ``import_dsnet``): head 1 inline,
     no conv2d_ba0."""
-    e = _trunk_entries(block_config, ((0, 5), (1, 3)))
+    e = _trunk_entries(trunk, ((0, 5), (1, 3)))
     for i in (1, 2, 3):
         e += _convbn(f"conv2d_ba{i}", f"conv2d_ba{i}.0")
     e += _conv_plain("conv1d_1", "conv1d_1") + _cdu("cdu1", "Conv2DownUp1")
@@ -335,38 +451,97 @@ def dsnet_entries(block_config: Sequence[int] = DENSENET121_BLOCKS) -> List[Entr
     return e + _disp_head() + _dsnet_tail()
 
 
-def dsnetv2_entries(block_config: Sequence[int] = DENSENET121_BLOCKS) -> List[Entry]:
+def dsnetv2_entries(trunk) -> List[Entry]:
     """dsnetv2, ``sdnetv2`` (the JAX package's ``import_dsnetv2``)."""
-    e = _trunk_entries(block_config, ((0, 5), (1, 3)))
+    e = _trunk_entries(trunk, ((0, 5), (1, 3)))
     for i in range(4):
         e += _convbn(f"conv2d_ba{i}", f"conv2d_ba{i}.0")
     return e + _head1_segnet() + _disp_head() + _dsnet_tail()
 
 
-def import_minidsnet_ext(state_dict, use_att: bool = True, conv_deconv_out: int = 0,
-                         ablation=(), aspp_mod: int = 0, hanet: bool = False,
-                         variant: str = "ext",
-                         block_config: Sequence[int] = DENSENET121_BLOCKS) -> Dict[str, torch.Tensor]:
-    """A reference minidsnetExt state dict -> {port name: tensor}. HANet's
-    learned embedding is read when the dict has it, as in the JAX package."""
-    emb = "hanet_last.pos_emb1d_2nd.pos_embedding.weight" in state_dict
-    return _apply(ext_entries(use_att, conv_deconv_out, ablation, aspp_mod, hanet, variant,
-                              block_config, emb), _trunk_view(state_dict))
+def _rcu(port: str, ref: str, use_deconv: bool) -> List[Entry]:
+    """RCU (dsnet_t2_ext_small.py:43-64): c1, c2, then the deconvbn d3 or
+    the convbn c3, each under Sequential index 0."""
+    e = _convbn(f"{port}.c1", f"{ref}.c1.0") + _convbn(f"{port}.c2", f"{ref}.c2.0")
+    if use_deconv:
+        return e + _deconvbn(f"{port}.d3", f"{ref}.d3.0")
+    return e + _convbn(f"{port}.c3", f"{ref}.c3.0")
 
 
-def import_minidsnet(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
-                     ) -> Dict[str, torch.Tensor]:
-    return _apply(minidsnet_entries(block_config), _trunk_view(state_dict))
+def ext_small_entries(trunk, variant: str = "edge") -> List[Entry]:
+    """Ext_small (``_edge``), Ext_smallv2 (``_edgev2``) and Ext_smallv0
+    (``sdnet_mini_ext_small``) at aspp 0 (the JAX package's
+    ``import_ext_small``): RCUs in place of the Conv2DownUps, plain
+    conv2dSame output heads but the transposed ``dispoutConv``; the edge
+    variant's three image convbns. conv1d_3 is built, never used."""
+    use_dc = variant != "edge"
+    e = _trunk_entries(trunk, ((0, 5), (1, 4), (2, 3)))
+    if variant == "edge":
+        for i in (0, 1, 2):
+            e += _convbn(f"conv2d_ba{i}", f"conv2d_ba{i}.0")
+    e += _conv_plain("segNet.conv1d_1", "segNet.conv1d_1")
+    e += _rcu("segNet.cdu1", "segNet.Conv2DownUp1", use_dc)
+    e += _conv_plain("segNet.conv1d_2", "segNet.conv1d_2")
+    e += _rcu("segNet.cdu2", "segNet.Conv2DownUp2.0", use_dc)
+    e.append(("segNet.out.weight", ("segNet.Conv2DownUp2.1.c2d.weight",), "copy"))
+    e += _conv_plain("corrConv2d", "corrConv2d")
+    for k in range(3, 11):
+        e += _rcu(f"rcu{k}", f"Conv2DownUp{k}", use_dc)
+    e += _conv_plain("conv1d_2", "conv1d_2")
+    e.append(("dispoutConv.weight", ("dispoutConv.ct2d.weight",), "deconv"))
+    for name in ("conv1d_4", "conv1d_at", "conv1d_5"):
+        e += _conv_plain(name, name)
+    e += _rcu("rcu11", "Conv2DownUp11.0", use_dc)
+    e.append(("rcu11_out.weight", ("Conv2DownUp11.1.c2d.weight",), "copy"))
+    return e
 
 
-def import_dsnet(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
-                 ) -> Dict[str, torch.Tensor]:
-    return _apply(dsnet_entries(block_config), _trunk_view(state_dict))
+def _plain_conv_bn(port: str, ref: str, conv: str = "conv", bn: str = "bn") -> List[Entry]:
+    """Sequential(Conv2d bias-free, Norm2d, ReLU) -> a conv and its BN."""
+    return [(f"{port}.{conv}.weight", (f"{ref}.0.weight",), "copy")] + _bn(f"{port}.{bn}",
+                                                                          f"{ref}.1")
 
 
-def import_dsnetv2(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
-                   ) -> Dict[str, torch.Tensor]:
-    return _apply(dsnetv2_entries(block_config), _trunk_view(state_dict))
+def deeplabv3plus_hanet_entries(trunk, port: str = "features",
+                                ref: str = "resnet_features") -> List[Entry]:
+    """deeplabV3plus(return_layers=True) (models_hanet/resnet_pytorch.py:
+    70-232; the JAX package's ``import_deeplabv3plus_hanet``) ->
+    ``DeeplabV3PlusFeatures``: the ResNet3X3 trunk, HANet's ASPP
+    (``features.0..3`` the 1x1 and atrous branches, ``img_conv`` the pooled
+    one) and the 1x1 ``bot_aspp``/``bot_fine``. final1_1/final1_2/final2 are
+    built, never run with return_layers."""
+    e = backbone_entries(trunk, f"{port}.trunk", f"{ref}.")
+    for i in range(4):
+        e += _plain_conv_bn(f"{port}.aspp", f"{ref}.aspp.features.{i}", f"feat{i}_conv",
+                            f"feat{i}_bn")
+    e += _plain_conv_bn(f"{port}.aspp", f"{ref}.aspp.img_conv", "img_conv", "img_bn")
+    return e + _plain_conv_bn(f"{port}.bot_aspp", f"{ref}.bot_aspp") + _plain_conv_bn(
+        f"{port}.bot_fine", f"{ref}.bot_fine")
+
+
+def ext_dlab_entries(trunk, conv_deconv_out: int = 0, ablation: Sequence[str] = (),
+                     hanet: bool = False, hanet_embedding: bool = False) -> List[Entry]:
+    """minidsnetExt_deeplab, ``sdnet_mini_ext_dlab`` (the JAX package's
+    ``import_ext_dlab``): the flagship's heads over ``deeplabv3plus_hanet_
+    entries``. conv1d_3 is built, never used."""
+    e = deeplabv3plus_hanet_entries(trunk) + _head1_segnet() + _disp_head()
+    e += _conv_plain("conv1d_4", "conv1d_4") + _cdu("cdu6", "Conv2DownUp6")
+    if "no_dec3" not in ablation:
+        e += _cdu("cdu7", "Conv2DownUp7") + _cdu("cdu8", "Conv2DownUp8")
+        e += _cdu("cdu9", "Conv2DownUp9")
+        e += _conv_plain("conv1d_at_d", "conv1d_at_d") + _conv_plain("conv1d_at_s", "conv1d_at_s")
+    e += _cdu("cdu10", "Conv2DownUp10") + _conv_plain("conv1d_5", "conv1d_5")
+    if conv_deconv_out:
+        e += _conv_deconv_out(conv_deconv_out)
+    else:
+        e += _cdu("cdu11", "Conv2DownUp11.0", last=False)
+        e += _deconv_out("cdu11_out", "Conv2DownUp11.1")
+    if hanet:
+        e += _hanet("hanet_last", "hanet_last", hanet_embedding)
+    return e
+
+
+_EMBEDDING = "hanet_last.pos_emb1d_2nd.pos_embedding.weight"
 
 
 def import_densenet121(state_dict, block_config: Sequence[int] = DENSENET121_BLOCKS
@@ -376,6 +551,12 @@ def import_densenet121(state_dict, block_config: Sequence[int] = DENSENET121_BLO
     return {k[len("bb."):]: v
             for k, v in _apply(_densenet("bb", block_config),
                                _torchvision_style(state_dict)).items()}
+
+
+def import_mobilenetv3_backbone(state_dict, trunk) -> Dict[str, torch.Tensor]:
+    """A MobileNetV3-Large checkpoint in cuevhv's layout (its classifier
+    ignored) -> {name in ``MobileNetV3LargeFeatures``: tensor}."""
+    return {k[len("bb."):]: v for k, v in _apply(_mobilenetv3("bb", "", trunk), state_dict).items()}
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -442,46 +623,60 @@ def block_config_of(model: torch.nn.Module) -> Tuple[int, ...]:
 
 _EXT_VARIANTS = {"sdnet_mini_ext": "ext", "sdnet_mini_ext_v2": "v2",
                  "sdnet_mini_ext_piramid": "piramid", "sdnet_mini_ext_piramid_res": "piramid_res"}
+_EXT_SMALL_VARIANTS = {"sdnet_mini_ext_small": "v0", "sdnet_mini_ext_small_edge": "edge",
+                       "sdnet_mini_ext_small_edgev2": "v2"}
+_LEGACY = {"sdnet_mini": minidsnet_entries, "sdnet": dsnet_entries, "sdnetv2": dsnetv2_entries}
 
 
 def _check_ported(cfg) -> None:
     m = cfg.model
-    if m.backbone != "densenet":
-        raise NotImplementedError(f"importing a {m.backbone} trunk is not ported yet "
-                                  f"(ROADMAP.md queue 1, item 12.6)")
     if m.net in _EXT_VARIANTS and m.multaskloss:
         raise NotImplementedError("importing the multitask modes' weights is not ported: the JAX "
                                   "package's importer does not map them either "
                                   "(ROADMAP.md queue 1, item 11.3)")
-    if m.net not in _EXT_VARIANTS and m.net not in ("sdnet_mini", "sdnet", "sdnetv2"):
+    unmapped = ""
+    if m.net in _EXT_VARIANTS or m.net in _EXT_SMALL_VARIANTS:
+        if m.backbone == "mobilenet":
+            unmapped = "a mobilenet trunk inside a net"
+        elif m.net in _EXT_SMALL_VARIANTS and (m.aspp or m.backbone in ("resnet50", "resnet101")):
+            unmapped = "the Ext_small nets' ASPPs (aspp 1/2, a ResNet trunk's aspp_4)"
+    if unmapped:
+        raise NotImplementedError(f"importing {unmapped} is not ported: the JAX package's importer "
+                                  f"does not map it either (ROADMAP.md queue 3)")
+    known = set(_EXT_VARIANTS) | set(_EXT_SMALL_VARIANTS) | set(_LEGACY) | {"sdnet_mini_ext_dlab"}
+    if m.net not in known:
         raise NotImplementedError(f"importing a torch checkpoint of -net {m.net} is not ported "
                                   f"yet (ROADMAP.md queue 1, item 12.7)")
 
 
-def entries_for(cfg, model: torch.nn.Module) -> List[Entry]:
+def entries_for(cfg, model: torch.nn.Module, hanet_embedding: bool = None) -> List[Entry]:
     """The importer's entries of the configured net (a ``PMTConfig``), for
-    ``model`` (its trunk depth, HANet's encoding): what ``export_state_dict``
-    inverts."""
+    ``model`` (its trunk, HANet's encoding): what ``export_state_dict``
+    inverts. ``hanet_embedding`` (HANet's learned position embedding) is the
+    config's unless given."""
     _check_ported(cfg)
-    m, blocks = cfg.model, block_config_of(model)
+    m = cfg.model
+    if hanet_embedding is None:
+        hanet_embedding = bool(m.hanet) and not m.hanet_is_encoding
+    if m.net == "sdnet_mini_ext_dlab":
+        return ext_dlab_entries(model.features.trunk, m.conv_deconv_out, m.ablation or (),
+                                bool(m.hanet), hanet_embedding)
+    trunk = model.features.backbone
     if m.net in _EXT_VARIANTS:
-        return ext_entries(m.use_att, m.conv_deconv_out, m.ablation, m.aspp, bool(m.hanet),
-                           _EXT_VARIANTS[m.net], blocks,
-                           hanet_embedding=bool(m.hanet) and not m.hanet_is_encoding)
-    return {"sdnet_mini": minidsnet_entries, "sdnet": dsnet_entries,
-            "sdnetv2": dsnetv2_entries}[m.net](blocks)
+        return ext_entries(trunk, m.use_att, m.conv_deconv_out, m.ablation or (), m.aspp,
+                           bool(m.hanet), _EXT_VARIANTS[m.net], hanet_embedding)
+    if m.net in _EXT_SMALL_VARIANTS:
+        return ext_small_entries(trunk, _EXT_SMALL_VARIANTS[m.net])
+    return _LEGACY[m.net](trunk)
 
 
 def import_state_dict(cfg, model: torch.nn.Module, state_dict) -> Dict[str, torch.Tensor]:
     """A reference state dict of the configured net -> {port name: tensor},
-    through the JAX package's importer of the same name."""
-    _check_ported(cfg)
-    m, blocks = cfg.model, block_config_of(model)
-    if m.net in _EXT_VARIANTS:
-        return import_minidsnet_ext(state_dict, m.use_att, m.conv_deconv_out, m.ablation, m.aspp,
-                                    bool(m.hanet), _EXT_VARIANTS[m.net], blocks)
-    return {"sdnet_mini": import_minidsnet, "sdnet": import_dsnet,
-            "sdnetv2": import_dsnetv2}[m.net](state_dict, blocks)
+    as the JAX package's importer of the same name maps it (HANet's learned
+    embedding read when the dict has it)."""
+    entries = entries_for(cfg, model, bool(cfg.model.hanet) and _EMBEDDING in state_dict)
+    view = state_dict if cfg.model.net == "sdnet_mini_ext_dlab" else _trunk_view(state_dict)
+    return _apply(entries, view)
 
 
 def import_checkpoint(cfg, model: torch.nn.Module, path: str) -> torch.nn.Module:

@@ -293,7 +293,7 @@ def test_make_losses_fn_hanet_and_multitask_match_jax(output_type):
 
 @pytest.mark.parametrize("field,value,item", [
     ("net", "sdnet_seg", "12.7"), ("net", "dsnet_warp", "12.7"), ("net", "dsnet_warp_disp", "12.7"),
-    ("net", "dsnet_warp_disp_consist", "12.7"), ("net", "sdnet_mini_ext_edge", "12.7"),
+    ("net", "dsnet_warp_disp_consist", "12.7"),
     ("net", "deeplab", "12.7"), ("net", "pspnet", "12.7"),
 ])
 def test_unported_output_types_raise(field, value, item):

@@ -151,10 +151,22 @@ def test_entry_points_need_a_card_unless_told_cpu(flagship):
     ("edges", True), ("backbone", "dn169"), ("backbone", "mobilenet"), ("backbone", "resnet50"),
 ])
 def test_unported_options_raise(field, value):
+    """The options that raised ``NotImplementedError`` before the zoo's
+    trunks and the edge inputs were ported (-edges, trunks other than
+    densenet121) now build at reduced depth and serve 1x32x64: finite
+    outputs of the flagship's shapes (parity with the JAX model:
+    test_torch_sdnet_trunks.py, test_torch_edge_inputs.py)."""
     cfg = PMTConfig()
     setattr(cfg.model, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.get_network(cfg, device="cpu")
+    channels = 4 if cfg.model.edges else 3
+    g = torch.Generator().manual_seed(0)
+    left, right = (torch.randn(1, 32, 64, channels, generator=g) for _ in range(2))
+    with reduced_depth():
+        port = tmodels.get_network(cfg, device="cpu")
+    assert port.conv2d_ba.conv.in_channels == channels
+    with torch.inference_mode():
+        out = port(left, right)
+    assert all(torch.isfinite(out[k]).all() and out[k].shape[:3] == (1, 32, 64) for k in OUTPUTS)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -80,11 +80,17 @@ def test_legacy_train_mode_forward_per_view_batch_norm(legacy):
 
 @pytest.mark.parametrize("net", ["sdnet", "sdnetv2"])
 def test_legacy_edges_raise(net):
+    """-edges, which raised before the edge inputs were ported, builds: the
+    image convs take the edge channel, ``sdnet``'s trunk too (the JAX
+    ``DSNet`` hands it ``input_a`` whole), ``sdnetv2``'s the first three
+    channels (parity with the JAX models: test_torch_edge_inputs.py)."""
     cfg = PMTConfig()
     cfg.model.net = net
     cfg.model.edges = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.get_network(cfg, device="cpu")
+    with reduced_depth():
+        model = tmodels.get_network(cfg, device="cpu")
+    assert all(getattr(model, name).conv.in_channels == 4 for name in model.IMAGE_CONVS)
+    assert model.features.backbone.conv0.in_channels == (4 if net == "sdnet" else 3)
 
 
 def test_sdnet_correlates_the_17x17_patch_whatever_the_corr_type():

@@ -88,8 +88,13 @@ def test_sdnet_mini_train_mode_forward_per_view_batch_norm(mini):
 
 
 def test_sdnet_mini_edges_raise():
+    """-edges, which raised before the edge inputs were ported, builds: the
+    image conv takes the edge channel, the trunk the first three channels
+    (parity with the JAX model: test_torch_edge_inputs.py)."""
     cfg = PMTConfig()
     cfg.model.net = "sdnet_mini"
     cfg.model.edges = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.get_network(cfg, device="cpu")
+    with reduced_depth():
+        model = tmodels.get_network(cfg, device="cpu")
+    assert model.conv2d_ba.conv.in_channels == 4
+    assert model.features.backbone.conv0.in_channels == 3

@@ -1,11 +1,14 @@
 """Helpers shared by the PyTorch port's parity tests (``test_torch_*.py``).
 
 * ``OPTION_CONFIGS`` names the flagship family's option configurations.
-* ``reduced_depth()`` runs the densenet121 trunk at block config (2, 2, 2, 2)
-  in both packages (the registry entry "densenet" of each), so a JAX
-  reference of a whole net traces and compiles in seconds. Widths, heads,
-  the pyramid, the weight mapping and the patch choice are those of the full
-  net; full depth is held by the flagship's eval fixture and on the card.
+* ``reduced_depth()`` runs every trunk shallow in both packages (the
+  registry entries of each, and the dlab net's ResNet-101): the densenets at
+  block config (2, 2, 2, 2) with their own growth and initial features, the
+  ResNets at ``layers=(1, 1, 1, 3)``, EfficientNet with one block a stage,
+  MobileNetV3 whole (it is small), so a JAX reference of a whole net traces
+  and compiles in seconds. Widths, heads, the pyramid, the weight mapping
+  and the patch choice are those of the full net; full depth is held by the
+  flagship's eval fixture and on the card.
 * ``torch_threads`` caps torch's CPU threads for a test module: the suite
   runs several workers on one machine, each with its own thread pools.
 * ``flax_to_port(tree)`` renames a flax tree (gradients or parameters) to the
@@ -17,6 +20,8 @@
   init's compile is the costliest part of a reference on the CPU).
 * ``check_per_view_batch_norm(port, left, right, head_bn)`` checks a net's
   train-mode forward: the trunk runs once per view, left then right.
+* ``compare_net`` runs a whole net's eval forward in both packages;
+  ``check_trunk(name)`` holds one trunk in eval and train mode.
 * ``float64_steps(net, corr_type)`` holds the port's ``make_train_step``
   against the JAX package's in float64 (two steps from the same variables
   and batch, the bench loss stack, Adam; see ``jax_float64_reference``).
@@ -39,6 +44,10 @@ from pmt_learning_for_semantic_segmentation_and_disparity_torch.core.registry im
     BACKBONES as TORCH_BACKBONES,
 )
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import densenet as td
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import efficientnet as te
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import init_parameters
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import resnet_deeplab as tr
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import sdnet_dlab as tdlab
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
     TrainState,
     build_optimizer,
@@ -52,6 +61,9 @@ from pmt_learning_for_semantic_segmentation_and_disparity_tpu.core.registry impo
 )
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import tversky as jtversky
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import densenet as jd
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import efficientnet as je
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import resnet_deeplab as jr
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.models import sdnet_dlab as jdlab
 
 REDUCED_BLOCKS = (2, 2, 2, 2)
 # the flagship family's options, combined where the flags allow (name ->
@@ -71,20 +83,51 @@ ADAM_B1 = 0.9  # optax.adam's default, the JAX package's Adam
 TORCH_THREADS = 2
 
 
-def _jax_reduced(axis_name=None, name=None):
-    return jd.DenseNetFeatures(REDUCED_BLOCKS, 32, 64, axis_name=axis_name, name=name)
+# the densenets' (growth, initial features) and the other trunks' cuts
+DENSENETS = {"densenet": (32, 64), "dn169": (32, 64), "dn201": (32, 64), "dn161": (48, 96)}
+REDUCED_RESNET = (1, 1, 1, 3)
+REDUCED_EFFNET_DEPTH = 0.25  # ceil(0.25 * n) = 1 block a stage for every n <= 4
+EFFNET_WIDTHS = {"efficientnet-b2": 1.1, "efficientnet-b3": 1.2, "efficientnet-b4": 1.4,
+                 "efficientnet-b5": 1.6}
 
 
-def _torch_reduced():
-    return td.DenseNetFeatures(REDUCED_BLOCKS, 32, 64)
+def _reduced_makers(name):
+    """(JAX factory, port factory) of trunk ``name`` at reduced depth."""
+    if name in DENSENETS:
+        growth, init = DENSENETS[name]
+        return (lambda axis_name=None, name=None: jd.DenseNetFeatures(
+                    REDUCED_BLOCKS, growth, init, axis_name=axis_name, name=name),
+                lambda in_channels=3: td.DenseNetFeatures(REDUCED_BLOCKS, growth, init,
+                                                          in_channels))
+    if name in ("resnet50", "resnet101"):
+        return (lambda axis_name=None, name=None: jr.ResNetDeeplabFeatures(
+                    REDUCED_RESNET, 16, axis_name=axis_name, name=name),
+                lambda in_channels=3: tr.ResNetDeeplabFeatures(REDUCED_RESNET, 16,
+                                                               in_channels=in_channels))
+    width = EFFNET_WIDTHS[name]
+    return (lambda axis_name=None, name=None: je.EfficientNetFeatures(
+                width, REDUCED_EFFNET_DEPTH, axis_name=axis_name, name=name),
+            lambda in_channels=3: te.EfficientNetFeatures(width, REDUCED_EFFNET_DEPTH, in_channels))
+
+
+def _reduced_dlab(module):
+    """``module.ResNetDeeplabFeatures`` of a dlab module, cut to
+    ``REDUCED_RESNET``."""
+    full = module.ResNetDeeplabFeatures
+    return lambda layers, *args, **kw: full(REDUCED_RESNET, *args, **kw)
 
 
 @contextlib.contextmanager
 def reduced_depth():
-    """Both packages build "densenet" at block config (2, 2, 2, 2) inside."""
+    """Both packages build every trunk shallow inside (the module
+    docstring); "mobilenet" stays whole."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(JAX_BACKBONES._items, "densenet", _jax_reduced)
-        mp.setitem(TORCH_BACKBONES._items, "densenet", _torch_reduced)
+        for name in tuple(DENSENETS) + ("resnet50", "resnet101") + tuple(EFFNET_WIDTHS):
+            jax_make, torch_make = _reduced_makers(name)
+            mp.setitem(JAX_BACKBONES._items, name, jax_make)
+            mp.setitem(TORCH_BACKBONES._items, name, torch_make)
+        for module in (jdlab, tdlab):
+            mp.setattr(module, "ResNetDeeplabFeatures", _reduced_dlab(module))
         yield
 
 
@@ -100,17 +143,21 @@ _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
-def _to_flax_layout(a):
+def _to_flax_layout(a, leaf="kernel"):
     """A port tensor in flax's layout: conv kernels OIHW -> HWIO, Conv1d
-    kernels OIk -> (k, I, O)."""
+    kernels OIk -> (k, I, O), Linear weights (O, I) -> Dense kernels (I, O)."""
     if a.ndim == 4:
         return a.transpose(2, 3, 1, 0)
+    if a.ndim == 2 and leaf == "kernel":
+        return a.T
     return a.transpose(2, 1, 0) if a.ndim == 3 else a
 
 
-def _from_flax_layout(a):
+def _from_flax_layout(a, leaf="kernel"):
     if a.ndim == 4:
         return a.transpose(3, 2, 0, 1)
+    if a.ndim == 2 and leaf == "kernel":
+        return a.T
     return a.transpose(2, 1, 0) if a.ndim == 3 else a
 
 
@@ -130,7 +177,7 @@ def variables_from_port(port: torch.nn.Module, init, *args) -> dict:
     def leaf(path, shape):
         keys = [k.key for k in path]
         names = _LEAVES if keys[0] == "params" else _STATS
-        a = _to_flax_layout(state[_port_key(keys[1:], names)].detach().numpy())
+        a = _to_flax_layout(state[_port_key(keys[1:], names)].detach().numpy(), keys[-1])
         assert a.shape == shape.shape, (keys, a.shape, shape.shape)
         return np.array(a, np.float32)
 
@@ -146,7 +193,7 @@ def flax_to_port(tree) -> dict:
             if isinstance(v, dict) or hasattr(v, "items"):
                 walk(v, path + (k,))
             else:
-                out[_port_key(list(path + (k,)), _LEAVES)] = _from_flax_layout(np.asarray(v, np.float64))
+                out[_port_key(list(path + (k,)), _LEAVES)] = _from_flax_layout(np.asarray(v, np.float64), k)
     walk(tree, ())
     return out
 
@@ -162,7 +209,10 @@ def check_per_view_batch_norm(port, left, right, head_bn, per_view_bn=(), **inpu
     shared by both views, e.g. aspp 2's ASPP) move twice, as the trunk's do.
     ``inputs`` are the model's keyword inputs. Returns the outputs."""
     port = copy.deepcopy(port).train()
-    bns = {"trunk": port.features.backbone.norm0, "head": port.get_submodule(head_bn)}
+    trunk = getattr(port.features, "backbone", None) or port.features.trunk
+    conv0 = next(m for m in trunk.modules() if isinstance(m, torch.nn.Conv2d))
+    norm0 = next(m for m in trunk.modules() if isinstance(m, torch.nn.BatchNorm2d))
+    bns = {"trunk": norm0, "head": port.get_submodule(head_bn)}
     bns.update((name, port.get_submodule(name)) for name in per_view_bn)
     seen = {key: [] for key in bns}
     for key, bn in bns.items():
@@ -182,10 +232,53 @@ def check_per_view_batch_norm(port, left, right, head_bn, per_view_bn=(), **inpu
             var = 0.9 * var + 0.1 * x.var(dim=dims, unbiased=False)
         torch.testing.assert_close(bn.running_mean, mean, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(bn.running_var, var, rtol=1e-5, atol=1e-6)
-    # the left view's pass is the model's conv0 on the left image
-    conv0 = port.features.backbone.conv0(torch.from_numpy(left).permute(0, 3, 1, 2))
-    torch.testing.assert_close(seen["trunk"][0], conv0.detach(), rtol=1e-5, atol=1e-5)
+    # the left view's pass is the trunk's first conv on the left image (its
+    # first three channels, unless the trunk takes the edge channel too)
+    image = torch.from_numpy(left[..., :conv0.in_channels]).permute(0, 3, 1, 2)
+    torch.testing.assert_close(seen["trunk"][0], conv0(image).detach(), rtol=1e-5, atol=1e-5)
     return out
+
+
+def net_configs(net, **options):
+    """(JAX config, port config) of ``net`` with the model options."""
+    cfgs = (JaxConfig(), PMTConfig())
+    for cfg in cfgs:
+        cfg.model.net = net
+        for k, v in options.items():
+            setattr(cfg.model, k, v)
+    return cfgs
+
+
+def compare_net(net, left, right, jax_kw=None, torch_kw=None, **options):
+    """The eval forward of ``net`` at ``reduced_depth`` in both packages on
+    the NHWC numpy images, the port's seeded weights carried to flax and
+    back (``load_jax_variables``): (JAX outputs, port outputs) as numpy, and
+    the port model. ``jax_kw``/``torch_kw``: the models' keyword inputs."""
+    jax_kw, torch_kw = jax_kw or {}, torch_kw or {}
+    jcfg, cfg = net_configs(net, **options)
+    with reduced_depth():
+        port = tmodels.get_network(cfg, device="cpu", seed=0)
+        model = jmodels.get_network(jcfg)
+        variables = variables_from_port(
+            port, lambda k, a, b: model.init({"params": k}, a, b, train=False, **jax_kw),
+            jax.random.PRNGKey(0), left, right)
+        ref = jax.jit(lambda v, a, b: model.apply(v, a, b, train=False, **jax_kw))(
+            variables, left, right)
+    tmodels.load_jax_variables(port, variables["params"], variables["batch_stats"])
+    with torch.inference_mode():
+        got = port(torch.from_numpy(left), torch.from_numpy(right), **torch_kw)
+    return ({k: np.asarray(v) for k, v in ref.items()},
+            {k: np.asarray(v) for k, v in got.items()}, port)
+
+
+def worst_output(ref: dict, got: dict):
+    """(max|got - ref| / max|ref|, key) over the outputs; both dicts hold the
+    same keys and shapes."""
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].shape == ref[k].shape, (k, got[k].shape, ref[k].shape)
+        assert np.isfinite(got[k]).all(), k
+    return max((np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max(), k) for k in ref)
 
 
 # ---- the train step in float64 against the JAX package's ----
@@ -339,3 +432,72 @@ def worst_relative(got: dict, ref: dict):
     assert set(got) == set(ref)
     tiny = np.finfo(np.float64).tiny
     return max((np.abs(got[n] - r).max() / max(np.abs(r).max(), tiny), n) for n, r in ref.items())
+
+
+# ---- one trunk against the JAX trunk (test_torch_trunks*.py) ----
+# One trunk of each package at ``reduced_depth``, the port's seeded weights
+# carried to flax, compared at 1x64x128 (even H and W, so EfficientNet's
+# stride-2 SAME convs pad asymmetrically), in eval mode and in train mode
+# (batch statistics, and the running statistics each BatchNorm moves to:
+# flax momentum 0.9, EfficientNet's 0.99). Bound: max|port - jax| <= 1e-4 *
+# max|jax| per tap and running variance, and per running mean 1e-4 of the
+# larger of max|jax| and its layer's running standard deviation
+# (``_stat_error``).
+TRUNK_REL = 1e-4
+TRUNK_SHAPE = (1, 64, 128, 3)
+# HANet's ResNet3X3 at output stride 8, the dlab net's trunk
+DLAB_TRUNK = "resnet101-3x3x3-os8"
+
+
+def _trunk_pair(name):
+    """(JAX trunk, port trunk with seeded weights) at reduced depth."""
+    with reduced_depth():
+        if name == DLAB_TRUNK:
+            jax_trunk = jr.ResNetDeeplabFeatures(REDUCED_RESNET, 8, stem="3x3x3", multigrid=False)
+            port = tr.ResNetDeeplabFeatures(REDUCED_RESNET, 8, stem="3x3x3", multigrid=False)
+        else:
+            jax_trunk, port = JAX_BACKBONES.get(name)(), TORCH_BACKBONES.get(name)()
+    init_parameters(port, torch.Generator().manual_seed(0))
+    return jax_trunk, port.eval()
+
+
+def _worst(got, ref):
+    return max(float(np.abs(g - r).max() / np.abs(r).max()) for g, r in zip(got, ref))
+
+
+def check_trunk(name):
+    """Eval taps, train taps and running statistics of trunk ``name``
+    against the JAX trunk; returns the worst relative error of each."""
+    jax_trunk, port = _trunk_pair(name)
+    x = np.random.default_rng(0).standard_normal(TRUNK_SHAPE, dtype=np.float32)
+    variables = variables_from_port(port, lambda k, a: jax_trunk.init({"params": k}, a, train=False),
+                                    jax.random.PRNGKey(0), x)
+    ref_eval = jax.jit(lambda v, a: jax_trunk.apply(v, a, train=False))(variables, x)
+    ref_train, updated = jax.jit(lambda v, a: jax_trunk.apply(v, a, train=True,
+                                                              mutable=["batch_stats"]))(variables, x)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got_eval = port(xt)
+        port.train()
+        got_train = port(xt)
+    assert len(got_eval) == len(ref_eval) == 5
+    assert tuple(port.tap_channels) == tuple(np.shape(t)[-1] for t in ref_eval)
+    nhwc = lambda taps: [np.asarray(t.permute(0, 2, 3, 1)) for t in taps]  # noqa: E731
+    ref_stats = flax_stats_to_port(updated["batch_stats"])
+    got_stats = port_stats(port)
+    assert set(got_stats) == set(ref_stats)
+    return {"eval": _worst(nhwc(got_eval), [np.asarray(t) for t in ref_eval]),
+            "train": _worst(nhwc(got_train), [np.asarray(t) for t in ref_train]),
+            "stats": max(_stat_error(got_stats, ref_stats, n) for n in ref_stats)}
+
+
+def _stat_error(got, ref, name):
+    """A running statistic's error relative to its scale: a variance's
+    max|ref|; a mean's max(max|ref|, the layer's largest running standard
+    deviation). (After a 1x1 conv of a map that a BatchNorm has just
+    centred, a batch mean is zero to rounding, ~1e-8, and relative to its
+    own max it would measure rounding only.)"""
+    scale = np.abs(ref[name]).max()
+    if name.endswith("running_mean"):
+        scale = max(scale, np.sqrt(ref[name[:-len("mean")] + "var"]).max())
+    return float(np.abs(got[name] - ref[name]).max() / scale)
