@@ -98,7 +98,26 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    each forward launching its correlation once and each step its backward
    once too (phase 9's the same); a resnet101 flagship's ``.pth.tar`` restores
    bit-equal through the eval CLI and ``-pretrained_path`` grafts a
-   MobileNetV3-Large in cuevhv's layout.
+   MobileNetV3-Large in cuevhv's layout;
+11. the rest of the CLI's nets (the warp family, DeepLabV3+ mono and
+   stereo, PSMNet) at full width and depth: phase 2 above also holds corr1d
+   and its backward at ``deeplab_mod``'s site (``DEEPLAB_MOD_SITE``: conv2
+   of Xception-65's block-8 taps, 256 channels at output stride 8 of the
+   padded input, (16, 65, 121, 256) serving and (8, 33, 65, 256) training:
+   W 121 and 65 leave a last 64-column tile of 57 and of one column), both
+   dtypes, printing each bf16 plan, timing the bf16 forward at the serving
+   shape alone and the bf16 backward at the training shape with the L2
+   flushed. ``deeplab_mod`` (corr1d once a batch/step), ``dsnet_warp`` on
+   densenet121 (corr1d at 352 and the disparity warp) and ``pspnet``
+   (maxdisp 192, no correlation) serve 16 pairs of 512x960 and train at
+   8x256x512 with their launches held; every other configuration
+   (``ZOO_RUNS``: ``deeplab``, the other warp nets, ``sdnet_seg``,
+   ``dsnet_warp`` with 2dcorr and on resnet101) runs its fp32 forward card
+   vs CPU at 1x64x128 and one bf16 train step with its launches held;
+   ``-tta 1 -tta_scales 0.75 1.25`` on ``deeplab`` through the eval step card
+   vs CPU; ``deeplab_mod`` and ``dsnet_warp`` weights written in the
+   reference's ``.pth.tar`` layout restore bit-equal through the eval CLI,
+   and ``-pretrained_path`` grafts an Xception-65 into ``deeplab``.
 
 The third-to-last line of stdout is a JSON object with one record per
 kernel, the second-to-last the card's name and power limit, and the last
@@ -117,7 +136,9 @@ four timed cases of phase 2, without the HMMA count).
 kernels' record but no result line; ``python3 chip_smoke.py --files`` runs
 phase 8 only, ``--options`` phase 9 only (``--serve flagship_aspp2`` and
 ``--train flagship_aspp2`` time that path alone), ``--trunks`` phase 10
-only (``--serve dlab``, ``--train flagship_resnet101`` and the like).
+only (``--serve dlab``, ``--train flagship_resnet101`` and the like),
+``--zoo`` phase 11 only (``--serve pspnet``, ``--train deeplab_mod`` and the
+like).
 """
 from __future__ import annotations
 
@@ -165,12 +186,30 @@ EDGE_RUNS = {"ext_small": ("sdnet_mini_ext_small", {}),
              "dlab_2dcorr": ("sdnet_mini_ext_dlab", {"corr_type": "2dcorr"})}
 TRUNK_RUNS = {**TRUNK_PATHS, **{f"flagship_{b}": ("sdnet_mini_ext", {"backbone": b})
                                 for b in OTHER_TRUNKS}, **EDGE_RUNS}
+# phase 11: the rest of the CLI's nets. The phase's three full-width paths
+# (deeplab_mod: corr1d at its new site; dsnet_warp on densenet121: corr1d
+# at 352 and the disparity warp; pspnet: no correlation), then every other
+# configuration
+ZOO_PATHS = {"deeplab_mod": ("deeplab_mod", {}), "dsnet_warp": ("dsnet_warp", {}),
+             "pspnet": ("pspnet", {})}
+ZOO_RUNS = {"deeplab": ("deeplab", {}), "dsnet_warp_soft": ("dsnet_warp_soft", {}),
+            "dsnet_warp_disp": ("dsnet_warp_disp", {}),
+            "dsnet_warp_disp_consist": ("dsnet_warp_disp_consist", {}),
+            "sdnet_seg": ("sdnet_seg", {}),
+            "dsnet_warp_2dcorr": ("dsnet_warp", {"corr_type": "2dcorr"}),
+            "dsnet_warp_resnet101": ("dsnet_warp", {"backbone": "resnet101"})}
+ZOO_SERVE_BATCHES = 3  # a warm-up and two timed batches
+ZOO_TRAIN_STEPS = 4    # timed, after TRAIN_WARMUP
+TTA_SCALES = (0.75, 1.25)
 # net served -> (batches, each kernel's launches per batch): each path's own
 # kernel once per batch, the other never
 SERVE = {"sdnet_mini_ext": (4, {"corr1d": 1, "corr2d": 0}),
          "sdnet": (3, {"corr2d": 1, "corr1d": 0}),
          "flagship_aspp2": (4, {"corr1d": 2, "corr2d": 0}),  # both corr1d sites
-         **{run: (4, {"corr1d": 1, "corr2d": 0}) for run in TRUNK_PATHS}}
+         **{run: (4, {"corr1d": 1, "corr2d": 0}) for run in TRUNK_PATHS},
+         "deeplab_mod": (ZOO_SERVE_BATCHES, {"corr1d": 1, "corr2d": 0}),
+         "dsnet_warp": (ZOO_SERVE_BATCHES, {"corr1d": 1, "corr2d": 0}),
+         "pspnet": (ZOO_SERVE_BATCHES, {"corr1d": 0, "corr2d": 0})}
 TRUNK_SERVE_BATCHES = 2  # phase 10's other trunks: a warm-up and one timed batch
 SERVE_BATCHES = 10  # batches --serve serves, the first a warm-up
 # training: the JAX package's bench (bench.py:192-198)
@@ -250,6 +289,10 @@ TRUNK_SITES = {480: "dn161", 608: "resnet50, resnet101", 1024: "sdnet_mini_ext_d
 SITE_SERVE_CS = (480, 608, 1024, 136)          # held at the serving and training shapes
 SITE_TRAIN_CS = SITE_SERVE_CS + (144, 152, 160)  # at the training shape only
 SITE_CORR2D_CS = (608, 1024)                   # corr2d, training shape (the 2dcorr variants)
+# deeplab_mod's site: conv2 of Xception-65's block-8 taps, 256 channels at
+# output stride 8 of the input padded by one (513x961 -> 65x121 serving,
+# 257x513 -> 33x65 per view in training)
+DEEPLAB_MOD_SITE = {"serving": (BATCH, 65, 121, 256), "training": (TRAIN_BATCH, 33, 65, 256)}
 
 
 def site_shape(c: int, serving: bool):
@@ -280,7 +323,8 @@ OPTIONS = {
 }
 # run name -> (net, model options): the nets of phases 3-8 as they are, and
 # phases 9's and 10's
-RUNS = {"sdnet_mini_ext": ("sdnet_mini_ext", {}), "sdnet": ("sdnet", {}), **OPTIONS, **TRUNK_RUNS}
+RUNS = {"sdnet_mini_ext": ("sdnet_mini_ext", {}), "sdnet": ("sdnet", {}), **OPTIONS, **TRUNK_RUNS,
+        **ZOO_PATHS, **ZOO_RUNS}
 # run trained -> each kernel's launches per step: its path's forward and
 # backward kernels once each (aspp 2: twice, its two corr1d sites), the
 # other correlation's never
@@ -288,7 +332,8 @@ TRAIN = {"sdnet_mini_ext": {"corr1d": 1, "corr1d_backward": 1, "corr2d": 0, "cor
          "sdnet": {"corr2d": 1, "corr2d_backward": 1, "corr1d": 0, "corr1d_backward": 0},
          "flagship_aspp2": {"corr1d": 2, "corr1d_backward": 2, "corr2d": 0, "corr2d_backward": 0},
          **{run: {"corr1d": 1, "corr1d_backward": 1, "corr2d": 0, "corr2d_backward": 0}
-            for run in TRUNK_PATHS}}
+            for run in (*TRUNK_PATHS, "deeplab_mod", "dsnet_warp")},
+         "pspnet": {"corr1d": 0, "corr1d_backward": 0, "corr2d": 0, "corr2d_backward": 0}}
 # phase 9's loss stacks with their datasets: between them every loss name
 # ported in the eighth slice (each stack is head 2's and the disparity
 # head's, as -loss sets them); dual_edge_reg reads the trailing ignore
@@ -406,14 +451,15 @@ def counters() -> dict:
 
 def one_correlation(run: str, step: bool = False) -> dict:
     """The launches of one card forward (``step``: one train step) of a run
-    of phases 9 and 10 other than the aspp-2 flagship: its correlation's
-    kernel once, and in a step its backward once; the other correlation's
-    kernels never. Multitask mode 2 takes both heads from a4 alone and
-    correlates nothing."""
+    of phases 9-11 other than the aspp-2 flagship: its correlation's kernel
+    once, and in a step its backward once; the other correlation's kernels
+    never. Multitask mode 2 takes both heads from a4 alone and correlates
+    nothing, nor do ``deeplab`` and ``pspnet``; ``deeplab_mod`` correlates
+    with corr1d whatever ``-corrType`` says."""
     m = run_config(run).model
-    corr = "corr2d" if m.corr_type == "2dcorr" else "corr1d"
+    corr = "corr2d" if m.corr_type == "2dcorr" and m.net != "deeplab_mod" else "corr1d"
     other = "corr1d" if corr == "corr2d" else "corr2d"
-    n = 0 if m.multaskloss == 2 else 1
+    n = 0 if m.multaskloss == 2 or m.net in ("deeplab", "pspnet") else 1
     out = {corr: n, other: 0}
     if step:
         out.update({f"{corr}_backward": n, f"{other}_backward": 0})
@@ -662,23 +708,26 @@ def plan_text(plan: dict) -> str:
 
 
 def site_cases(name: str):
-    """(shape, dtype) of ``name``'s cases at the trunks' sites."""
+    """(shape, dtype, the nets that bring it) of ``name``'s cases at the
+    trunks' sites and (corr1d) at deeplab_mod's."""
     if name == "corr2d":
-        shapes = [site_shape(c, False) for c in SITE_CORR2D_CS]
+        shapes = [(site_shape(c, False), TRUNK_SITES[c]) for c in SITE_CORR2D_CS]
     else:
-        shapes = ([site_shape(c, True) for c in SITE_SERVE_CS]
-                  + [site_shape(c, False) for c in SITE_TRAIN_CS])
-    return [(shape, dtype) for shape in shapes for dtype in (torch.float32, torch.bfloat16)]
+        shapes = ([(site_shape(c, True), TRUNK_SITES[c]) for c in SITE_SERVE_CS]
+                  + [(site_shape(c, False), TRUNK_SITES[c]) for c in SITE_TRAIN_CS]
+                  + [(shape, "deeplab_mod") for shape in DEEPLAB_MOD_SITE.values()])
+    return [(shape, dtype, site) for shape, site in shapes for dtype in (torch.float32, torch.bfloat16)]
 
 
 def phase_sites(name: str) -> list:
-    """Phase 2 at the trunks' sites (``TRUNK_SITES``): the forward kernel
-    ``name`` and its backward against their plain versions in fp32 and bf16
-    (corr1d at the serving and training shapes, corr2d at the training
-    shape); each bf16 forward's plan (``forward_plan``) printed; the bf16
-    forward at corr1d's serving shapes and corr2d's training shapes timed, a
-    launch alone (warm) and back to back, against its byte bound; each bf16
-    backward timed alone with the L2 flushed. Returns one record a case."""
+    """Phase 2 at the trunks' sites (``TRUNK_SITES``) and deeplab_mod's
+    (``DEEPLAB_MOD_SITE``): the forward kernel ``name`` and its backward
+    against their plain versions in fp32 and bf16 (corr1d at the serving and
+    training shapes, corr2d at the training shape); each bf16 forward's plan
+    (``forward_plan``) printed; the bf16 forward at corr1d's serving shapes
+    and corr2d's training shapes timed, a launch alone (warm) and back to
+    back, against its byte bound; each bf16 backward timed alone with the L2
+    flushed. Returns one record a case."""
     correlation = correlation_module()
     patch = correlation.KERNEL_PATCH[name]
     arg = patch[1] if name == "corr1d" else patch
@@ -688,8 +737,8 @@ def phase_sites(name: str) -> list:
     g = torch.Generator(device="cuda").manual_seed(13)
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     records = []
-    for shape, dtype in site_cases(name):
-        tag = f"[{name} site {TRUNK_SITES[shape[-1]]}] {tuple(shape)} {str(dtype)[6:]}"
+    for shape, dtype, site in site_cases(name):
+        tag = f"[{name} site {site}] {tuple(shape)} {str(dtype)[6:]}"
         f1, f2 = (inputs(shape, dtype, g) for _ in range(2))
         out = fn(f1, f2, arg)
         ref = correlation.correlation_plain(f1, f2, patch)
@@ -698,8 +747,7 @@ def phase_sites(name: str) -> list:
         bound = tol[dtype] * ref.float().abs().max().item()
         print(f"{tag}: forward max|d| = {err:.6g} (tolerance {bound:.6g})", flush=True)
         check(err <= bound, f"{tag}: forward max|d| {err} > {bound}")
-        rec = {"shape": list(shape), "dtype": str(dtype)[6:], "site": TRUNK_SITES[shape[-1]],
-               "max_abs_err": err}
+        rec = {"shape": list(shape), "dtype": str(dtype)[6:], "site": site, "max_abs_err": err}
         del out, ref
         grad = inputs(tuple(shape[:3]) + (patch[0] * patch[1],), dtype, g)
         got = bwd(f1, f2, grad)
@@ -760,6 +808,12 @@ def trunk_name(cfg) -> str:
     """The trunk a config's net runs on, for the printed lines."""
     if cfg.model.net == "sdnet_mini_ext_dlab":
         return "resnet101 (3x3x3 stem, output stride 8)"
+    if cfg.model.net in ("deeplab", "deeplab_mod"):
+        return "xception65 (output stride 8)"
+    if cfg.model.net == "pspnet":
+        return f"PSMNet's feature net, maxdisp {cfg.model.max_disp_psm}"
+    if cfg.model.net == "sdnet_seg":
+        return "densenet121"
     return {"densenet": "densenet121"}.get(cfg.model.backbone, cfg.model.backbone)
 
 
@@ -1302,26 +1356,34 @@ def phase_files(card: str):
 
 
 def phase_option_forward(run: str, tag: str = "options", expect: dict = None) -> None:
-    """Phases 9 and 10: the eval forward of a configuration on the card
-    against the CPU at 1x64x128 in fp32, through ``make_forward_fn``
-    (HANet's grids, the multitask ground truth, the edge map and the edge
-    nets' ``left_e`` come from the batch), each output and each multitask
-    term within 1e-3 * max|ref|; ``expect`` (kernel -> launches), the card
-    forward's launches, the counts set to 0 just before it."""
+    """Phases 9-11: the eval forward of a configuration on the card against
+    the CPU at 1x64x128 in fp32, through ``make_forward_fn`` (HANet's grids,
+    the multitask ground truth, the edge map, the edge nets' ``left_e`` and
+    the ground-truth disparity of ``dsnet_warp_disp`` come from the batch),
+    each output and each multitask term within 1e-3 * max|ref|; ``expect``
+    (kernel -> launches), the card forward's launches, the counts set to 0
+    just before it. The warp nets warp by their own disparity, which at
+    random init reaches ~2e3 pixels: its fp32 noise between the devices
+    (~1e-2 pixels, within the bound) would move each warped sample by the
+    map's slope times that. So the CPU's forward warps at the card's
+    offsets (``warp_offsets``), and the disparity itself is held as an
+    output."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_forward_fn
 
     cfg = run_config(run)
     batch = train_batch(SMALL[:3], torch.Generator().manual_seed(1), "cpu", edges=needs_edges(cfg))
-    outs = {}
-    for device in ("cpu", "cuda"):
+    outs, offsets = {}, []
+    for device in ("cuda", "cpu"):
         model = models.get_network(cfg, device=device, seed=0)
         forward = make_forward_fn(cfg, model, device)
         for name in (expect or {}):
             wrapper(name).launches = 0
-        with torch.inference_mode():
+        warps = warp_offsets(record=offsets) if device == "cuda" else warp_offsets(replay=offsets)
+        with torch.inference_mode(), warps:
             outs[device] = forward(batch)
-    launches = {name: wrapper(name).launches for name in (expect or {})}
+        if device == "cuda":
+            launches = {name: wrapper(name).launches for name in (expect or {})}
     check(launches == (expect or {}), f"[{tag} {run}] card forward launches {launches}, "
           f"expected {expect}")
     ref, got = outs["cpu"], outs["cuda"]
@@ -1336,7 +1398,33 @@ def phase_option_forward(run: str, tag: str = "options", expect: dict = None) ->
         worst.append((err / bound if bound else 0.0, k))
     print(f"[{tag} {run}] {trunk_name(cfg)}, 1x64x128 fp32 forward, card vs CPU: {len(pairs)} "
           f"outputs within 1e-3 * max|ref|; the closest to its bound: {max(worst)[1]} at "
-          f"{max(worst)[0]:.3g} of it" + (f"; launches {launches}" if launches else ""), flush=True)
+          f"{max(worst)[0]:.3g} of it" + (f"; launches {launches}" if launches else "")
+          + (f"; {len(offsets)} warps at the card's offsets" if offsets else ""), flush=True)
+
+
+@contextlib.contextmanager
+def warp_offsets(record: list = None, replay: list = None):
+    """The warp nets' disparity warps (``models.warpnets.apply_disparity``):
+    with ``record``, each call's offsets are appended to it (on the host);
+    with ``replay``, the i-th call warps at the i-th recorded offsets instead
+    of its own."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.models import warpnets
+
+    original = warpnets.apply_disparity
+    calls = iter(replay) if replay is not None else None
+
+    def patched(images, offset):
+        if record is not None:
+            record.append(offset.detach().cpu())
+        if calls is not None:
+            offset = next(calls).to(offset.device, offset.dtype)
+        return original(images, offset)
+
+    warpnets.apply_disparity = patched
+    try:
+        yield
+    finally:
+        warpnets.apply_disparity = original
 
 
 def finite_step(run: str, losses=TRAIN_LOSSES, tag: str = None, dataset: str = "roses") -> float:
@@ -1410,62 +1498,20 @@ def phase_loss_stack(stack, dataset: str) -> None:
 
 
 def phase_restore(card: str) -> dict:
-    """Phase 9: the aspp-2 flagship's seeded weights (seed 7) written in the
-    reference's layout as a ``.pth.tar`` (``{"state_dict": {"module." +
-    key: tensor}, "epoch": 0}``, built by inverting the port's importer),
-    restored through the eval CLI (``-load_weights x.pth.tar -train 0``):
-    every tensor and the bf16 outputs bit-equal to the source model's on the
-    card. Then ``-pretrained_path`` with a torchvision-layout densenet121:
-    every trunk tensor equal after the load. Returns the eval's launches."""
+    """Phase 9: the aspp-2 flagship restores from a reference ``.pth.tar``
+    through the eval CLI bit-equal (``restore_through_cli``, corr1d twice an
+    eval forward); then ``-pretrained_path`` with a torchvision-layout
+    densenet121: every trunk tensor equal after the load. Returns the eval's
+    launches."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.densenet import (
         DenseNetFeatures,
     )
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
-        Session,
-        make_forward_fn,
-    )
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
 
-    correlation = correlation_module()
-    kernels = {"corr1d": correlation.correlation1d_cuda,
-               "corr1d_backward": correlation.correlation1d_backward_cuda,
-               "corr2d": correlation.correlation2d_cuda,
-               "corr2d_backward": correlation.correlation2d_backward_cuda}
     tmp = tempfile.mkdtemp(prefix="pmt_restore_")
     try:
-        cfg = run_config("flagship_aspp2", bf16=True)
-        source = models.get_network(cfg, seed=7)
-        ref = torch_import.export_state_dict(source, torch_import.entries_for(cfg, source))
-        path = os.path.join(tmp, "flagship_aspp2.pth.tar")
-        torch.save({"state_dict": {"module." + k: v for k, v in ref.items()}, "epoch": 0}, path)
-        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=2, n_test=2, hw=(256, 512), seed=0)
-        data = []
-        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
-                          ("-inst", "inst")):
-            data += [flag, m[key], flag + "_test", m[key + "_t"]]
-        argv = data + FILES_TRAIN + ["-aspp", "2", "-train", "0", "-b", "2", "-load_weights", path,
-                                     "-w_savePath", os.path.join(tmp, "runs")]
-        session, _, launches = cli_run(argv, kernels)
-        hold_cli_launches("[restore eval]", session, launches, sites=2)
-        check(session.timings["eval_rows"] == 2, f"restore eval: {session.timings}")
-        mine, theirs = session.model.state_dict(), source.state_dict()
-        check(set(mine) == set(theirs), "restore: other tensor names")
-        for k, v in theirs.items():
-            check(k.endswith("num_batches_tracked") or torch.equal(mine[k], v), f"restore: {k} differs")
-        batch = train_batch((1, H, W), torch.Generator(device="cuda").manual_seed(12), "cuda")
-        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, deterministic=True,
-                                                                benchmark=False, allow_tf32=False):
-            a = make_forward_fn(session.cfg, session.model)(batch)
-            b = make_forward_fn(session.cfg, source)(batch)
-        for k in ("seg1", "seg2", "disp1", "disp2"):
-            check(torch.equal(a[k], b[k]), f"restore: output {k} differs from the source model's")
-        print(f"[restore] the aspp-2 flagship from a reference-layout .pth.tar ({len(ref)} tensors, "
-              f"'module.' prefix, 'state_dict' wrapper) through the eval CLI: every weight and "
-              f"statistic and the bf16 outputs at 1x{H}x{W} bit-equal to the source model's; "
-              f"launches {launches}; {card}", flush=True)
-        del session, source
+        launches, _ = restore_through_cli("flagship_aspp2", ["-aspp", "2"], card, tmp, sites=2)
 
         # -pretrained_path: a torchvision-layout densenet121 into the trunk
         trunk = models.init_parameters(DenseNetFeatures(), torch.Generator().manual_seed(9))
@@ -1509,64 +1555,25 @@ def phase_options(card: str) -> dict:
 
 
 def phase_trunk_restore(card: str) -> dict:
-    """Phase 10: a resnet101 flagship's seeded weights (seed 7) written in
-    the reference's ``.pth.tar`` layout (the port's importer inverted: the
-    dilated ResNet's ``conv1``/``layer{l}.{b}`` keys, ``aspp_4``) restore
-    through the eval CLI bit-equal (weights and bf16 outputs); then
+    """Phase 10: a resnet101 flagship restores from a reference ``.pth.tar``
+    (the dilated ResNet's ``conv1``/``layer{l}.{b}`` keys, ``aspp_4``)
+    through the eval CLI bit-equal (``restore_through_cli``); then
     ``-pretrained_path`` grafts a MobileNetV3-Large in cuevhv's layout
     (``features.N``, a classifier ignored) into a mobilenet flagship's trunk.
     Returns the eval's launches."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.mobilenetv3 import (
         MobileNetV3LargeFeatures,
     )
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
-        Session,
-        make_forward_fn,
-    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import
 
-    kernels = {name: wrapper(name) for name in ("corr1d", "corr2d")}
-    kernels.update((f"{name}_backward", getattr(correlation_module(), fn))
-                   for name, (fn, *_) in BACKWARDS.items())
     tmp = tempfile.mkdtemp(prefix="pmt_trunk_restore_")
     try:
-        cfg = run_config("flagship_resnet101", bf16=True)
-        source = models.get_network(cfg, seed=7)
-        ref = torch_import.export_state_dict(source, torch_import.entries_for(cfg, source))
+        launches, ref = restore_through_cli("flagship_resnet101", ["-backbone", "resnet101"], card, tmp)
         check("aspp_4.conv1.weight" in ref and
               "resnet_features.resnet_features.layer3.22.conv3.weight" in ref,
               "trunk restore: the reference dict lacks ResNet-101's or aspp_4's keys")
-        path = os.path.join(tmp, "flagship_resnet101.pth.tar")
-        torch.save({"state_dict": {"module." + k: v for k, v in ref.items()}, "epoch": 0}, path)
-        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=2, n_test=2, hw=(256, 512), seed=0)
-        data = []
-        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
-                          ("-inst", "inst")):
-            data += [flag, m[key], flag + "_test", m[key + "_t"]]
-        argv = data + FILES_TRAIN + ["-backbone", "resnet101", "-train", "0", "-b", "2",
-                                     "-load_weights", path, "-w_savePath", os.path.join(tmp, "runs")]
-        session, _, launches = cli_run(argv, kernels)
-        check(session.cfg.model.backbone == "resnet101", "trunk restore: the CLI's backbone")
-        hold_cli_launches("[trunk restore eval]", session, launches)
-        mine, theirs = session.model.state_dict(), source.state_dict()
-        check(set(mine) == set(theirs), "trunk restore: other tensor names")
-        for k, v in theirs.items():
-            check(k.endswith("num_batches_tracked") or torch.equal(mine[k], v),
-                  f"trunk restore: {k} differs")
-        batch = train_batch((1, H, W), torch.Generator(device="cuda").manual_seed(12), "cuda")
-        with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, deterministic=True,
-                                                                benchmark=False, allow_tf32=False):
-            a = make_forward_fn(session.cfg, session.model)(batch)
-            b = make_forward_fn(session.cfg, source)(batch)
-        for k in ("seg1", "seg2", "disp1", "disp2"):
-            check(torch.equal(a[k], b[k]), f"trunk restore: output {k} differs from the source's")
-        print(f"[trunk restore] the resnet101 flagship from a reference-layout .pth.tar "
-              f"({len(ref)} tensors) through the eval CLI: every weight and statistic and the bf16 "
-              f"outputs at 1x{H}x{W} bit-equal to the source model's; launches {launches}; {card}",
-              flush=True)
-        del session, source
 
         trunk = models.init_parameters(MobileNetV3LargeFeatures(), torch.Generator().manual_seed(9))
         holder = torch.nn.Module()
@@ -1617,6 +1624,139 @@ def phase_trunks(card: str) -> dict:
     return paths
 
 
+def phase_zoo_tta() -> None:
+    """Phase 11: ``-tta 1 -tta_scales 0.75 1.25`` on ``deeplab`` through the
+    eval step, card against CPU (fp32, 2 rows of 64x128, the same weights):
+    the averaged seg heads within 1e-3 * max|ref|, no correlation launched."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_eval_step
+
+    cfg = run_config("deeplab")
+    cfg.run.tta, cfg.run.tta_scales = True, TTA_SCALES
+    batch = train_batch((2,) + SMALL[1:3], torch.Generator().manual_seed(14), "cpu")
+    outs = {}
+    for device in ("cpu", "cuda"):
+        step = make_eval_step(cfg, models.get_network(cfg, device=device, seed=0), device)
+        for k in counters().values():
+            k.launches = 0
+        outs[device] = step(batch)[0]
+    launches = {name: k.launches for name, k in counters().items()}
+    check(not any(launches.values()), f"[zoo tta] launches {launches}")
+    ref, got = outs["cpu"]["seg1"], outs["cuda"]["seg1"].cpu()
+    check(torch.equal(outs["cuda"]["seg1"], outs["cuda"]["seg2"]), "[zoo tta] seg2 is not seg1")
+    err, bound = (got - ref).abs().max().item(), 1e-3 * ref.abs().max().item()
+    print(f"[zoo tta] deeplab -tta 1 -tta_scales {' '.join(map(str, TTA_SCALES))}, eval step on 2 "
+          f"rows of 1x64x128 fp32, card vs CPU: seg1 max|d| = {err:.6g} (tolerance {bound:.6g} = "
+          f"1e-3 * max|ref|)", flush=True)
+    check(err <= bound, f"[zoo tta] seg1: {err} > {bound}")
+
+
+def restore_through_cli(run: str, flags, card: str, tmp: str, sites: int = 1):
+    """A run's seeded weights (seed 7) written in the reference's layout as
+    a ``.pth.tar`` (``{"state_dict": {"module." + key: tensor}, "epoch": 0}``,
+    the port's importer inverted), restored through the eval CLI
+    (``-load_weights x.pth.tar -train 0`` on a 2+2-pair fixture, ``flags``
+    naming the run's net and options): the CLI's net and trunk are the
+    run's, corr1d launched ``sites`` times an eval forward, every tensor and
+    the bf16 outputs at 1x512x960 bit-equal to the source model's on the
+    card. Returns (the eval's launches, the reference-layout dict)."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_forward_fn
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import
+
+    cfg = run_config(run, bf16=True)
+    source = models.get_network(cfg, seed=7)
+    ref = torch_import.export_state_dict(source, torch_import.entries_for(cfg, source))
+    path = os.path.join(tmp, f"{run}.pth.tar")
+    torch.save({"state_dict": {"module." + k: v for k, v in ref.items()}, "epoch": 0}, path)
+    m = make_roses_fixture(os.path.join(tmp, f"ds_{run}"), n_train=2, n_test=2, hw=(256, 512), seed=0)
+    data = []
+    for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
+                      ("-inst", "inst")):
+        data += [flag, m[key], flag + "_test", m[key + "_t"]]
+    argv = data + FILES_TRAIN + list(flags) + ["-train", "0", "-b", "2", "-load_weights", path,
+                                               "-w_savePath", os.path.join(tmp, "runs")]
+    session, _, launches = cli_run(argv, counters())
+    tag = f"[restore {run}]"
+    check((session.cfg.model.net, session.cfg.model.backbone) == (cfg.model.net, cfg.model.backbone),
+          f"{tag} the CLI's net and trunk")
+    check(session.timings["eval_rows"] == 2, f"{tag} {session.timings}")
+    hold_cli_launches(tag, session, launches, sites)
+    mine, theirs = session.model.state_dict(), source.state_dict()
+    check(set(mine) == set(theirs), f"{tag} other tensor names")
+    for k, v in theirs.items():
+        check(k.endswith("num_batches_tracked") or torch.equal(mine[k], v), f"{tag} {k} differs")
+    batch = train_batch((1, H, W), torch.Generator(device="cuda").manual_seed(12), "cuda")
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                                            benchmark=False, allow_tf32=False):
+        a = make_forward_fn(session.cfg, session.model)(batch)
+        b = make_forward_fn(session.cfg, source)(batch)
+    for k in ("seg1", "seg2", "disp1", "disp2"):
+        check(torch.equal(a[k], b[k]), f"{tag} output {k} differs from the source model's")
+    print(f"{tag} {trunk_name(cfg)}, from a reference-layout .pth.tar ({len(ref)} tensors, "
+          f"'module.' prefix, 'state_dict' wrapper) through the eval CLI: every weight and "
+          f"statistic and the bf16 outputs at 1x{H}x{W} bit-equal to the source model's; "
+          f"launches {launches}; {card}", flush=True)
+    return launches, ref
+
+
+def phase_zoo_restore(card: str) -> dict:
+    """Phase 11: ``deeplab_mod`` and ``dsnet_warp`` restore from reference
+    ``.pth.tar`` files through the eval CLI (``restore_through_cli``); then
+    ``-pretrained_path`` with a bare Xception-65 dict (unprefixed keys and a
+    classifier, as ``load_url`` gives it) grafts every encoder tensor of
+    ``deeplab``. Returns each restore's launches."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.models.deeplab import Xception65
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import
+
+    tmp = tempfile.mkdtemp(prefix="pmt_zoo_restore_")
+    try:
+        launches = {run: restore_through_cli(run, ["-net", RUNS[run][0]], card, tmp)[0]
+                    for run in ("deeplab_mod", "dsnet_warp")}
+        encoder = models.init_parameters(Xception65(), torch.Generator().manual_seed(9))
+        holder = torch.nn.Module()
+        holder.bb = encoder
+        sd = torch_import.export_state_dict(holder, torch_import.xception65_entries(encoder, "bb", ""))
+        sd.update({"fc.weight": torch.zeros(1000, 2048), "fc.bias": torch.zeros(1000)})
+        path = os.path.join(tmp, "xception65.pth")
+        torch.save(sd, path)
+        cfg = run_config("deeplab", bf16=True)
+        cfg.model.pretrained_path = path
+        fresh = Session(cfg)
+        fresh.init_state()
+        got, want = fresh.model.encoder.state_dict(), encoder.state_dict()
+        names = [k for k in want if not k.endswith("num_batches_tracked")]
+        for k in names:
+            check(torch.equal(got[k].cpu(), want[k]), f"[zoo pretrained] {k} differs")
+        print(f"[zoo pretrained] -pretrained_path with a bare Xception-65 dict ({len(sd)} keys): all "
+              f"{len(names)} encoder tensors of deeplab equal after the load", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_zoo(card: str) -> dict:
+    """Phase 11: the rest of the CLI's nets at full width and depth. The
+    three paths of ``ZOO_PATHS`` serve 16 pairs of 512x960 and train at
+    8x256x512 (the bench loss stack, Adam) with their launches held;
+    every run of ``ZOO_RUNS`` runs its fp32 forward card vs CPU and one bf16
+    train step; deeplab's TTA eval card vs CPU; two ``.pth.tar`` restores
+    and an Xception-65 graft. Returns the launches of each path."""
+    paths = {}
+    for run in ZOO_PATHS:
+        paths[f"{run}_serve"] = phase_serve(run, *SERVE[run])
+        paths[f"{run}_train"] = phase_train(run, TRAIN_WARMUP, ZOO_TRAIN_STEPS, card)
+    for run in ZOO_RUNS:
+        phase_option_forward(run, "zoo", one_correlation(run))
+        finite_step(run, tag=f"[zoo {run}]")
+    phase_zoo_tta()
+    paths["restore"] = phase_zoo_restore(card)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net (or flagship_aspp2) "
@@ -1641,6 +1781,10 @@ def main() -> int:
                     help="only run the flagship family's options (phase 9): the aspp-2 flagship "
                          "serves and trains, every other configuration and loss stack, the "
                          ".pth.tar restore")
+    ap.add_argument("--zoo", action="store_true",
+                    help="only run the rest of the CLI's nets (phase 11): deeplab_mod, dsnet_warp "
+                         "and pspnet serve and train, every other configuration, deeplab's TTA, "
+                         "the .pth.tar restores, the Xception-65 graft")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -1652,10 +1796,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.serve or args.train or args.backward or args.files or args.options or args.trunks:
+    if (args.serve or args.train or args.backward or args.files or args.options or args.trunks
+            or args.zoo):
         try:
             if args.files:
                 phase_files(card)
+            elif args.zoo:
+                phase_zoo(card)
             elif args.trunks:
                 phase_trunks(card)
             elif args.options:
@@ -1677,9 +1824,9 @@ def main() -> int:
             records[f"{name}_backward"] = phase_backward(name, sass)
         for name in KERNELS:  # the trunks' sites: each case's forward and backward
             sites = phase_sites(name)
-            records[name]["trunk_sites"] = [
+            records[name]["sites"] = [
                 {k: v for k, v in r.items() if not k.startswith("backward")} for r in sites]
-            records[f"{name}_backward"]["trunk_sites"] = [
+            records[f"{name}_backward"]["sites"] = [
                 {k: v for k, v in r.items() if k in ("shape", "dtype", "site") or k.startswith("backward")}
                 for r in sites]
         if args.kernels:
@@ -1717,6 +1864,15 @@ def main() -> int:
             records["corr1d"][f"launches_{run}_train"] = paths[f"{run}_train"]["corr1d"]
             records["corr1d_backward"][f"launches_{run}_train"] = paths[f"{run}_train"]["corr1d_backward"]
         records["corr1d"]["launches_trunk_restore_eval"] = paths["restore"]["corr1d"]
+        # phase 11: deeplab_mod's (corr1d at its new site), dsnet_warp's and
+        # pspnet's launches serving and training, and the restores' evals
+        paths = phase_zoo(card)
+        for run in ZOO_PATHS:
+            records["corr1d"][f"launches_{run}_serve"] = paths[f"{run}_serve"]["corr1d"]
+            for name in ("corr1d", "corr1d_backward", "corr2d", "corr2d_backward"):
+                records[name][f"launches_{run}_train"] = paths[f"{run}_train"][name]
+        for run, launches in paths["restore"].items():
+            records["corr1d"][f"launches_{run}_restore_eval"] = launches["corr1d"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

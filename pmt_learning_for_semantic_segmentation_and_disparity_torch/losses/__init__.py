@@ -1,5 +1,5 @@
 """The losses of the JAX package's ``losses/``, NHWC tensors."""
-from .disp import masked_l1, smoothing_gradients  # noqa: F401
+from .disp import masked_l1, photo_consistency, smoothing_gradients  # noqa: F401
 from .dispatch import compose_disp_loss, compose_seg_loss, seg_class_weights  # noqa: F401
 from .edge import balanced_edge_bce, dual_task_loss  # noqa: F401
 from .lovasz import lovasz_softmax  # noqa: F401

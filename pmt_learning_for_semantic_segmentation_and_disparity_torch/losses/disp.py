@@ -1,5 +1,6 @@
-"""Disparity losses of the JAX package's ``losses/disp.py``: masked L1 and
-the edge-aware smoothness term. NHWC."""
+"""Disparity losses of the JAX package's ``losses/disp.py``: masked L1, the
+photo-consistency of the warp nets and the edge-aware smoothness term.
+NHWC."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,6 +19,11 @@ def masked_l1(disp_pred: torch.Tensor, disp_gt: torch.Tensor,
         return (disp_pred - disp_gt).abs().mean()
     m = mask.to(disp_pred.dtype)
     return (disp_pred * m - disp_gt * m).abs().mean()
+
+
+def photo_consistency(warped_right: torch.Tensor, left: torch.Tensor) -> torch.Tensor:
+    """MSELoss()(warped_right, left) (torch_implementation.py:314-317)."""
+    return ((warped_right - left) ** 2).mean()
 
 
 def _grad_with_trailing_pad(img: torch.Tensor, axis: int) -> torch.Tensor:

@@ -18,7 +18,11 @@ names follow the flax modules (``conv``/``deconv``/``bn``, ``c1``..``d5``) so
   JAX package stores the kernel already in conv form);
 * the stride-2 ``DeconvBN`` (``deconv_ba1``/``deconv_ba2`` of the legacy
   nets) is flax's ``nn.ConvTranspose(padding="SAME")``, see
-  ``SameConvTranspose2d``.
+  ``SameConvTranspose2d``;
+* PSMNet's 3-D layers: ``conv3d`` (a 3x3x3 conv padded by one) and
+  ``SameConvTranspose3d`` (flax's ``nn.ConvTranspose`` with explicit (1, 2)
+  padding, 2x each dimension); ``batch_norm`` normalises (N, C, ...) maps
+  of any rank.
 """
 from __future__ import annotations
 
@@ -122,6 +126,42 @@ class SameConvTranspose2d(nn.Conv2d):
         return y[..., o:o + s * h, o:o + s * w].contiguous(memory_format=torch.channels_last)
 
 
+def conv3d(cin: int, cout: int, stride: int = 1) -> nn.Conv3d:
+    """flax ``nn.Conv(cout, (3, 3, 3), strides=stride, padding=[(1, 1)] * 3,
+    use_bias=False)`` with the he fan-out init (PSMNet's ``_ConvBN3d`` and
+    its ``classif*b`` heads): flax's (kd, kh, kw, I, O) kernel is the port's
+    (O, I, kd, kh, kw) weight."""
+    conv = nn.Conv3d(cin, cout, 3, stride=stride, padding=1, bias=False)
+    conv.init_rule = "he_fan_out"
+    return conv
+
+
+class SameConvTranspose3d(nn.Conv3d):
+    """flax ``nn.ConvTranspose(features, (3, 3, 3), strides=2, padding=((1,
+    2),) * 3, use_bias=False)`` (PSMNet's ``_Deconv3dBN``): 2x each
+    dimension, bias-free.
+
+    As in ``SameConvTranspose2d`` the weight keeps the conv layout (O, I, kd,
+    kh, kw) that ``load_jax_variables`` makes of flax's (kd, kh, kw, I, O)
+    kernel and that ``init_parameters`` reads its fan-out from. flax dilates
+    the input by 2, pads it by (lo, hi) = (1, 2) and correlates it with the
+    kernel unflipped; ``conv_transpose3d`` scatters with the kernel flipped.
+    So the weight runs as (I, O, kd, kh, kw), flipped in space, with
+    padding k - 1 - lo = 1 and output padding hi - lo = 1: out = 2 x in."""
+
+    KERNEL, STRIDE, PAD = 3, 2, (1, 2)
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, self.KERNEL, bias=False)
+        self.init_rule = "he_fan_out"
+
+    def forward(self, x):
+        lo, hi = self.PAD
+        return F.conv_transpose3d(x, self.weight.transpose(0, 1).flip(-3, -2, -1),
+                                  stride=self.STRIDE, padding=self.KERNEL - 1 - lo,
+                                  output_padding=hi - lo)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode running update is flax's (flax
     momentum m, 0.9 unless ``batch_norm`` is told otherwise):
@@ -133,7 +173,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     larger for n pixels per channel (8/7 at the deepest taps of a 1x64x128
     input). Train mode normalises by the batch statistics; eval mode by the
     running ones. The running buffers are updated in place in their own
-    dtype, whatever the input's (fp32 under the bf16 policy)."""
+    dtype, whatever the input's (fp32 under the bf16 policy). It takes maps
+    of any rank (N, C, ...): PSMNet's 3-D BatchNorms are these too."""
 
     def forward(self, x):
         if not self.training:
@@ -161,7 +202,8 @@ def batch_norm(c: int, eps: float = 1e-5, momentum: float = 0.9) -> BatchNorm2d:
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of ``model`` from ``generator`` with
-    the JAX package's initialisers (convolutions by their ``init_rule``, or
+    the JAX package's initialisers (convolutions, 1-D to 3-D, by their
+    ``init_rule``, or
     flax ``nn.Conv``'s default lecun normal where they have none, their
     biases 0; a grouped convolution's fan-in is that of one group, as flax's
     (k, k, C/groups, O) kernel gives it; ``nn.Linear``: flax ``nn.Dense``'s
@@ -170,7 +212,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``nn.Embed``; any other parameter, e.g. a log-variance of the multitask
     loss: 0)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
             rule = "lecun" if isinstance(m, nn.Linear) else getattr(m, "init_rule", "lecun")
             scale, mode, truncated = _INIT_RULES[rule]
             if isinstance(m, nn.Linear):

@@ -5,6 +5,8 @@ The port's child names follow the flax module names, so a flax leaf at
 
     params/.../kernel  (kh,kw,I,O)  -> weight (O,I,kh,kw), transpose(3,2,0,1)
     params/.../kernel  (k,I,O)      -> weight (O,I,k), transpose(2,1,0) (Conv1d)
+    params/.../kernel  (kd,kh,kw,I,O) -> weight (O,I,kd,kh,kw),
+                                       transpose(4,3,0,1,2) (3-D convs)
     params/.../kernel  (I,O)        -> weight (O,I), transpose (nn.Dense ->
                                        nn.Linear)
     params/.../scale                -> weight          (BatchNorm)
@@ -16,9 +18,10 @@ The port's child names follow the flax module names, so a flax leaf at
     batch_stats/.../var             -> running_var
 
 A flax ``nn.ConvTranspose`` kernel (the stride-2 ``DeconvBN`` of the legacy
-nets) is also (kh,kw,I,O) and lands in the same (O,I,kh,kw) layout:
-``blocks.SameConvTranspose2d`` keeps its weight as a conv's and transposes
-and flips it for ``conv_transpose2d`` itself. (torch's ``ConvTranspose2d``
+nets, PSMNet's 3-D ``_Deconv3dBN``) is also (k..., I, O) and lands in the
+same (O, I, k...) layout: ``blocks.SameConvTranspose2d``/``3d`` keep their
+weight as a conv's and transpose and flip it for the transposed conv
+themselves. (torch's ``ConvTranspose2d``
 layout (I,O,kh,kw) would load a square 32->32 kernel without a shape error
 and compute another function.) The same trap stands at a flax ``Dense``
 (MobileNetV3's squeeze-excite): its (in, out) kernel fits a square
@@ -78,7 +81,9 @@ def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
             if name in filled:
                 raise KeyError(f"port tensor {name!r} filled twice")
             value = np.array(value, dtype=np.float32)
-            if value.ndim == 4:
+            if value.ndim == 5:
+                value = np.ascontiguousarray(value.transpose(4, 3, 0, 1, 2))  # DHWIO -> OIDHW
+            elif value.ndim == 4:
                 value = np.ascontiguousarray(value.transpose(3, 2, 0, 1))  # HWIO -> OIHW
             elif value.ndim == 3:
                 value = np.ascontiguousarray(value.transpose(2, 1, 0))  # (k, I, O) -> OIk

@@ -18,6 +18,14 @@ enriched map concatenates the tap with its branches.
   returns (tap0..tap4, b2, b0). Its tap-2 branches are named ``branch1_k``
   as in the reference, so the weights cross by name.
 
+* ``PiramidNet2Warp`` (the warp nets', dsnet_t2_warp.py:339-480):
+  ``PiramidNet2`` plus a fourth enriched tap over tap 3 (two branches,
+  pools 16/8, + 64 channels), returned in the order (tap0..tap4, b0, b1, b2,
+  b3). The reference's quirk is kept: b3's second slot resizes b2's second
+  branch map, and ``branch3_1`` is computed and discarded (JAX
+  ``pyramid.py:137-143``). It runs in train mode only, where its running
+  statistics move as the JAX model's do; in eval mode its output is unused.
+
 ``in_channels`` is the trunk's input: 4 for ``sdnet`` with ``-edges``, whose
 JAX model hands its trunk the edge channel too (``sdnet_legacy.py:36-42``).
 """
@@ -78,3 +86,24 @@ class PiramidNetV1(_Pyramid):
 
     def __init__(self, in_channels: int = 3):
         super().__init__("densenet", in_channels)
+
+
+class PiramidNet2Warp(_Pyramid):
+    ENRICH = ((0, "branch0", 5), (1, "branch1", 4), (2, "branch2", 3), (3, "branch3", 2))
+
+    def __init__(self, backbone: str = "densenet", in_channels: int = 3):
+        super().__init__(backbone, in_channels)
+        self.out_channels = self.out_channels[:5] + tuple(reversed(self.out_channels[5:]))
+
+    def forward(self, x) -> Tuple[torch.Tensor, ...]:
+        taps = self.backbone(x)
+        branches = {t: [self._branch(taps[t], f"{prefix}_{k}", POOL_VALS[t + k]) for k in range(n)]
+                    for t, prefix, n in self.ENRICH[:3]}
+        enriched = [torch.cat([taps[t]] + maps, dim=1) for t, maps in branches.items()]
+        out3 = taps[3]
+        b3_0 = self._branch(out3, "branch3_0", POOL_VALS[3])
+        if self.training:  # computed and discarded, as in the reference
+            self._branch(out3, "branch3_1", POOL_VALS[4])
+        # b3's second slot: branch2_1's map resized (the reference's quirk)
+        b3_1 = resize_bilinear(branches[2][1], out3.shape[-2:])
+        return (*taps, *enriched, torch.cat([out3, b3_0, b3_1], dim=1))

@@ -72,6 +72,13 @@ def nchw_channels_last(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
+def channels_last(t: torch.Tensor) -> torch.Tensor:
+    """A 1-channel map with channels_last strides. BatchNorm may return NCHW
+    strides for C = 1 (both layouts fit one channel), and a ``cat`` with such
+    a map, and every layer after it, would then run in NCHW."""
+    return torch.empty_like(t, memory_format=torch.channels_last).copy_(t)
+
+
 def cost_volume(a: torch.Tensor, b: torch.Tensor, patch: Tuple[int, int],
                 normalize: bool) -> torch.Tensor:
     """The correlation of two NCHW feature maps, as NCHW (B, ph*pw, H, W);

@@ -40,6 +40,7 @@ from .pyramid import PiramidNetV1
 from .sdnet import (
     SegNetHead,
     both_views,
+    channels_last,
     corr_patch,
     cost_volume,
     image_channels,
@@ -50,13 +51,6 @@ from .sdnet import (
 
 def _conv1x1(cin: int, cout: int) -> ConvBN:
     return ConvBN(cin, cout, 1, batchnorm=False, relu=True)
-
-
-def _channels_last(t: torch.Tensor) -> torch.Tensor:
-    """A 1-channel map with channels_last strides. BatchNorm may return NCHW
-    strides for C = 1 (both layouts fit one channel), and a ``cat`` with such
-    a map, and every layer after it, would then run in NCHW."""
-    return torch.empty_like(t, memory_format=torch.channels_last).copy_(t)
 
 
 class DSNet(nn.Module):
@@ -124,7 +118,7 @@ class DSNet(nn.Module):
         full_hw = tuple(left.shape[-2:])
         a0, a1, a4, a_py2, a_py0 = (a[i] for i in (0, 1, 4, 5, 6))
         b4, b_py2, b_py0 = (b[i] for i in (4, 5, 6))
-        xleft3, xleft2, xleft1 = (_channels_last(getattr(self, f"conv2d_ba{k}")(left))
+        xleft3, xleft2, xleft1 = (channels_last(getattr(self, f"conv2d_ba{k}")(left))
                                   for k in (3, 1, 2))
 
         x, x1, seg1 = self.head1(torch.cat([a4, b4], dim=1), full_hw, left)
@@ -184,7 +178,7 @@ class DSNetV2(DSNet):
         self.segNet = SegNetHead(cin, labels)
 
     def head1(self, x, full_hw: Tuple[int, int], left):
-        return self.segNet(x, full_hw, _channels_last(self.conv2d_ba0(left)))
+        return self.segNet(x, full_hw, channels_last(self.conv2d_ba0(left)))
 
 
 @MODELS.register("sdnet")

@@ -8,6 +8,7 @@ from .correlation import (  # noqa: F401
     correlation2d_vjp_plain,
     correlation_plain,
 )
+from .costvolume import concat_cost_volume, soft_argmin, upsampled_soft_argmin  # noqa: F401
 from .resize import (  # noqa: F401
     adaptive_avg_pool,
     avg_pool,
@@ -16,3 +17,4 @@ from .resize import (  # noqa: F401
     resize_nearest,
     upsample_nearest,
 )
+from .warp import apply_disparity  # noqa: F401

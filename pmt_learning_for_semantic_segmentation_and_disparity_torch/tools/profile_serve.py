@@ -56,6 +56,8 @@ FAMILIES = (
     ("optimizer", ("multi_tensor", "adam")),
     ("sort", ("sort", "radix")),
     ("copy_cast", ("copy_kernel", "direct_copy")),
+    ("gather", ("gather", "scatter")),
+    ("softmax", ("softmax",)),
     ("convolution", ("conv", "xmma", "implicit", "gemm", "cutlass", "fprop", "nvjet", "cudnn")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")),
 )
@@ -90,23 +92,22 @@ def main(argv=None) -> int:
     cfg.model.aspp = args.aspp
     cfg.parallel.bf16 = True
     g = torch.Generator(device="cuda").manual_seed(2)
+    # the ground truth too: some nets' forwards read it (dsnet_warp_disp's
+    # disparity input, the heads deeplab and pspnet take from it)
+    shape = (TRAIN_BATCH, TRAIN_H, TRAIN_W) if args.train else (BATCH, H, W)
+    labels = torch.randint(0, cfg.data.n_labels, shape, device="cuda", generator=g)
+    batch = {"left": torch.randn(shape + (3,), device="cuda", generator=g),
+             "right": torch.randn(shape + (3,), device="cuda", generator=g),
+             "seg": torch.nn.functional.one_hot(labels, cfg.data.n_labels).float(),
+             "disp": torch.rand(shape + (1,), device="cuda", generator=g)}
     if args.train:
         cfg.loss.losses = TRAIN_LOSSES
-        shape = (TRAIN_BATCH, TRAIN_H, TRAIN_W)
         model = get_network(cfg, seed=0)
         step = make_train_step(cfg, model)
         state = TrainState.create(model, build_optimizer(cfg.optim, args.net, len(TRAIN_LOSSES)))
-        labels = torch.randint(0, cfg.data.n_labels, shape, device="cuda", generator=g)
-        batch = {"left": torch.randn(shape + (3,), device="cuda", generator=g),
-                 "right": torch.randn(shape + (3,), device="cuda", generator=g),
-                 "seg": torch.nn.functional.one_hot(labels, cfg.data.n_labels).float(),
-                 "disp": torch.rand(shape + (1,), device="cuda", generator=g)}
         run, mode = (lambda: step(state, batch)), contextlib.nullcontext()
     else:
-        shape = (BATCH, H, W)
         forward = make_forward_fn(cfg, get_network(cfg, seed=0))
-        batch = {"left": torch.randn(shape + (3,), device="cuda", generator=g),
-                 "right": torch.randn(shape + (3,), device="cuda", generator=g)}
         run, mode = (lambda: forward(batch)), torch.inference_mode()
     with mode:
         for _ in range(2):

@@ -5,10 +5,10 @@ package's ``training/loop.py`` on one device.
 datasets -> model -> optimizer -> restore -> epochs of train steps with
 periodic per-row eval and checkpointing. The device is the card unless the
 caller passes ``device="cpu"``. A torch reference checkpoint (``.pth``,
-``.pth.tar``, ``.pt``) restores through ``utils.torch_import``, and
-``-pretrained_path`` grafts a torchvision densenet121 or a MobileNetV3-Large
-into the trunk. Not
-ported yet: several cards (ROADMAP.md queue 1, item 10).
+``.pth.tar``, ``.pt``) of any net restores through ``utils.torch_import``,
+and ``-pretrained_path`` grafts a torchvision densenet121 or a
+MobileNetV3-Large into the trunk, or an Xception-65 into the deeplab nets'
+encoder. Not ported yet: several cards (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -29,19 +29,25 @@ from .step import make_eval_step, make_train_step
 
 
 def load_pretrained_backbone(cfg: PMTConfig, model: torch.nn.Module) -> None:
-    """``-pretrained_path``: a torchvision densenet121 state dict (or the
+    """``-pretrained_path``: for the deeplab nets a bare Xception-65 into the
+    encoder; otherwise a torchvision densenet121 state dict (or the
     reference's own densenet), or a MobileNetV3-Large in cuevhv's layout,
     into the model's trunk (the JAX package's ``init_state``,
-    loop.py:159-190); every trunk tensor is replaced. Any other trunk raises,
-    as in the JAX package."""
+    loop.py:159-190); every tensor of the encoder or trunk is replaced. Any
+    other trunk raises, as in the JAX package."""
     from ..utils.torch_import import (
         block_config_of,
         import_densenet121,
         import_mobilenetv3_backbone,
+        import_xception65_backbone,
         load_port_state,
         load_torch_state_dict,
     )
 
+    if cfg.model.net in ("deeplab", "deeplab_mod"):
+        sd = load_torch_state_dict(cfg.model.pretrained_path)
+        load_port_state(model.encoder, import_xception65_backbone(sd, model.encoder))
+        return
     backbone = cfg.model.backbone
     if backbone not in ("densenet", "mobilenet"):
         raise NotImplementedError(f"-pretrained_path is wired for densenet121 and "

@@ -9,6 +9,14 @@ masters through it). BatchNorm differs from the JAX package, which casts its
 scale, bias and running statistics to bf16 too: here it keeps them in fp32
 and normalises the bf16 maps with them, so its running update lands in the
 master buffers themselves.
+
+The deeplab nets take pre-processed images (the left view scaled to [-1, 1],
+both padded by one) and their heads are post-processed back to the input's
+size; the mono ``deeplab``'s disparity heads and ``pspnet``'s seg heads are
+the ground truth, detached (the JAX package's ``_model_inputs`` and
+``_postprocess_outputs``). ``deeplab`` trains with every BatchNorm in eval
+mode, its BatchNorm parameters still learning (``-freeze_bn`` zeroes their
+gradients).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from torch.func import functional_call
 
 from ..core.config import PMTConfig
 from ..core.device import resolve_device
+from ..losses.disp import photo_consistency
 from ..losses.dispatch import compose_disp_loss, compose_seg_loss
 from ..losses.edge import balanced_edge_bce
 from ..metrics.dispmetrics import disp_metrics
@@ -40,12 +49,39 @@ def _bf16_weights(model: torch.nn.Module):
 def _model_images(cfg: PMTConfig, batch: Dict[str, torch.Tensor], device: torch.device):
     """The model's two images (the JAX package's ``_model_inputs``): under
     ``-edges`` each view carries the sample's sobel edge map as a fourth
-    channel."""
+    channel; the deeplab nets take them pre-processed."""
     left, right = batch["left"].to(device), batch["right"].to(device)
     if cfg.model.edges:
         edges = batch["edges"].to(device)
         left, right = torch.cat([left, edges], dim=-1), torch.cat([right, edges], dim=-1)
+    if cfg.model.output_type in ("deeplab", "deeplab_mod"):
+        from ..models.deeplab import deeplab_preprocess
+
+        left, right, _ = deeplab_preprocess(left, right)
     return left, right
+
+
+def _postprocess(cfg: PMTConfig, out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+    """The head fix-ups netForward applies after the model
+    (torch_implementation.py:157-179; the JAX package's
+    ``_postprocess_outputs``)."""
+    ot = cfg.model.output_type
+    if ot not in ("deeplab", "deeplab_mod", "pspnet"):
+        return out
+    out = dict(out)
+    if ot in ("deeplab", "deeplab_mod"):
+        from ..models.deeplab import deeplab_postprocess
+
+        hw = tuple(batch["left"].shape[1:3])
+        for k in ("seg1", "seg2", "disp1", "disp2"):
+            if out.get(k) is not None:
+                out[k] = deeplab_postprocess(out[k], hw)
+    if ot == "deeplab":  # the mono net: the disparity heads are the ground truth
+        out["disp1"] = out["disp2"] = batch["disp"].detach()
+        out["seg2"] = out["seg1"]
+    if ot == "pspnet":  # the disparity net: the seg heads are the ground truth
+        out["seg1"] = out["seg2"] = batch["seg"][..., :cfg.data.n_labels].detach()
+    return out
 
 
 def _model_kwargs(cfg: PMTConfig, batch: Dict[str, torch.Tensor], device: torch.device,
@@ -54,11 +90,13 @@ def _model_kwargs(cfg: PMTConfig, batch: Dict[str, torch.Tensor], device: torch.
     torch_implementation.py:118-152; the JAX package's ``_model_inputs``):
     the ground truth for the multitask terms, the left image's gradient
     magnitude for the edge nets (``edgeOut``, not normalized), HANet's
-    coordinate grids."""
+    coordinate grids, the ground-truth disparity of ``dsnet_warp_disp``
+    (``ThreeOutPutsDisp``)."""
     kwargs = {}
-    if cfg.model.output_type == "multitask":
+    if cfg.model.output_type in ("multitask", "ThreeOutPutsDisp"):
         disp = batch["disp"].to(device)
         kwargs["disp_gt"] = disp.to(torch.bfloat16) if bf16 else disp
+    if cfg.model.output_type == "multitask":
         kwargs["seg_labels"] = batch["seg"].to(device).argmax(-1)
     if cfg.model.output_type == "edgeOut":
         from ..ops.edges import compute_grad_mag
@@ -73,10 +111,11 @@ def _model_kwargs(cfg: PMTConfig, batch: Dict[str, torch.Tensor], device: torch.
 
 
 def _set_train_mode(cfg: PMTConfig, model: torch.nn.Module, train: bool) -> None:
-    """``model.train(train)``; with ``freeze_bn`` the BatchNorm layers stay in
-    eval mode while dropout trains (the JAX package's ``bn_frozen``)."""
+    """``model.train(train)``; with ``freeze_bn``, and always for the mono
+    ``deeplab``, the BatchNorm layers stay in eval mode while dropout trains
+    (the JAX package's ``bn_frozen``)."""
     model.train(train)
-    if train and cfg.optim.freeze_bn:
+    if train and (cfg.optim.freeze_bn or cfg.model.output_type == "deeplab"):
         for m in model.modules():
             if _is_bn(m):
                 m.eval()
@@ -89,11 +128,12 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
     moved there and set to eval mode).
 
     ``batch`` holds NHWC ``left``/``right`` images (and ``edges`` under
-    ``-edges``, ``seg``/``disp`` for the multitask output type, whose terms
-    ``mt`` the model computes); the
-    outputs are the model's dict of NHWC tensors in fp32. ``train=True``
-    runs the train-mode forward (batch statistics, running-stat updates,
-    dropout); the nets without one raise."""
+    ``-edges``; ``seg``/``disp`` for the multitask output type, whose terms
+    ``mt`` the model computes; ``disp`` for ``dsnet_warp_disp`` and
+    ``deeplab``, ``seg`` for ``pspnet``); the outputs are the model's dict
+    of NHWC tensors in fp32, post-processed as ``_postprocess`` says.
+    ``train=True`` runs the train-mode forward (batch statistics,
+    running-stat updates, dropout)."""
     device = resolve_device(device)
     model.to(device).eval()
     bf16 = cfg.parallel.bf16
@@ -105,12 +145,13 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
         left, right = _model_images(cfg, batch, device)
         kwargs = _model_kwargs(cfg, batch, device, bf16)
         if not bf16:
-            return model(left, right, **kwargs)
+            return _postprocess(cfg, model(left, right, **kwargs), batch)
         weights = {n: p.to(torch.bfloat16) for n, p in cast}
         out = functional_call(model, weights, (left.to(torch.bfloat16), right.to(torch.bfloat16)),
                               kwargs)
-        return {k: tuple(t.float() for t in v) if isinstance(v, tuple) else v.float()
-                for k, v in out.items()}
+        out = {k: v if v is None else tuple(t.float() for t in v) if isinstance(v, tuple)
+               else v.float() for k, v in out.items()}
+        return _postprocess(cfg, out, batch)
 
     return forward
 
@@ -118,10 +159,17 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
 # output types whose head-2 loss mirrors head 1's, so only head 1 counts
 # (the JAX package's ``_SINGLE_HEAD``, ``step.py:42``)
 _SINGLE_HEAD = ("smallOutPair", "deeplab", "edgeOut", "pspnet")
-# the output types of the ported nets: the flagship family, the Ext_small
-# nets and the dlab net (smallOutSeg, hanet, multitask), sdnet_mini
-# (smallOutPair), sdnet and sdnetv2 (two_out), the edge nets (edgeOut)
-PORTED_OUTPUT_TYPES = ("smallOutSeg", "smallOutPair", "two_out", "hanet", "multitask", "edgeOut")
+# the output types of the warp nets whose seg3 (the third seg head) counts
+# in the seg loss, and those whose disparity loss is the photo-consistency
+# of warped_right (the L1 zeroed)
+_THREE_OUT = ("ThreeOutPuts", "ThreeOutPutsDisp", "ThreeOutPutsDispConsist")
+_PHOTO = ("smallOutWarp", "ThreeOutPutsDispConsist")
+# the output types of the nets: the flagship family, the Ext_small nets and
+# the dlab net (smallOutSeg, hanet, multitask), sdnet_mini (smallOutPair),
+# sdnet and sdnetv2 (two_out), the edge nets (edgeOut), sdnet_seg
+# (smallOutWarp), the warp nets (ThreeOutPuts*), the deeplab nets, pspnet
+PORTED_OUTPUT_TYPES = ("smallOutSeg", "smallOutPair", "two_out", "hanet", "multitask", "edgeOut",
+                       "smallOutWarp", *_THREE_OUT, "deeplab", "deeplab_mod", "pspnet")
 
 
 def _split(generator: Optional[torch.Generator]):
@@ -134,20 +182,31 @@ def _split(generator: Optional[torch.Generator]):
     return tuple(torch.Generator(generator.device).manual_seed(int(s)) for s in seeds)
 
 
+def _copy(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """A generator in ``generator``'s state: the JAX step draws seg3's loss
+    from head 2's key."""
+    if generator is None:
+        return None
+    g = torch.Generator(generator.device)
+    g.set_state(generator.get_state())
+    return g
+
+
 def make_losses_fn(cfg: PMTConfig):
     """Returns ``losses(out, batch, generator=None) -> (loss, logs)`` on the
-    model's outputs (the JAX package's ``step.py:175-220`` for the output
-    types of the ported nets; any other raises): head 1's cross entropy on
-    seg1, head 2's configured stack on seg2 (not for the single-head output
-    types, e.g. ``sdnet_mini``'s), and the disparity stack on disp1; for the
+    model's outputs (the JAX package's ``step.py:175-220``): head 1's cross
+    entropy on seg1, head 2's configured stack on seg2 (not for the
+    single-head output types, e.g. ``sdnet_mini``'s), head 1's loss on seg3
+    too for the ``ThreeOutPuts*`` types, and the disparity stack on disp1,
+    replaced by ``photo_consistency`` of ``warped_right`` against the left
+    image for ``smallOutWarp`` and ``ThreeOutPutsDispConsist``; for the
     multitask output type, the means of the model's Kendall terms ``mt``;
     for ``edgeOut``, plus ``balanced_edge_bce`` of the edge head against the
     batch's ``edges``. ``dual_edge_reg`` draws from ``generator``, split per
-    head."""
+    head (seg3's loss draws what head 2's does)."""
     ot = cfg.model.output_type
     if ot not in PORTED_OUTPUT_TYPES:
-        raise NotImplementedError(f"the losses of output type {ot!r} are not ported yet "
-                                  f"(ROADMAP.md queue 1, item 12.7)")
+        raise ValueError(f"unknown output type {ot!r}: one of {PORTED_OUTPUT_TYPES}")
     d = cfg.data
     head1_loss = compose_seg_loss(["cross_entropy"], d.dataset_name, d.n_labels, cfg.loss.seg_weight)
     head2_loss = compose_seg_loss(cfg.loss.losses, d.dataset_name, d.n_labels, cfg.loss.seg_weight)
@@ -162,10 +221,15 @@ def make_losses_fn(cfg: PMTConfig):
             loss_disp = mt_d.mean()
         else:
             g1, g2 = _split(generator)
+            g3 = _copy(g2)
             loss_seg = head1_loss(out["seg1"], seg, g1)
             if two_heads:
                 loss_seg = loss_seg + head2_loss(out["seg2"], seg, g2)
+            if ot in _THREE_OUT and out.get("seg3") is not None:
+                loss_seg = loss_seg + head1_loss(out["seg3"], seg, g3)
             loss_disp = disp_loss(batch["disp"], out["disp1"], batch.get("left"), seg)
+            if ot in _PHOTO:  # the L1 zeroed, photo-consistency instead
+                loss_disp = loss_disp * 0.0 + photo_consistency(out["warped_right"], batch["left"])
         loss = loss_seg + loss_disp
         if ot == "edgeOut" and out.get("edge") is not None:
             loss = loss + balanced_edge_bce(out["edge"], batch["edges"])
@@ -218,8 +282,8 @@ def make_train_step(cfg: PMTConfig, model: torch.nn.Module,
         if cfg.optim.freeze_bn:
             _zero_bn_grads(state.model)
         with torch.no_grad():
-            metrics = compute_metrics(cfg, {k: v.detach() for k, v in out.items() if k != "mt"},
-                                      batch)
+            metrics = compute_metrics(cfg, {k: v.detach() for k, v in out.items()
+                                            if isinstance(v, torch.Tensor)}, batch)
             metrics.update({k: v.detach() for k, v in logs.items()})
         return state.apply_gradients(), metrics
 
@@ -261,8 +325,8 @@ def _eval_metrics_full(cfg: PMTConfig, out: Dict[str, torch.Tensor],
 
 
 # outputs / batch keys read by the per-row eval metrics and losses
-_EVAL_OUT_KEYS = ("seg1", "seg2", "disp1", "edge")
-_EVAL_BATCH_KEYS = ("left", "seg", "disp", "edges", "pad_mask")
+_EVAL_OUT_KEYS = ("seg1", "seg2", "seg3", "disp1", "disp2", "warped_right", "edge")
+_EVAL_BATCH_KEYS = ("left", "right", "seg", "disp", "edges", "pad_mask")
 
 
 def eval_rows(cfg: PMTConfig, losses, out: Dict[str, torch.Tensor],
@@ -324,10 +388,12 @@ def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
     one row at a time, a row's outputs do not depend on the batch it came in.
     ``slide_window`` 1 and 2 run the windows of ``tiled_inference`` over a
     row as one batched forward (not for the multitask output type, as in
-    the JAX package). ``tta`` (the deeplab net's) raises."""
-    if cfg.run.tta:
-        raise NotImplementedError("-tta applies to the deeplab net, which is not ported yet "
-                                  "(ROADMAP.md queue 1, item 12.7)")
+    the JAX package). ``tta`` averages the mono ``deeplab``'s seg heads over
+    a flip and ``tta_scales`` (``evaluation.tta``); any other net raises the
+    JAX package's ``ValueError``."""
+    if cfg.run.tta and cfg.model.output_type != "deeplab":
+        raise ValueError("-tta 1 only applies to the mono deeplab net "
+                         "(SegmentatorTTA, models_deeplab/tta.py)")
     if cfg.run.slide_window and (cfg.model.edges or cfg.model.output_type == "multitask"):
         raise ValueError("-slide_window tiling is defined for the plain stereo nets (the "
                          "reference gates it the same way, torch_implementation.py:119)")
@@ -337,12 +403,19 @@ def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
 
     def forward_eval(batch):
         if not cfg.run.slide_window:
-            return forward(batch, False)
+            out = forward(batch, False)
+            if cfg.run.tta:
+                from ..evaluation.tta import tta
+
+                seg = tta(lambda x: forward(dict(batch, left=x, right=x), False)["seg1"],
+                          batch["left"], scales=list(cfg.run.tta_scales) or None)
+                out = dict(out, seg1=seg, seg2=seg)
+            return out
         from ..evaluation.tiled import tiled_inference
 
         window, stride, soft = (((512, 512), (256, 256), True) if cfg.run.slide_window == 2
                                 else ((256, 512), (128, 256), False))
-        out = tiled_inference(lambda l, r: forward({"left": l, "right": r}, False),
+        out = tiled_inference(lambda l, r: forward(dict(batch, left=l, right=r), False),
                               batch["left"], batch["right"], window=window, stride=stride,
                               softmax_seg=soft)
         out.pop("window_counts", None)

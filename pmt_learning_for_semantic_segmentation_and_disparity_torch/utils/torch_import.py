@@ -13,7 +13,8 @@ of the same name reads, each once:
 * ``deconv`` -- a stride-1 'same' ``ConvTranspose2d`` (I, O, kh, kw), which
   the port runs as a SAME convolution: flipped in space, I and O swapped
   (``deconv_as_conv_kernel``); also the stride-2 ``DeconvBN`` of the legacy
-  nets, whose ``SameConvTranspose2d`` keeps a conv's layout;
+  nets and PSMNet's ``ConvTranspose3d`` (I, O, kd, kh, kw), whose
+  ``SameConvTranspose2d``/``3d`` keep a conv's layout;
 * ``cat``    -- several tensors concatenated along dim 0: the reference's
   four 3->1 ``conv2d_ba{0..3}`` image convs of the flagship, merged into the
   port's one 3->4 ``conv2d_ba`` in the channel order ba0, ba2, ba1, ba3
@@ -31,11 +32,13 @@ Every trunk is imported (``backbone_entries``: densenet121/169/201/161 in
 torchvision's style, the dilated ResNets, EfficientNet in
 efficientnet_pytorch's layout, MobileNetV3-Large in cuevhv's for
 ``-pretrained_path``), inside the four flagship variants, the Ext_small
-nets, ``sdnet_mini_ext_dlab`` (HANet's deeplabV3plus), sdnet_mini, sdnet and
-sdnetv2. Not imported, as the JAX package's importers do not map them
-either: the multitask log-variance and decoder-only modules (ROADMAP.md
-queue 1, item 11.3), a mobilenet trunk inside a net and the Ext_small nets'
-ASPPs (queue 3); the nets of item 12.7.
+nets, ``sdnet_mini_ext_dlab`` (HANet's deeplabV3plus), sdnet_mini, sdnet,
+sdnetv2, the warp nets and sdnet_seg; and the deeplab nets (Xception-65 or
+the MobileNetV2 encoder, their ASPPs and decoders; a bare Xception-65 for
+``-pretrained_path``) and PSMNet. Not imported, as the JAX package's
+importers do not map them either: the multitask log-variance and
+decoder-only modules (ROADMAP.md queue 1, item 11.3), a mobilenet trunk
+inside a net and the Ext_small nets' ASPPs (queue 3).
 """
 from __future__ import annotations
 
@@ -50,10 +53,14 @@ DENSENET121_BLOCKS = (6, 12, 24, 16)
 _BN = ("weight", "bias", "running_mean", "running_var")
 
 
+def _spatial(w: torch.Tensor) -> Tuple[int, ...]:
+    return tuple(range(2, w.dim()))
+
+
 def deconv_as_conv_kernel(w: torch.Tensor) -> torch.Tensor:
-    """torch ConvTranspose2d (I, O, kh, kw) -> the port's SAME conv (O, I,
-    kh, kw): flip the spatial dims, swap I and O."""
-    return w.flip(-2, -1).transpose(0, 1).contiguous()
+    """torch ConvTranspose2d/3d (I, O, k...) -> the port's conv layout (O, I,
+    k...): flip the spatial dims, swap I and O."""
+    return w.flip(_spatial(w)).transpose(0, 1).contiguous()
 
 
 def _as_tensor(v) -> torch.Tensor:
@@ -541,6 +548,159 @@ def ext_dlab_entries(trunk, conv_deconv_out: int = 0, ablation: Sequence[str] = 
     return e
 
 
+def minidsnet_divide_entries(trunk, variant: str = "divide") -> List[Entry]:
+    """The warp nets (the JAX package's ``import_minidsnet_divide``):
+    piramidNet2 with its fourth tap (``branch3_*``), ``conv2d_ba1``, the
+    SmallsegNet head, the disparity decoder and the attention head:
+    ``Conv2DownUp7`` + ``conv1d_at_d``, or for "soft" a Sequential of a
+    Conv2DownUp and a transposed output conv. conv2d_ba0/2/3, conv1d_3 and
+    segNetB2 are built, never used."""
+    e = _trunk_entries(trunk, ((0, 5), (1, 4), (2, 3), (3, 2)))
+    e += _convbn("conv2d_ba1", "conv2d_ba1.0")
+    e += _head1_segnet() + _disp_head()
+    if variant == "soft":
+        return e + _cdu("cdu7", "Conv2DownUp7.0", last=False) + _deconv_out("cdu7_out",
+                                                                          "Conv2DownUp7.1")
+    return e + _cdu("cdu7", "Conv2DownUp7") + _conv_plain("conv1d_at_d", "conv1d_at_d")
+
+
+def seg_dsnet_entries(trunk) -> List[Entry]:
+    """seg_dsnet, ``sdnet_seg`` (the JAX package's ``import_seg_dsnet``):
+    minidsnet's piramidNet, ``conv2d_ba0``/``1``, the shared segNet, the
+    disparity decoder. conv2d_ba2/3 and conv1d_3 are built, never used."""
+    e = _trunk_entries(trunk, ((0, 5), (1, 3)))
+    e += _convbn("conv2d_ba0", "conv2d_ba0.0") + _convbn("conv2d_ba1", "conv2d_ba1.0")
+    return e + _head1_segnet() + _disp_head()
+
+
+def _separable(port: str, ref: str) -> List[Entry]:
+    """SeparableConv2d (models_deeplab/common.py:25-52): ``block.depthwise``
+    (C, 1, k, k), ``block.pointwise`` and their BatchNorms."""
+    e = [(f"{port}.{conv}.weight", (f"{ref}.block.{conv}.weight",), "copy")
+         for conv in ("depthwise", "pointwise")]
+    return e + _bn(f"{port}.bn_depth", f"{ref}.block.bn_depth") + _bn(f"{port}.bn_point",
+                                                                       f"{ref}.block.bn_point")
+
+
+def _weight(port: str, ref: str) -> List[Entry]:
+    return [(f"{port}.weight", (f"{ref}.weight",), "copy")]
+
+
+def _conv_bias(port: str, ref: str) -> List[Entry]:
+    return _weight(port, ref) + [(f"{port}.bias", (f"{ref}.bias",), "copy")]
+
+
+def xception65_entries(encoder, port: str = "encoder", ref: str = "encoder.") -> List[Entry]:
+    """Xception65 (models_deeplab/xception.py:49-135; the stereo net's is the
+    same, its taps forward-only) under the reference prefix ``ref``: the
+    JAX package's ``import_xception65``."""
+    e = _weight(f"{port}.conv1", f"{ref}conv1") + _bn(f"{port}.bn1", f"{ref}bn1")
+    e += _weight(f"{port}.conv2", f"{ref}conv2") + _bn(f"{port}.bn2", f"{ref}bn2")
+    for i in range(1, 22):
+        pre, mine = f"{ref}block{i}", f"{port}.block{i}"
+        for k in (1, 2, 3):
+            e += _separable(f"{mine}.sep{k}", f"{pre}.sep_conv{k}")
+        if getattr(encoder, f"block{i}").skip == "conv":
+            e += _weight(f"{mine}.skip_conv", f"{pre}.conv") + _bn(f"{mine}.skip_bn", f"{pre}.bn")
+    return e
+
+
+def _mobilenetv2(port: str = "encoder", ref: str = "encoder") -> List[Entry]:
+    """The deeplab MobileNetV2 encoder (models_deeplab/mobilenet.py:53-103):
+    the JAX package's ``import_mobilenetv2_encoder``; block 0 has no
+    expansion."""
+    from ..models.deeplab import MOBILENETV2_CFG
+
+    e = _weight(f"{port}.stem", f"{ref}.conv") + _bn(f"{port}.stem_bn", f"{ref}.bn")
+    for i, (*_, ratio, _) in enumerate(MOBILENETV2_CFG):
+        pre, mine = f"{ref}.block{i}", f"{port}.block{i}"
+        parts = (("expand", "ebn", "expand"),) if ratio != 1 else ()
+        for conv, bn, theirs in parts + (("dw", "dbn", "depthwise"), ("proj", "pbn", "project")):
+            e += _weight(f"{mine}_{conv}", f"{pre}.{theirs}.conv") + _bn(f"{mine}_{bn}",
+                                                                         f"{pre}.{theirs}.bn")
+    return e
+
+
+def _aspp_deeplab(spp, port: str = "spp", ref: str = "spp") -> List[Entry]:
+    """ASPP (models_deeplab/spp.py:34-77) or MobileASPP (:80-108, no atrous
+    branches): the JAX package's ``import_aspp_deeplab``/``import_mobile_aspp``."""
+    e = _weight(f"{port}.gap_conv", f"{ref}.image_pooling.conv")
+    e += _bn(f"{port}.gap_bn", f"{ref}.image_pooling.bn")
+    e += _weight(f"{port}.aspp0_conv", f"{ref}.aspp0.conv") + _bn(f"{port}.aspp0_bn", f"{ref}.aspp0.bn")
+    if hasattr(spp, "aspp1"):
+        for i in (1, 2, 3):
+            e += _separable(f"{port}.aspp{i}", f"{ref}.aspp{i}")
+    return e + _weight(f"{port}.proj", f"{ref}.conv") + _bn(f"{port}.proj_bn", f"{ref}.bn")
+
+
+def _spp_decoder(port: str, concat_prev: bool = False) -> List[Entry]:
+    """SPPDecoder (models_deeplab_mod/spp.py:131-157): the JAX package's
+    ``import_spp_decoder``."""
+    e = _weight(f"{port}.low_conv", f"{port}.conv") + _bn(f"{port}.low_bn", f"{port}.bn")
+    if concat_prev:
+        e += _weight(f"{port}.int_conv", f"{port}.conv_int_feat")
+    return e + _separable(f"{port}.sep1", f"{port}.sep1") + _separable(f"{port}.sep2",
+                                                                      f"{port}.sep2")
+
+
+def sppnet_mono_entries(model) -> List[Entry]:
+    """SPPNet ``deeplab`` (models_deeplab/net.py:82-135; the JAX package's
+    ``import_sppnet_mono``): Xception-65, ASPP, decoder and logits, or the
+    MobileNetV2 encoder, its ASPP (full or MobileASPP) and logits."""
+    if model.enc_type == "mobilenetv2":
+        e = _mobilenetv2() + _aspp_deeplab(model.spp)
+    else:
+        e = xception65_entries(model.encoder) + _aspp_deeplab(model.spp) + _spp_decoder("decoder")
+    return e + _conv_bias("logits", "logits")
+
+
+def sppnet_stereo_entries(model) -> List[Entry]:
+    """SPPNet ``deeplab_mod`` (models_deeplab_mod/net.py:82-169; the JAX
+    package's ``import_sppnet_stereo``)."""
+    e = xception65_entries(model.encoder) + _aspp_deeplab(model.spp) + _spp_decoder("decoder")
+    e += _spp_decoder("decoder2", True) + _spp_decoder("decoder3", True)
+    e += _weight("conv2", "conv2") + _weight("conv3", "conv3") + _weight("corrConv", "corrConv2d.0")
+    return e + [x for name in ("logits", "logits_disp", "logits_seg") for x in _conv_bias(name, name)]
+
+
+def _convbn_psm(port: str, ref: str) -> List[Entry]:
+    """convbn / convbn_3d (submodule.py:10-19): Sequential(conv, BN)."""
+    return _weight(f"{port}.conv", f"{ref}.0") + _bn(f"{port}.bn", f"{ref}.1")
+
+
+def psmnet_entries() -> List[Entry]:
+    """PSMNet, stacked hourglass (stackhourglass.py:53-160; the JAX
+    package's ``import_psmnet``): 3-D conv kernels as they are, the
+    hourglasses' ``ConvTranspose3d`` as ``deconv``."""
+    fe = "feature_extraction"
+    e = []
+    for i, idx in enumerate((0, 2, 4)):
+        e += _convbn_psm(f"feature.first{i}", f"{fe}.firstconv.{idx}")
+    for ours, theirs, n, first_down in (("l1", "layer1", 3, False), ("l2", "layer2", 16, True),
+                                        ("l3", "layer3", 3, True), ("l4", "layer4", 3, False)):
+        for i in range(n):
+            pre, mine = f"{fe}.{theirs}.{i}", f"feature.{ours}_{i}"
+            e += _convbn_psm(f"{mine}.c1", f"{pre}.conv1.0") + _convbn_psm(f"{mine}.c2", f"{pre}.conv2")
+            if first_down and i == 0:
+                e += _weight(f"{mine}.down", f"{pre}.downsample.0")
+                e += _bn(f"{mine}.down_bn", f"{pre}.downsample.1")
+    for i in (1, 2, 3, 4):
+        e += _convbn_psm(f"feature.branch{i}", f"{fe}.branch{i}.1")
+    e += _convbn_psm("feature.last0", f"{fe}.lastconv.0") + _weight("feature.last1", f"{fe}.lastconv.2")
+    for ours, theirs in (("dres0a", "dres0.0"), ("dres0b", "dres0.2"), ("dres1a", "dres1.0"),
+                         ("dres1b", "dres1.2")):
+        e += _convbn_psm(ours, theirs)
+    for k in (2, 3, 4):
+        for c, ref in (("c1", "conv1.0"), ("c2", "conv2"), ("c3", "conv3.0"), ("c4", "conv4.0")):
+            e += _convbn_psm(f"dres{k}.{c}", f"dres{k}.{ref}")
+        for c, ref in (("c5", "conv5"), ("c6", "conv6")):
+            e.append((f"dres{k}.{c}.deconv.weight", (f"dres{k}.{ref}.0.weight",), "deconv"))
+            e += _bn(f"dres{k}.{c}.bn", f"dres{k}.{ref}.1")
+    for k in (1, 2, 3):
+        e += _convbn_psm(f"classif{k}a", f"classif{k}.0") + _weight(f"classif{k}b", f"classif{k}.2")
+    return e
+
+
 _EMBEDDING = "hanet_last.pos_emb1d_2nd.pos_embedding.weight"
 
 
@@ -551,6 +711,14 @@ def import_densenet121(state_dict, block_config: Sequence[int] = DENSENET121_BLO
     return {k[len("bb."):]: v
             for k, v in _apply(_densenet("bb", block_config),
                                _torchvision_style(state_dict)).items()}
+
+
+def import_xception65_backbone(state_dict, encoder) -> Dict[str, torch.Tensor]:
+    """A bare Xception-65 checkpoint (unprefixed keys, as
+    models_deeplab/xception.py's ``load_url`` delivers it) -> {name in the
+    port's ``Xception65``: tensor}: the deeplab nets' ``-pretrained_path``."""
+    return {k[len("bb."):]: v
+            for k, v in _apply(xception65_entries(encoder, "bb", ""), state_dict).items()}
 
 
 def import_mobilenetv3_backbone(state_dict, trunk) -> Dict[str, torch.Tensor]:
@@ -605,7 +773,7 @@ def export_state_dict(model: torch.nn.Module, entries: List[Entry]) -> Dict[str,
         if kind == "copy":
             out[refs[0]] = t.clone()
         elif kind == "deconv":
-            out[refs[0]] = t.transpose(0, 1).flip(-2, -1).contiguous()
+            out[refs[0]] = t.transpose(0, 1).flip(_spatial(t)).contiguous()
         else:
             out.update(zip(refs, (c.clone() for c in t.chunk(len(refs), dim=0))))
     pre = "resnet_features.resnet_features."
@@ -625,7 +793,10 @@ _EXT_VARIANTS = {"sdnet_mini_ext": "ext", "sdnet_mini_ext_v2": "v2",
                  "sdnet_mini_ext_piramid": "piramid", "sdnet_mini_ext_piramid_res": "piramid_res"}
 _EXT_SMALL_VARIANTS = {"sdnet_mini_ext_small": "v0", "sdnet_mini_ext_small_edge": "edge",
                        "sdnet_mini_ext_small_edgev2": "v2"}
-_LEGACY = {"sdnet_mini": minidsnet_entries, "sdnet": dsnet_entries, "sdnetv2": dsnetv2_entries}
+_LEGACY = {"sdnet_mini": minidsnet_entries, "sdnet": dsnet_entries, "sdnetv2": dsnetv2_entries,
+           "sdnet_seg": seg_dsnet_entries}
+_WARP_VARIANTS = {"dsnet_warp": "divide", "dsnet_warp_soft": "soft", "dsnet_warp_disp": "disp",
+                  "dsnet_warp_disp_consist": "disp2"}
 
 
 def _check_ported(cfg) -> None:
@@ -635,7 +806,7 @@ def _check_ported(cfg) -> None:
                                   "package's importer does not map them either "
                                   "(ROADMAP.md queue 1, item 11.3)")
     unmapped = ""
-    if m.net in _EXT_VARIANTS or m.net in _EXT_SMALL_VARIANTS:
+    if m.net in _EXT_VARIANTS or m.net in _EXT_SMALL_VARIANTS or m.net in _WARP_VARIANTS:
         if m.backbone == "mobilenet":
             unmapped = "a mobilenet trunk inside a net"
         elif m.net in _EXT_SMALL_VARIANTS and (m.aspp or m.backbone in ("resnet50", "resnet101")):
@@ -643,10 +814,6 @@ def _check_ported(cfg) -> None:
     if unmapped:
         raise NotImplementedError(f"importing {unmapped} is not ported: the JAX package's importer "
                                   f"does not map it either (ROADMAP.md queue 3)")
-    known = set(_EXT_VARIANTS) | set(_EXT_SMALL_VARIANTS) | set(_LEGACY) | {"sdnet_mini_ext_dlab"}
-    if m.net not in known:
-        raise NotImplementedError(f"importing a torch checkpoint of -net {m.net} is not ported "
-                                  f"yet (ROADMAP.md queue 1, item 12.7)")
 
 
 def entries_for(cfg, model: torch.nn.Module, hanet_embedding: bool = None) -> List[Entry]:
@@ -661,7 +828,15 @@ def entries_for(cfg, model: torch.nn.Module, hanet_embedding: bool = None) -> Li
     if m.net == "sdnet_mini_ext_dlab":
         return ext_dlab_entries(model.features.trunk, m.conv_deconv_out, m.ablation or (),
                                 bool(m.hanet), hanet_embedding)
+    if m.net == "deeplab":
+        return sppnet_mono_entries(model)
+    if m.net == "deeplab_mod":
+        return sppnet_stereo_entries(model)
+    if m.net == "pspnet":
+        return psmnet_entries()
     trunk = model.features.backbone
+    if m.net in _WARP_VARIANTS:
+        return minidsnet_divide_entries(trunk, _WARP_VARIANTS[m.net])
     if m.net in _EXT_VARIANTS:
         return ext_entries(trunk, m.use_att, m.conv_deconv_out, m.ablation or (), m.aspp,
                            bool(m.hanet), _EXT_VARIANTS[m.net], hanet_embedding)

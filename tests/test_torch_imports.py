@@ -19,6 +19,8 @@ def test_importing_the_port_loads_no_jax():
         f"import {PORT}.losses.edge, {PORT}.losses.multitask, {PORT}.ops.edges\n"
         f"import {PORT}.models.resnet_deeplab, {PORT}.models.efficientnet, {PORT}.models.mobilenetv3\n"
         f"import {PORT}.models.ext_small, {PORT}.models.sdnet_dlab\n"
+        f"import {PORT}.models.warpnets, {PORT}.models.deeplab, {PORT}.models.psmnet\n"
+        f"import {PORT}.ops.warp, {PORT}.ops.costvolume, {PORT}.evaluation.tta\n"
         f"banned = {BANNED!r}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "print(bad)\n"

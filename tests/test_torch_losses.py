@@ -7,7 +7,8 @@ pixels are the longest chains). Lovász runs at C = 2 (the JAX package's
 single-sort path) and C = 9; Tversky's gradient ignores the upstream factor
 and forces alpha = 0.7, beta = 0.3 in both packages. ``make_losses_fn``
 is held against the JAX package's for the output type of every ported net
-(hanet and multitask included), and ``compose_seg_loss`` on stacks that mix
+(hanet and multitask included; the warp, deeplab and PSMNet output
+types in ``test_torch_new_losses.py``), and ``compose_seg_loss`` on stacks that mix
 the losses of the eighth slice with the main path's; those losses alone are
 held in ``test_torch_seg_losses.py`` and ``test_torch_edge_losses.py``.
 """
@@ -291,13 +292,21 @@ def test_make_losses_fn_hanet_and_multitask_match_jax(output_type):
         assert abs(v.item() - float(ref_logs[k])) <= REL * abs(float(ref_logs[k])), (k, v, ref_logs[k])
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("net", "sdnet_seg", "12.7"), ("net", "dsnet_warp", "12.7"), ("net", "dsnet_warp_disp", "12.7"),
-    ("net", "dsnet_warp_disp_consist", "12.7"),
-    ("net", "deeplab", "12.7"), ("net", "pspnet", "12.7"),
-])
-def test_unported_output_types_raise(field, value, item):
-    _, cfg = loss_configs("sdnet_mini_ext")
-    setattr(cfg.model, field, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
-        make_losses_fn(cfg)
+@pytest.mark.parametrize("net", ["sdnet_seg", "dsnet_warp", "dsnet_warp_disp",
+                                 "dsnet_warp_disp_consist", "deeplab", "pspnet"])
+def test_formerly_unported_output_types_give_finite_losses(net):
+    """The output types whose nets raised before they were ported
+    (smallOutWarp, ThreeOutPuts*, deeplab, pspnet): ``make_losses_fn`` builds and gives a
+    finite loss and logs on outputs of the net's keys (parity with the JAX
+    package: test_torch_new_losses.py)."""
+    _, cfg = loss_configs(net)
+    rng = np.random.default_rng(9)
+    keys = (("seg1", 2), ("seg2", 2), ("seg3", 2), ("disp1", 1), ("disp2", 1), ("warped_right", 3))
+    out = {k: torch.from_numpy((2 * rng.standard_normal(SHAPE + (c,))).astype(np.float32))
+           for k, c in keys}
+    batch = {"left": torch.from_numpy(rng.standard_normal(SHAPE + (3,), dtype=np.float32)),
+             "seg": torch.from_numpy(np.eye(2, dtype=np.float32)[rng.integers(0, 2, SHAPE)]),
+             "disp": torch.from_numpy(rng.random(SHAPE + (1,), dtype=np.float32))}
+    loss, logs = make_losses_fn(cfg)(out, batch)
+    assert set(logs) == {"loss", "loss_seg", "loss_disp"}
+    assert all(np.isfinite(v.item()) for v in logs.values()) and loss.item() > 0

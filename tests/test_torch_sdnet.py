@@ -150,7 +150,7 @@ def test_entry_points_need_a_card_unless_told_cpu(flagship):
 @pytest.mark.parametrize("field,value", [
     ("edges", True), ("backbone", "dn169"), ("backbone", "mobilenet"), ("backbone", "resnet50"),
 ])
-def test_unported_options_raise(field, value):
+def test_formerly_unported_options_build_and_serve(field, value):
     """The options that raised ``NotImplementedError`` before the zoo's
     trunks and the edge inputs were ported (-edges, trunks other than
     densenet121) now build at reduced depth and serve 1x32x64: finite

@@ -79,7 +79,7 @@ def test_legacy_train_mode_forward_per_view_batch_norm(legacy):
 
 
 @pytest.mark.parametrize("net", ["sdnet", "sdnetv2"])
-def test_legacy_edges_raise(net):
+def test_legacy_edges_build(net):
     """-edges, which raised before the edge inputs were ported, builds: the
     image convs take the edge channel, ``sdnet``'s trunk too (the JAX
     ``DSNet`` hands it ``input_a`` whole), ``sdnetv2``'s the first three

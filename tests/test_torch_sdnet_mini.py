@@ -87,7 +87,7 @@ def test_sdnet_mini_train_mode_forward_per_view_batch_norm(mini):
     assert torch.equal(out["seg2"], out["seg1"]) and torch.equal(out["disp2"], out["disp1"])
 
 
-def test_sdnet_mini_edges_raise():
+def test_sdnet_mini_edges_build():
     """-edges, which raised before the edge inputs were ported, builds: the
     image conv takes the edge channel, the trunk the first three channels
     (parity with the JAX model: test_torch_edge_inputs.py)."""

@@ -11,12 +11,10 @@ a 4+3-image roses fixture of 64x128, at ``-b 2``, with the eval bucket at
   ``model_best_IOU{x}_Derr{y}``), and ``max_to_keep`` keeps the newest.
 * The eval CLI's mean±std summary is the same at ``-b 2`` and ``-b 3``
   (a padded tail either way) within 1e-5 relative in fp32.
-* A reference ``.pth.tar``, ``-pretrained_path``, ``-multaskloss 1`` and
-  ``-hanet 1`` run through the eval CLI; what is not ported raises
-  ``NotImplementedError`` naming its ROADMAP item.
+* A reference ``.pth.tar``, ``-pretrained_path``, ``-multaskloss 1``,
+  ``-hanet 1``, ``-net deeplab`` and ``-tta 1`` run through the eval CLI.
 """
 import os
-import re
 
 import numpy as np
 import pytest
@@ -135,14 +133,17 @@ def test_eval_cli_is_batch_invariant(runs):
     assert summaries[0]["disp_valid"] == 64 * 128  # each row's pixels, padding excluded
 
 
-@pytest.mark.parametrize("extra,item", [
-    ("-tta 1", "12.7"),
-    ("-net deeplab", "12"),
-])
-def test_unported_options_name_their_items(fixture_argv, extra, item):
+@pytest.mark.parametrize("extra", ["-net deeplab -tta 1", "-net deeplab"])
+def test_formerly_unported_options_run_through_the_eval_cli(fixture_argv, extra):
+    """``-tta 1`` (on the mono deeplab net, the only one it applies to) and
+    ``-net deeplab``, which raised before those nets were ported, run through the
+    eval CLI (Xception-65 at full depth) and give finite summaries; every
+    row's seg heads are one (the mono net's head 2 mirrors head 1)."""
     root, argv = fixture_argv
-    with pytest.raises(NotImplementedError, match=re.escape(f"(ROADMAP.md queue 1, item {item})")):
-        run(argv + ["-train", "0", "-w_savePath", str(root / "x")] + extra.split())
+    session = run(argv + ["-train", "0", "-w_savePath", str(root / "x")] + extra.split())
+    rows = session.accumulator.rows
+    assert len(rows) == 3 and all(np.isfinite(v) for v in session.eval_summary.values())
+    assert all(r["pixel_acc1"] == r["pixel_acc2"] for r in rows)
 
 
 @pytest.mark.parametrize("extra", ["-pretrained_path", "-load_weights", "-multaskloss 1", "-hanet 1"])

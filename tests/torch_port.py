@@ -144,8 +144,11 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _to_flax_layout(a, leaf="kernel"):
-    """A port tensor in flax's layout: conv kernels OIHW -> HWIO, Conv1d
-    kernels OIk -> (k, I, O), Linear weights (O, I) -> Dense kernels (I, O)."""
+    """A port tensor in flax's layout: conv kernels OIHW -> HWIO, 3-D kernels
+    OIDHW -> DHWIO, Conv1d kernels OIk -> (k, I, O), Linear weights (O, I) ->
+    Dense kernels (I, O)."""
+    if a.ndim == 5:
+        return a.transpose(2, 3, 4, 1, 0)
     if a.ndim == 4:
         return a.transpose(2, 3, 1, 0)
     if a.ndim == 2 and leaf == "kernel":
@@ -154,6 +157,8 @@ def _to_flax_layout(a, leaf="kernel"):
 
 
 def _from_flax_layout(a, leaf="kernel"):
+    if a.ndim == 5:
+        return a.transpose(4, 3, 0, 1, 2)
     if a.ndim == 4:
         return a.transpose(3, 2, 0, 1)
     if a.ndim == 2 and leaf == "kernel":
