@@ -117,7 +117,30 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    ``-tta 1 -tta_scales 0.75 1.25`` on ``deeplab`` through the eval step card
    vs CPU; ``deeplab_mod`` and ``dsnet_warp`` weights written in the
    reference's ``.pth.tar`` layout restore bit-equal through the eval CLI,
-   and ``-pretrained_path`` grafts an Xception-65 into ``deeplab``.
+   and ``-pretrained_path`` grafts an Xception-65 into ``deeplab``;
+12. EncoderDecoderNet (``models/encdec.py``, outside the CLI) at the
+   reference's full width (resnet50 encoder, ``num_filters`` 16, 19 labels)
+   with each decoder type (SCSE, SE-IBN, ObjectContext), the attention's
+   ``W`` non-zero: the fp32 forward card vs CPU at 1x64x128 within 1e-3 *
+   max|ref|; serving under the bf16 policy (SCSE and SE-IBN at 16x512x960,
+   OC at 4x256x512, where its dense attention fits: ``ENCDEC_SERVE``) with
+   ms/batch, pairs/s and peak memory; two bf16 train steps with the mono
+   deeplab net's seg-only loss on cityscapes labels (8x256x512, OC
+   2x256x512) with finite losses and gradients; a reference-layout
+   ``.pth.tar`` through ``import_encdec`` bit-equal in weights and bf16
+   outputs; no kernel launched on any of these paths. Then
+   ``parallel/spatial.py`` on the flagship: the banded forward card vs CPU
+   at 1x128x128 within 1e-3 * max|ref|, and at 2x512x960 in 8 bands with a
+   64-row halo against the monolithic forward under bf16, max|d| over the
+   rows beside the image's top and bottom, the seams and the rest printed
+   as a reading, beside the same reading for one band with the halo's zero
+   rows and for a halo spanning the whole image (corr1d once a forward
+   either way); two controls: one band without a halo is the monolithic
+   forward, and the banded forward is each band's own forward put in place
+   (fp32, TF32 off), each within 1e-3 * max|ref|.
+
+Phase 8's eval CLI runs at ``-show_results 1`` (the flag's default): the
+summary is printed and both confusion heatmaps decode.
 
 The third-to-last line of stdout is a JSON object with one record per
 kernel, the second-to-last the card's name and power limit, and the last
@@ -138,7 +161,7 @@ phase 8 only, ``--options`` phase 9 only (``--serve flagship_aspp2`` and
 ``--train flagship_aspp2`` time that path alone), ``--trunks`` phase 10
 only (``--serve dlab``, ``--train flagship_resnet101`` and the like),
 ``--zoo`` phase 11 only (``--serve pspnet``, ``--train deeplab_mod`` and the
-like).
+like), ``--encdec`` phase 12 only.
 """
 from __future__ import annotations
 
@@ -408,6 +431,29 @@ FILES_EVAL_BATCHES = (4, 5)  # eval CLI batch sizes, held within FILES_EVAL_RTOL
 FILES_EVAL_RTOL = 1e-3
 FILES_WINDOWS = 9  # -slide_window 1: 256x512 windows at half stride over the 512x960 bucket
 
+# phase 12: EncoderDecoderNet at the reference's full width (resnet50
+# encoder, num_filters 16, 19 labels) with each decoder type. The SCSE and
+# SE-IBN nets serve the bench's 16x512x960 and train its 8x256x512. The OC
+# net's attention is dense over (HW, HW) at every decoder scale: dec1's, at
+# /2 of 512x960, would hold 122,880^2 fp32 logits, 60.4 GB a sample. So it
+# serves 4x256x512 and trains 2x256x512: 32,768 tokens, 4.29 GB a sample for
+# a copy of the logits, two copies at the softmax (and in training a third,
+# their gradient), PERF.md §4
+ENCDEC = {"labels": 19, "enc_type": "resnet50", "num_filters": 16}
+ENCDEC_SERVE = {"unet_scse": (BATCH, H, W), "unet_seibn": (BATCH, H, W), "unet_oc": (4, 256, 512)}
+ENCDEC_TRAIN = {"unet_scse": (TRAIN_BATCH, TRAIN_H, TRAIN_W),
+                "unet_seibn": (TRAIN_BATCH, TRAIN_H, TRAIN_W), "unet_oc": (2, 256, 512)}
+ENCDEC_SERVE_BATCHES = 3  # a warm-up and two timed batches
+ENCDEC_TRAIN_STEPS = 2    # the first with cuDNN's first calls, the second timed
+ENCDEC_SMALL = (1, 64, 128, 3)  # card vs CPU, fp32
+# phase 12: the flagship's banded forward (parallel/spatial.py): 8 bands of
+# 64 rows with a 64-row halo each side, stacked on the batch axis; card vs
+# CPU at a small size (2 bands of 64 rows, a 32-row halo); the seam rows
+# read are those within SEAM_ROWS of a boundary between two bands
+BANDED_SHAPE, BANDS, HALO = (2, H, W), 8, 64
+BANDED_SMALL, SMALL_BANDS, SMALL_HALO = (1, 128, 128), 2, 32
+SEAM_ROWS = 4
+
 
 class SmokeFailure(Exception):
     pass
@@ -447,6 +493,14 @@ def counters() -> dict:
             "corr1d_backward": correlation.correlation1d_backward_cuda,
             "corr2d": correlation.correlation2d_cuda,
             "corr2d_backward": correlation.correlation2d_backward_cuda}
+
+
+def zero_counts() -> dict:
+    """Every kernel's count set to 0; returns the wrappers (``counters``)."""
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
 
 
 def one_correlation(run: str, step: bool = False) -> dict:
@@ -1082,8 +1136,7 @@ def phase_train(net: str, n_warmup: int, n_steps: int, card: str):
     times, losses = [], []
     for i, batch in enumerate(batches):
         if i == n_warmup:
-            for k in kernels.values():
-                k.launches = 0
+            zero_counts()
         t0 = time.perf_counter()
         _, metrics = step(state, batch)
         torch.cuda.synchronize()
@@ -1138,8 +1191,7 @@ def phase_serve(net: str, n_batches: int, expect: dict):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
     times = []
     with torch.inference_mode():
         for batch in batches:
@@ -1179,8 +1231,7 @@ def cli_run(argv, kernels: dict):
     output is printed too."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.cli import train as cli
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         session = cli.main(argv)
@@ -1314,8 +1365,24 @@ def phase_files(card: str):
         # the eval CLI at two batch sizes, then tiled
         summaries = {}
         for b in FILES_EVAL_BATCHES:
-            ev, _, launches = cli_run(data + FILES_TRAIN + ["-train", "0", "-b", str(b),
-                                                            "-load_weights", ckpt], kernels)
+            # at -show_results 1, the flag's default: the summary is printed and
+            # both confusion heatmaps are written to ./testResults, without
+            # matplotlib (the card's machine has none)
+            cwd = os.path.join(tmp, f"eval_b{b}")
+            os.makedirs(cwd)
+            with contextlib.chdir(cwd):
+                ev, text, launches = cli_run(data + FILES_TRAIN + [
+                    "-train", "0", "-b", str(b), "-load_weights", ckpt, "-show_results", "1"], kernels)
+            check(text.strip().splitlines()[-1] == str(ev.eval_summary),
+                  f"eval -b {b} -show_results 1: the summary is not the last line printed")
+            for head in (1, 2):
+                heatmap = png.read(os.path.join(cwd, "testResults", f"confusion_head{head}.png"))
+                check(heatmap.shape[2] == 3 and heatmap.shape[0] == heatmap.shape[1] > 0,
+                      f"eval -b {b}: confusion_head{head}.png decodes to {heatmap.shape}")
+            print(f"[files eval -b {b}] -show_results 1: summary printed; confusion_head1.png and "
+                  f"confusion_head2.png decode to {heatmap.shape}; "
+                  f"{len(os.listdir(os.path.join(cwd, 'testResults')))} files in testResults",
+                  flush=True)
             t = ev.timings
             hold_cli_launches(f"[files eval -b {b}]", ev, launches)
             check(t["eval_rows"] == FILES_TEST_PAIRS, f"eval -b {b}: {t}")
@@ -1324,7 +1391,8 @@ def phase_files(card: str):
                             {k: (float(np.mean([r[k] for r in rows])), float(np.std([r[k] for r in rows])))
                              for k in rows[0]})
             print(f"[files eval -b {b}] {t['eval_batches']} batches: {t['eval_rows'] / t['eval_s']:.2f} "
-                  f"pairs/s (host, loading included); launches {launches}; {card}", flush=True)
+                  f"pairs/s (host, loading and -show_results 1's files included); launches {launches}; "
+                  f"{card}", flush=True)
             del ev
         (a, ms_a), (b, ms_b) = (summaries[k] for k in FILES_EVAL_BATCHES)
         check(set(a) == set(b) and ms_a.keys() == ms_b.keys(), "eval summaries of other keys")
@@ -1436,9 +1504,7 @@ def finite_step(run: str, losses=TRAIN_LOSSES, tag: str = None, dataset: str = "
     model, state, step = train_setup(run, "cuda", bf16=True, losses=losses, dataset=dataset)
     batch = train_batch((TRAIN_BATCH, TRAIN_H, TRAIN_W), torch.Generator(device="cuda").manual_seed(8),
                         "cuda", dataset, edges=needs_edges(run_config(run)))
-    kernels = counters()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = zero_counts()
     t0 = time.perf_counter()
     _, metrics = step(state, batch)
     torch.cuda.synchronize()
@@ -1637,8 +1703,7 @@ def phase_zoo_tta() -> None:
     outs = {}
     for device in ("cpu", "cuda"):
         step = make_eval_step(cfg, models.get_network(cfg, device=device, seed=0), device)
-        for k in counters().values():
-            k.launches = 0
+        zero_counts()
         outs[device] = step(batch)[0]
     launches = {name: k.launches for name, k in counters().items()}
     check(not any(launches.values()), f"[zoo tta] launches {launches}")
@@ -1757,6 +1822,346 @@ def phase_zoo(card: str) -> dict:
     return paths
 
 
+def encdec_model(dec_type: str, device: str, seed: int = 0):
+    """Phase 12's EncoderDecoderNet (``ENCDEC``) with the seeded init drawn on
+    the host and the attention's zero-initialised ``W`` given seeded values
+    (at zero the ObjectContext path would add exactly nothing), moved to
+    ``device`` in eval mode: the same weights on every device."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+
+    model = models.init_parameters(models.EncoderDecoderNet(dec_type=dec_type, **ENCDEC),
+                                   torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 2)[-2] == "W":
+                scale = 1.0 / p[0].numel() ** 0.5 if p.dim() > 1 else 0.1
+                p.copy_(scale * torch.randn(p.shape, generator=g))
+    return model.to(device).eval()
+
+
+def encdec_config(net: str = "sdnet_mini_ext"):
+    """A bf16 config of the cityscapes layout (19 classes and the ignore
+    channel). With the default net, ``make_forward_fn`` takes its plain path
+    (no pre- or post-processing, no keyword inputs), which is the one
+    EncoderDecoderNet needs; with ``deeplab``, ``make_losses_fn`` gives the
+    seg-only loss the mono deeplab net trains with (head 1's cross entropy;
+    its disparity head is the ground truth)."""
+    cfg = config(net, bf16=True)
+    cfg.data.dataset_name = "cityscapes"
+    return cfg
+
+
+def hold_no_launches(tag: str, kernels: dict) -> dict:
+    """EncoderDecoderNet correlates nothing: every kernel's count is 0."""
+    launches = {name: k.launches for name, k in kernels.items()}
+    check(not any(launches.values()), f"{tag}: launches {launches}, expected none")
+    return launches
+
+
+def phase_encdec_forward(dec_type: str) -> None:
+    """The fp32 eval forward card vs CPU at ``ENCDEC_SMALL``, within
+    1e-3 * max|ref|."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(ENCDEC_SMALL, generator=g)
+    with torch.inference_mode():
+        ref = encdec_model(dec_type, "cpu")(x)["seg1"]
+        kernels = zero_counts()
+        got = encdec_model(dec_type, "cuda")(x.cuda())["seg1"].cpu()
+        hold_no_launches(f"[encdec {dec_type}] card forward", kernels)
+    err, bound = (got - ref).abs().max().item(), 1e-3 * ref.abs().max().item()
+    print(f"[encdec {dec_type}] {ENCDEC['enc_type']}, num_filters {ENCDEC['num_filters']}, "
+          f"{ENCDEC['labels']} labels, 1x64x128 fp32 forward: card "
+          f"vs CPU max|d| = {err:.6g} (tolerance {bound:.6g} = 1e-3 * max|ref|)", flush=True)
+    check(tuple(got.shape) == (1, 64, 128, 19) and err <= bound,
+          f"[encdec {dec_type}] card forward {tuple(got.shape)}: {err} > {bound}")
+
+
+def phase_encdec_serve(dec_type: str, card: str) -> dict:
+    """Serve ``ENCDEC_SERVE_BATCHES`` batches of ``ENCDEC_SERVE`` under the
+    bf16 policy through ``make_forward_fn`` (the first a warm-up): seg1 of
+    19 classes, finite, the other heads None; no kernel launched."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_forward_fn
+
+    b, h, w = ENCDEC_SERVE[dec_type]
+    forward = make_forward_fn(encdec_config(), encdec_model(dec_type, "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(12)
+    batches = [{"left": torch.randn((b, h, w, 3), device="cuda", generator=g),
+                "right": torch.randn((b, h, w, 3), device="cuda", generator=g)}
+               for _ in range(ENCDEC_SERVE_BATCHES)]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = zero_counts()
+    times = []
+    with torch.inference_mode():
+        for batch in batches:
+            t0 = time.perf_counter()
+            out = forward(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            seg = out["seg1"]
+            check(tuple(seg.shape) == (b, h, w, ENCDEC["labels"]) and seg.dtype == torch.float32
+                  and bool(torch.isfinite(seg).all()) and out["seg2"] is None and out["disp1"] is None,
+                  f"[encdec {dec_type} serve] seg1 {tuple(seg.shape)} {seg.dtype}")
+    launches = hold_no_launches(f"[encdec {dec_type} serve]", kernels)
+    ms = 1e3 * sum(times[1:]) / len(times[1:])
+    print(f"[encdec {dec_type} serve] {ENCDEC['enc_type']} bf16, {b} images of {h}x{w}: "
+          f"{ms:.2f} ms/batch, "
+          f"{b / ms * 1e3:.2f} pairs/s over {len(times) - 1} batches (per batch: "
+          f"{', '.join(f'{1e3 * t:.2f}' for t in times)} ms, the first a warm-up); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; {card}",
+          flush=True)
+    del forward, batches, out
+    return launches
+
+
+def phase_encdec_train(dec_type: str, card: str) -> dict:
+    """``ENCDEC_TRAIN_STEPS`` bf16 train steps at ``ENCDEC_TRAIN`` (train-mode
+    forward through ``make_forward_fn``, the seg-only loss of
+    ``make_losses_fn`` for the mono deeplab net's output type on cityscapes
+    ground truth, backward, Adam): finite losses and gradients; no kernel
+    launched."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
+        TrainState,
+        build_optimizer,
+        make_forward_fn,
+        make_losses_fn,
+    )
+
+    model = encdec_model(dec_type, "cuda")
+    cfg = encdec_config()
+    forward, losses = make_forward_fn(cfg, model), make_losses_fn(encdec_config("deeplab"))
+    state = TrainState.create(model, build_optimizer(cfg.optim, "deeplab", 1))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    shape = ENCDEC_TRAIN[dec_type]
+    batches = [train_batch(shape, g, "cuda", "cityscapes") for _ in range(ENCDEC_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = zero_counts()
+    times, values = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state.optimizer.zero_grad()
+        out = forward(batch, True)
+        # the mono deeplab net's heads: seg2 mirrors seg1, disparity is the ground truth
+        out = dict(out, seg2=out["seg1"], disp1=batch["disp"], disp2=batch["disp"])
+        loss, _ = losses(out, batch)
+        loss.backward()
+        state.apply_gradients()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        values.append(loss.item())
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        check(bool(torch.isfinite(loss)) and len(grads) == len(list(model.parameters()))
+              and all(bool(torch.isfinite(t).all()) for t in grads),
+              f"[encdec {dec_type} train] a loss or gradient is not finite: {loss.item()}")
+    launches = hold_no_launches(f"[encdec {dec_type} train]", kernels)
+    b, h, w = shape
+    print(f"[encdec {dec_type} train] {ENCDEC['enc_type']} bf16, cross entropy on cityscapes "
+          f"labels, Adam, {b} "
+          f"images of {h}x{w}: losses {', '.join(f'{v:.5g}' for v in values)}, {len(grads)} finite "
+          f"gradient tensors; per step {', '.join(f'{1e3 * t:.2f}' for t in times)} ms (the first "
+          f"with cuDNN's first calls), {b / times[-1]:.2f} training pairs/s at the last; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; {card}",
+          flush=True)
+    del model, state, forward, batches, out, loss, grads
+    return launches
+
+
+def phase_encdec_restore(dec_type: str, tmp: str) -> None:
+    """A reference-layout state dict of a seeded model (``export_state_dict``
+    of ``encdec_entries``), saved as a ``.pth.tar`` and read back, imports
+    through ``import_encdec`` into a model of other weights: every tensor
+    and the bf16 outputs on the card bit-equal to the source's."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_forward_fn
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import torch_import as ti
+
+    source = encdec_model(dec_type, "cpu", seed=3)
+    path = os.path.join(tmp, f"encdec_{dec_type}.pth.tar")
+    torch.save({"state_dict": ti.export_state_dict(source, ti.encdec_entries(source))}, path)
+    state = ti.load_torch_state_dict(path)
+    fresh = encdec_model(dec_type, "cpu", seed=4)
+    ti.load_port_state(fresh, ti.import_encdec(state, fresh))
+    want = source.state_dict()
+    for k, v in fresh.state_dict().items():
+        check(torch.equal(v, want[k]), f"[encdec {dec_type} restore] {k} differs")
+    g = torch.Generator(device="cuda").manual_seed(14)
+    batch = {"left": torch.randn((2, 128, 256, 3), device="cuda", generator=g)}
+    batch["right"] = batch["left"]
+    with torch.inference_mode():
+        a = make_forward_fn(encdec_config(), source.cuda())(batch)["seg1"]
+        b = make_forward_fn(encdec_config(), fresh.cuda())(batch)["seg1"]
+    check(torch.equal(a, b), f"[encdec {dec_type} restore] bf16 outputs differ")
+    print(f"[encdec {dec_type} restore] {len(state)} reference keys through import_encdec: "
+          f"all {len(want)} tensors and the bf16 outputs at 2x128x256 bit-equal", flush=True)
+
+
+def phase_banded_placement() -> None:
+    """Control: at ``BANDED_SHAPE`` in fp32 (TF32 off), the banded forward
+    equals each band's own forward with its interior rows put in place by
+    hand, within 1e-3 * max|ref|: stacking the bands on the batch axis and
+    ``merge_bands`` change nothing, so what parts the banded forward from
+    the monolithic one is what each band sees."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.parallel import (
+        spatial_shard_infer,
+        split_bands,
+    )
+
+    model = models.get_network(config("sdnet_mini_ext"), device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    left, right = (torch.randn(BANDED_SHAPE + (3,), device="cuda", generator=g) for _ in range(2))
+    b, bh = BANDED_SHAPE[0], H // BANDS
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            got = spatial_shard_infer(model, left, right, BANDS, HALO)
+            lb, _, _ = split_bands(left, BANDS, HALO)
+            rb, _, _ = split_bands(right, BANDS, HALO)
+            want = {k: torch.empty_like(v) for k, v in got.items()}
+            for i in range(BANDS):
+                alone = model(lb[i * b:(i + 1) * b], rb[i * b:(i + 1) * b])
+                for k in want:
+                    want[k][:, i * bh:(i + 1) * bh] = alone[k][:, HALO:HALO + bh]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    worst = []
+    for k in want:
+        err, bound = (got[k] - want[k]).abs().max().item(), 1e-3 * want[k].abs().max().item()
+        check(err <= bound, f"[banded] placement {k}: max|d| {err} > {bound}")
+        worst.append(f"{k} {err:.4g} ({err / bound:.3g} of its bound)")
+    print(f"[banded] control, fp32 without TF32: the banded forward against each band's own "
+          f"forward put in place by hand, max|d| {'; '.join(worst)}", flush=True)
+
+
+def phase_banded(card: str) -> dict:
+    """``parallel/spatial.py`` on the flagship: the fp32 banded forward card
+    vs CPU at ``BANDED_SMALL`` within 1e-3 * max|ref|; then under the bf16
+    policy at ``BANDED_SHAPE`` the banded forward (``BANDS`` bands, ``HALO``
+    rows each side, one batch) against the monolithic one, max|d| over the
+    rows beside the image's top and bottom, over the seams and over the
+    rest, a reading, not a bound; the same reading for one band (the halo's
+    zero rows alone) and for a halo of the image's height; the controls
+    (one band without a halo; ``phase_banded_placement``). corr1d once a
+    forward, banded or not. Returns the banded forward's launches."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.parallel import (
+        spatial_shard_infer,
+    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import make_forward_fn
+
+    heads = ("seg1", "seg2", "disp1", "disp2")
+    cfg = config("sdnet_mini_ext")
+    g = torch.Generator().manual_seed(15)
+    left, right = (torch.randn(BANDED_SMALL + (3,), generator=g) for _ in range(2))
+    outs = {}
+    with torch.inference_mode():
+        for device in ("cpu", "cuda"):
+            model = models.get_network(cfg, device=device, seed=0)
+            outs[device] = spatial_shard_infer(model, left.to(device), right.to(device),
+                                               SMALL_BANDS, SMALL_HALO)
+    worst = []
+    for k in heads:
+        ref, got = outs["cpu"][k], outs["cuda"][k].cpu()
+        err, bound = (got - ref).abs().max().item(), 1e-3 * ref.abs().max().item()
+        check(got.shape == ref.shape and err <= bound, f"[banded] small {k}: {err} > {bound}")
+        worst.append((err / bound, k))
+    print(f"[banded] flagship fp32, {'x'.join(map(str, BANDED_SMALL))} in {SMALL_BANDS} bands with a "
+          f"{SMALL_HALO}-row halo: card vs CPU within 1e-3 * max|ref|, the closest {max(worst)[1]} at "
+          f"{max(worst)[0]:.3g} of its bound", flush=True)
+
+    cfg = config("sdnet_mini_ext", bf16=True)
+    forward = make_forward_fn(cfg, models.get_network(cfg, seed=0))
+
+    def apply(l, r):
+        return forward({"left": l, "right": r})
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    left, right = (torch.randn(BANDED_SHAPE + (3,), device="cuda", generator=g) for _ in range(2))
+    kernels = counters()
+    with torch.inference_mode():
+        times = {}
+        for name, fn in (("monolithic", lambda: apply(left, right)),
+                         ("banded", lambda: spatial_shard_infer(apply, left, right, BANDS, HALO))):
+            fn()  # a warm-up at the shape: cuDNN's first calls
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            times[name] = 1e3 * (time.perf_counter() - t0)
+            launches = {n: k.launches for n, k in kernels.items()}
+            check(launches == {"corr1d": 1, "corr1d_backward": 0, "corr2d": 0, "corr2d_backward": 0},
+                  f"[banded] {name} forward launches {launches}")
+        # the same image as one band with the halo's zero rows above and below
+        # it, and in BANDS bands whose halo spans the whole image
+        outs["one band"] = spatial_shard_infer(apply, left, right, 1, HALO)
+        outs["whole-image halo"] = spatial_shard_infer(apply, left, right, BANDS, H)
+        # control: one band without a halo is the monolithic forward
+        one = spatial_shard_infer(apply, left, right, 1, 0)
+    control = []
+    for k in heads:
+        err, bound = ((one[k] - outs["monolithic"][k]).abs().max().item(),
+                      1e-3 * outs["monolithic"][k].abs().max().item())
+        check(err <= bound, f"[banded] one band, no halo: {k} max|d| {err} > {bound}")
+        control.append(f"{k} {err:.4g}")
+    bh = H // BANDS
+    row = torch.arange(H, device="cuda")
+    edge = (row < HALO) | (row >= H - HALO)  # beside the zero rows split_bands adds
+    seam = ((row % bh < SEAM_ROWS) | (row % bh >= bh - SEAM_ROWS)) & ~edge
+    rest = ~edge & ~seam
+
+    def regions(name, k):
+        d = (outs[name][k] - outs["monolithic"][k]).abs().amax(dim=(0, 2, 3))  # per row
+        return " / ".join(f"{d[m].max().item():.4g}" for m in (edge, seam, rest))
+
+    readings = {name: [] for name in ("banded", "one band", "whole-image halo")}
+    for k in heads:
+        scale = outs["monolithic"][k].abs().max().item()
+        for name in readings:
+            readings[name].append(f"{k} {regions(name, k)} (max|ref| {scale:.4g})")
+        check(bool(torch.isfinite(outs["banded"][k]).all()), f"[banded] {k} is not finite")
+    print(f"[banded] flagship bf16, {'x'.join(map(str, BANDED_SHAPE))} in {BANDS} bands of {bh} rows "
+          f"with a {HALO}-row halo ({BANDED_SHAPE[0] * BANDS} bands of {bh + 2 * HALO}x{W} in one "
+          f"batch) against the monolithic forward, max|d| over the rows within {HALO} of the "
+          f"image's top or bottom / the other rows within {SEAM_ROWS} of a band boundary / the "
+          f"rest: {'; '.join(readings['banded'])}; {times['monolithic']:.2f} ms monolithic, "
+          f"{times['banded']:.2f} ms banded (host clock, one forward each after a warm-up); "
+          f"launches {launches}; {card}", flush=True)
+    print(f"[banded] the same regions, one band with {HALO} zero rows above and below the image: "
+          f"{'; '.join(readings['one band'])}", flush=True)
+    print(f"[banded] the same regions, {BANDS} bands with a {H}-row halo (each band sees the whole "
+          f"image): {'; '.join(readings['whole-image halo'])}", flush=True)
+    print(f"[banded] control: one band without a halo against the monolithic forward, max|d| "
+          f"{'; '.join(control)} (tolerance 1e-3 * max|ref|)", flush=True)
+    phase_banded_placement()
+    return launches
+
+
+def phase_encdec(card: str) -> dict:
+    """Phase 12: EncoderDecoderNet at full width with each decoder type
+    (card vs CPU, serving, training, the importer's restore; no kernel
+    launched on any of its paths), then the flagship's banded forward.
+    Returns {path: launches}."""
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="pmt_encdec_")
+    try:
+        for dec_type in ENCDEC_SERVE:
+            phase_encdec_forward(dec_type)
+            paths[f"encdec_{dec_type}_serve"] = phase_encdec_serve(dec_type, card)
+            paths[f"encdec_{dec_type}_train"] = phase_encdec_train(dec_type, card)
+            phase_encdec_restore(dec_type, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths["banded"] = phase_banded(card)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net (or flagship_aspp2) "
@@ -1781,6 +2186,10 @@ def main() -> int:
                     help="only run the flagship family's options (phase 9): the aspp-2 flagship "
                          "serves and trains, every other configuration and loss stack, the "
                          ".pth.tar restore")
+    ap.add_argument("--encdec", action="store_true",
+                    help="only run EncoderDecoderNet and the banded forward (phase 12): each "
+                         "decoder type card vs CPU, serving, training and restoring, then the "
+                         "flagship in bands against its monolithic forward")
     ap.add_argument("--zoo", action="store_true",
                     help="only run the rest of the CLI's nets (phase 11): deeplab_mod, dsnet_warp "
                          "and pspnet serve and train, every other configuration, deeplab's TTA, "
@@ -1797,9 +2206,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if (args.serve or args.train or args.backward or args.files or args.options or args.trunks
-            or args.zoo):
+            or args.zoo or args.encdec):
         try:
-            if args.files:
+            if args.encdec:
+                phase_encdec(card)
+            elif args.files:
                 phase_files(card)
             elif args.zoo:
                 phase_zoo(card)
@@ -1873,6 +2284,13 @@ def main() -> int:
                 records[name][f"launches_{run}_train"] = paths[f"{run}_train"][name]
         for run, launches in paths["restore"].items():
             records["corr1d"][f"launches_{run}_restore_eval"] = launches["corr1d"]
+        # phase 12: EncoderDecoderNet's serving and training paths launch no
+        # kernel; the banded flagship launches corr1d once a forward
+        paths = phase_encdec(card)
+        for name in records:
+            records[name]["launches_encdec"] = sum(launches[name] for path, launches in paths.items()
+                                                   if path.startswith("encdec_"))
+        records["corr1d"]["launches_banded_serve"] = paths["banded"]["corr1d"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -14,5 +14,9 @@ from .labels import (  # noqa: F401
     CITYSCAPES_LABELS,
 )
 from .pipeline import DataLoader, pad_to_bucket, prefetch_to_device  # noqa: F401
-from .synthetic import apply_fixture_to_config, make_roses_fixture  # noqa: F401
+from .synthetic import (  # noqa: F401
+    apply_fixture_to_config,
+    make_cityscapes_fixture,
+    make_roses_fixture,
+)
 from . import imageio, png  # noqa: F401

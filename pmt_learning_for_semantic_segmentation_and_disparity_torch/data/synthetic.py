@@ -1,6 +1,7 @@
-"""Synthetic ROSeS-style fixture generator: the port's copy of the JAX
-package's ``make_roses_fixture`` (the same files for the same seed, written
-by the port's PNG codec, which filters every row Sub as cv2's writer does).
+"""Synthetic fixture generators: the port's copies of the JAX package's
+``make_roses_fixture`` and ``make_cityscapes_fixture`` (the same files for
+the same seed, written by the port's PNG codec, which filters every row Sub
+as cv2's writer does and writes the x256 disparity as 16-bit gray).
 
 The reference ships scripts/reduceExistentDataset.py to cut tiny manifest
 subsets "to realize tests with less computation requirements" (README.md:37).
@@ -85,6 +86,83 @@ def make_roses_fixture(
         with open(p, "w") as f:
             f.write("\n".join(names[key]) + "\n")
         manifests[key] = p
+    return manifests
+
+
+def make_cityscapes_fixture(
+    root: str, n_train: int = 8, n_test: int = 2,
+    hw: Tuple[int, int] = (96, 160), seed: int = 0,
+) -> dict:
+    """Cityscapes-layout miniature: raw labelId segmentation pngs (ignore
+    ids included — the LUT's 255->extra-channel path, utilCityscape.py:
+    173-186), uint16 disparity pngs on the x256 scale
+    (utilTorchDataLoader.py:181-184), and a per-image class-occurrence CSV
+    for the ClassBalancer (utilTorchDataLoader.py:60-125). Returns manifest
+    paths plus ``csv``."""
+    from .labels import _ID2TRAIN
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    os.makedirs(root, exist_ok=True)
+    names = {
+        k: []
+        for k in ("left", "right", "disp", "seg", "inst",
+                  "left_t", "right_t", "disp_t", "seg_t", "inst_t")
+    }
+    # raw cityscapes ids covering every balanced trainId (3,4,5,6,7,9,11,
+    # 12,14,15,16,17,18) plus ignore regions (id 0) and common classes
+    raw_ids = np.array([0, 7, 12, 13, 17, 19, 20, 22, 24, 25, 27, 28, 31,
+                        32, 33], np.uint8)
+    per_image_classes = []
+
+    for split, n, suffix in (("train", n_train, ""), ("test", n_test, "_t")):
+        for i in range(n):
+            left = rng.integers(0, 255, (h, w, 3), np.uint8)
+            right = np.roll(left, 3, axis=1)
+            # blocky labelId map: every image contains every raw id so each
+            # balance-class column has candidates
+            seg = np.repeat(
+                raw_ids[rng.permutation(len(raw_ids))],
+                h * w // len(raw_ids) + 1,
+            )[: h * w].reshape(h, w)
+            disp16 = (rng.random((h, w)) * 64 * 256).astype(np.uint16)
+            inst = (seg % 7).astype(np.uint8)
+            arrs = {"left": left, "right": right, "disp": disp16,
+                    "seg": seg, "inst": inst}
+            for kind, arr in arrs.items():
+                p = os.path.join(root, f"cs_{split}_{kind}_{i}.png")
+                png.write(p, arr)
+                names[kind + suffix].append(os.path.basename(p))
+            if split == "train":
+                present = set(int(t) for t in _ID2TRAIN[seg].ravel()
+                              if t != 255)
+                per_image_classes.append(present)
+
+    manifests = {}
+    mapping = {
+        "left": "colorL.txt", "right": "colorR.txt", "disp": "disp.txt",
+        "seg": "seg.txt", "inst": "inst.txt",
+        "left_t": "colorL_test.txt", "right_t": "colorR_test.txt",
+        "disp_t": "disp_test.txt", "seg_t": "seg_test.txt",
+        "inst_t": "inst_test.txt",
+    }
+    for key, fname in mapping.items():
+        p = os.path.join(root, fname)
+        with open(p, "w") as f:
+            f.write("\n".join(names[key]) + "\n")
+        manifests[key] = p
+
+    # class-occurrence CSV: column "n" = dataset index, one 0/1 column per
+    # trainId (the balancer reads str(cls) columns)
+    csv_path = os.path.join(root, "class_balance.csv")
+    cols = sorted({c for s in per_image_classes for c in s})
+    with open(csv_path, "w") as f:
+        f.write("n," + ",".join(str(c) for c in cols) + "\n")
+        for i, present in enumerate(per_image_classes):
+            f.write(str(i) + ","
+                    + ",".join("1" if c in present else "0" for c in cols)
+                    + "\n")
+    manifests["csv"] = csv_path
     return manifests
 
 

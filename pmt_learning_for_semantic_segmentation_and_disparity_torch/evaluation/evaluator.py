@@ -4,8 +4,9 @@
 tables, final mean±std summary, confusion-matrix artifacts, and EXPLICIT
 (eval-only, opt-in) prediction image dumps — the reference writes jpgs from
 inside its metric functions on every step (utilTorchLoss.py:267-268,
-331-332); here it's a flag. The dumps need cv2 and matplotlib, imported where they
-run; without them they raise naming the package.
+331-332); here it's a flag. The prediction dumps need cv2, imported where they run
+(without it they raise naming it); the confusion heatmaps are written by the
+port's own PNG codec.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ except Exception:  # pragma: no cover
     tabulate = None
 
 from ..metrics.segmetrics import mean_iou, pixel_accuracy, pixel_accuracy_class
+from ..utils.viz import confusion_heatmap, write_rgb
 
 
 class MetricAccumulator:
@@ -155,27 +157,12 @@ def dump_prediction_images(
 
 def save_confusion_matrix_png(conf: np.ndarray, class_names, path: str,
                               normalize: bool = True):
-    """plot_confusion_matrix equivalent (utilTorchPlot.py:358)."""
-    try:
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-    except ImportError as e:
-        raise ImportError("confusion-matrix plots need matplotlib, which is not installed") from e
+    """plot_confusion_matrix equivalent (utilTorchPlot.py:358): the
+    row-normalised matrix as a ``Blues`` heatmap written by the port's PNG
+    codec (``utils/viz.py:confusion_heatmap``; no matplotlib, so no axis
+    labels: row i is true class ``class_names[i]``, column j predicted)."""
     cm = conf.astype(np.float64)
     if normalize:
         with np.errstate(invalid="ignore"):
             cm = cm / cm.sum(axis=1, keepdims=True)
-    fig, ax = plt.subplots(figsize=(6, 6))
-    im = ax.imshow(cm, cmap="Blues")
-    ax.set_xticks(range(len(class_names)))
-    ax.set_yticks(range(len(class_names)))
-    ax.set_xticklabels(class_names, rotation=45, ha="right", fontsize=7)
-    ax.set_yticklabels(class_names, fontsize=7)
-    ax.set_xlabel("predicted")
-    ax.set_ylabel("true")
-    fig.colorbar(im)
-    fig.tight_layout()
-    fig.savefig(path, dpi=120)
-    plt.close(fig)
+    write_rgb(path, confusion_heatmap(cm))

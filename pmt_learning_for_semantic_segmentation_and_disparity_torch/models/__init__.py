@@ -2,8 +2,8 @@
 ``sdnet_mini_ext``/``_v2``/``_piramid``/``_piramid_res`` on every trunk of
 ``VALID_BACKBONES``, the Ext_small nets, ``sdnet_mini_ext_dlab``,
 ``sdnet_mini``, ``sdnet``, ``sdnetv2``, the warp nets and ``sdnet_seg``, the
-deeplab nets, ``pspnet``). Not ported: the JAX package's ``models/encdec.py``,
-whose nets the CLI does not reach (ROADMAP.md queue 1, item 12.7)."""
+deeplab nets, ``pspnet``), and ``EncoderDecoderNet`` (``models/encdec.py``),
+which, as in the JAX package, the CLI does not reach: it is built directly."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -36,6 +36,7 @@ from .blocks import (  # noqa: F401
 )
 from .jax_weights import load_jax_variables  # noqa: F401
 from .deeplab import SPPNetMono, SPPNetStereo, Xception65  # noqa: F401
+from .encdec import EncoderDecoderNet  # noqa: F401
 from .psmnet import PSMNet  # noqa: F401
 from .pyramid import PiramidNet2, PiramidNet2Warp, PiramidNetV1  # noqa: F401
 from .ext_small import ExtSmall  # noqa: F401

@@ -17,8 +17,8 @@ names follow the flax modules (``conv``/``deconv``/``bn``, ``c1``..``d5``) so
   (a stride-1 'same' transposed conv is a conv with a flipped kernel, and the
   JAX package stores the kernel already in conv form);
 * the stride-2 ``DeconvBN`` (``deconv_ba1``/``deconv_ba2`` of the legacy
-  nets) is flax's ``nn.ConvTranspose(padding="SAME")``, see
-  ``SameConvTranspose2d``;
+  nets) and EncoderDecoderNet's biased 4x4 ``up`` are flax's
+  ``nn.ConvTranspose(padding="SAME")``, see ``SameConvTranspose2d``;
 * PSMNet's 3-D layers: ``conv3d`` (a 3x3x3 conv padded by one) and
   ``SameConvTranspose3d`` (flax's ``nn.ConvTranspose`` with explicit (1, 2)
   padding, 2x each dimension); ``batch_norm`` normalises (N, C, ...) maps
@@ -37,6 +37,7 @@ import torch.nn.functional as F
 #   he_fan_out -- variance_scaling(2, fan_out, normal): ConvBN / DeconvBN
 #   kaiming    -- variance_scaling(2, fan_in, truncated_normal): DenseNet convs
 #   lecun      -- variance_scaling(1, fan_in, truncated_normal): ConvOut
+#   zeros      -- zeros: the attention's output conv ``W`` (encdec.py)
 _INIT_RULES = {
     "he_fan_out": (2.0, "fan_out", False),
     "kaiming": (2.0, "fan_in", True),
@@ -96,25 +97,29 @@ class SameConv2d(nn.Conv2d):
 
 
 class SameConvTranspose2d(nn.Conv2d):
-    """flax ``nn.ConvTranspose(features, (k, k), strides=s, padding="SAME",
-    use_bias=False)``: output = s x input, bias-free.
+    """flax ``nn.ConvTranspose(features, (k, k), strides=s, padding="SAME")``:
+    output = s x input, bias-free unless ``bias`` (EncoderDecoderNet's 4x4
+    stride-2 ``up``, torch's ``ConvTranspose2d(4, 2, padding=1)``).
 
     The weight is kept in the conv layout (O, I, kh, kw), which is what
     ``load_jax_variables`` makes of flax's (kh, kw, I, O) kernel and what
-    ``init_parameters`` reads its fan-out (kh*kw*O) from, as flax does. flax
-    dilates the input by s and correlates it with the kernel unflipped, with
-    lax's SAME transpose padding (pad_a before); torch's ``conv_transpose2d``
-    scatters with the kernel flipped. So this runs ``conv_transpose2d`` with
-    the weight as (I, O, kh, kw), flipped in space, and keeps s*H x s*W of
-    its output from row and column k - 1 - pad_a on, copied back to
-    channels_last (the crop is a strided view, which the layers after it
-    would otherwise run in NCHW)."""
+    ``init_parameters`` reads its fan-in (kh*kw*I) and fan-out (kh*kw*O)
+    from, as flax does. flax dilates the input by s and correlates it with
+    the kernel unflipped, with lax's SAME transpose padding (pad_a before);
+    torch's ``conv_transpose2d`` scatters with the kernel flipped. So this
+    runs ``conv_transpose2d`` with the weight as (I, O, kh, kw), flipped in
+    space, and keeps s*H x s*W of its output from row and column
+    k - 1 - pad_a on, copied back to channels_last (the crop is a strided
+    view, which the layers after it would otherwise run in NCHW). Any kernel
+    no smaller than the stride: at k = 4, s = 2, pad_a = 2 and the crop
+    starts at 1."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int):
-        if kernel % 2 == 0 or kernel < stride:
-            raise ValueError("SameConvTranspose2d takes an odd kernel no smaller than the stride")
-        super().__init__(cin, cout, kernel, bias=False)
-        self.init_rule = "he_fan_out"
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, bias: bool = False,
+                 init: str = "he_fan_out"):
+        if kernel < stride:
+            raise ValueError("SameConvTranspose2d takes a kernel no smaller than the stride")
+        super().__init__(cin, cout, kernel, bias=bias)
+        self.init_rule = init
         self.up = stride
         pad_a = kernel - 1 if stride > kernel - 1 else math.ceil((kernel + stride - 2) / 2)
         self.offset = kernel - 1 - pad_a
@@ -122,7 +127,7 @@ class SameConvTranspose2d(nn.Conv2d):
     def forward(self, x):
         h, w = x.shape[-2:]
         s, o = self.up, self.offset
-        y = F.conv_transpose2d(x, self.weight.transpose(0, 1).flip(-2, -1), stride=s)
+        y = F.conv_transpose2d(x, self.weight.transpose(0, 1).flip(-2, -1), self.bias, stride=s)
         return y[..., o:o + s * h, o:o + s * w].contiguous(memory_format=torch.channels_last)
 
 
@@ -203,17 +208,23 @@ def batch_norm(c: int, eps: float = 1e-5, momentum: float = 0.9) -> BatchNorm2d:
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter and buffer of ``model`` from ``generator`` with
     the JAX package's initialisers (convolutions, 1-D to 3-D, by their
-    ``init_rule``, or
+    ``init_rule`` (``"zeros"``: flax's zeros), or
     flax ``nn.Conv``'s default lecun normal where they have none, their
     biases 0; a grouped convolution's fan-in is that of one group, as flax's
     (k, k, C/groups, O) kernel gives it; ``nn.Linear``: flax ``nn.Dense``'s
     lecun normal, bias 0; BatchNorm: scale 1, bias 0, running mean 0,
-    running var 1; an embedding: normal with std 1/sqrt(features), flax's
+    running var 1; an instance norm (flax ``LayerNorm`` over H and W): scale
+    1, bias 0; an embedding: normal with std 1/sqrt(features), flax's
     ``nn.Embed``; any other parameter, e.g. a log-variance of the multitask
     loss: 0)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
             rule = "lecun" if isinstance(m, nn.Linear) else getattr(m, "init_rule", "lecun")
+            if rule == "zeros":
+                m.weight.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
+                continue
             scale, mode, truncated = _INIT_RULES[rule]
             if isinstance(m, nn.Linear):
                 receptive, fan_in, fan_out = 1, m.in_features, m.out_features
@@ -235,6 +246,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
             m.num_batches_tracked.zero_()
+        elif isinstance(m, nn.InstanceNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim), generator=generator)
         else:

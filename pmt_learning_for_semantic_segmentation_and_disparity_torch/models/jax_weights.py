@@ -9,8 +9,11 @@ The port's child names follow the flax module names, so a flax leaf at
                                        transpose(4,3,0,1,2) (3-D convs)
     params/.../kernel  (I,O)        -> weight (O,I), transpose (nn.Dense ->
                                        nn.Linear)
-    params/.../scale                -> weight          (BatchNorm)
-    params/.../bias                 -> bias            (BatchNorm, Conv1d)
+    params/.../scale                -> weight          (BatchNorm, an instance
+                                                        norm's LayerNorm)
+    params/.../bias                 -> bias            (BatchNorm, LayerNorm,
+                                                        a biased conv, Dense or
+                                                        ConvTranspose)
     params/.../embedding            -> weight          (nn.Embedding)
     params/<name>                   -> <name>          (a free parameter, e.g.
                                                         log_var_disp)
@@ -18,7 +21,7 @@ The port's child names follow the flax module names, so a flax leaf at
     batch_stats/.../var             -> running_var
 
 A flax ``nn.ConvTranspose`` kernel (the stride-2 ``DeconvBN`` of the legacy
-nets, PSMNet's 3-D ``_Deconv3dBN``) is also (k..., I, O) and lands in the
+nets, PSMNet's 3-D ``_Deconv3dBN``, EncoderDecoderNet's 4x4 ``up``) is also (k..., I, O) and lands in the
 same (O, I, k...) layout: ``blocks.SameConvTranspose2d``/``3d`` keep their
 weight as a conv's and transpose and flip it for the transposed conv
 themselves. (torch's ``ConvTranspose2d``

@@ -1,1 +1,3 @@
-"""Utilities of the port: the torch reference's checkpoint importer."""
+"""Utilities of the port: the torch reference's checkpoint importer
+(``torch_import``), dataset analysis (``analysis``), result panels and
+heatmaps without matplotlib (``viz``), profiling (``profiling``)."""

@@ -35,7 +35,8 @@ efficientnet_pytorch's layout, MobileNetV3-Large in cuevhv's for
 nets, ``sdnet_mini_ext_dlab`` (HANet's deeplabV3plus), sdnet_mini, sdnet,
 sdnetv2, the warp nets and sdnet_seg; and the deeplab nets (Xception-65 or
 the MobileNetV2 encoder, their ASPPs and decoders; a bare Xception-65 for
-``-pretrained_path``) and PSMNet. Not imported, as the JAX package's
+``-pretrained_path``), PSMNet and EncoderDecoderNet (``import_encdec``,
+outside the CLI as the net is). Not imported, as the JAX package's
 importers do not map them either: the multitask log-variance and
 decoder-only modules (ROADMAP.md queue 1, item 11.3), a mobilenet trunk
 inside a net and the Ext_small nets' ASPPs (queue 3).
@@ -699,6 +700,94 @@ def psmnet_entries() -> List[Entry]:
     for k in (1, 2, 3):
         e += _convbn_psm(f"classif{k}a", f"classif{k}.0") + _weight(f"classif{k}b", f"classif{k}.2")
     return e
+
+
+def _abn(port: str, ref: str) -> List[Entry]:
+    """_ActivatedBatchNorm (models_deeplab/common.py:5-23): its ``.bn``."""
+    return _bn(port, f"{ref}.bn")
+
+
+def _up(port: str, ref: str) -> List[Entry]:
+    """A ``ConvTranspose2d(4, 2, padding=1)`` with bias into the port's
+    ``SameConvTranspose2d``: the weight flipped in space, I and O swapped."""
+    return [(f"{port}.weight", (f"{ref}.weight",), "deconv"), (f"{port}.bias", (f"{ref}.bias",), "copy")]
+
+
+def _decoder_scse(port: str, ref: str) -> List[Entry]:
+    """DecoderUnetSCSE (decoder.py:10-22): Sequential(conv3x3 with bias, ABN,
+    SCSEBlock (``channel_excitation`` Linears with biases, a bias-free 1x1
+    ``spatial_se``), ConvTranspose2d(4, 2, 1) with bias)."""
+    e = _conv_bias(f"{port}.conv", f"{ref}.block.0") + _abn(f"{port}.bn", f"{ref}.block.1")
+    se = f"{ref}.block.2"
+    e += _conv_bias(f"{port}.scse.fc1", f"{se}.channel_excitation.0")
+    e += _conv_bias(f"{port}.scse.fc2", f"{se}.channel_excitation.2")
+    return e + _weight(f"{port}.scse.spatial", f"{se}.spatial_se") + _up(f"{port}.up",
+                                                                         f"{ref}.block.3")
+
+
+def _decoder_oc(port: str, ref: str) -> List[Entry]:
+    """DecoderUnetOC (decoder.py:38-52): Sequential(conv3x3, ABN, BaseOC,
+    ConvTranspose2d). BaseOC.block = (conv3x3, ABN, BaseOC_Context): one
+    SelfAttentionBlock2D stage (``f_key`` conv + ABN, ``f_value``, ``W``) and
+    ``conv_bn_dropout`` (oc.py)."""
+    e = _conv_bias(f"{port}.conv", f"{ref}.block.0") + _abn(f"{port}.bn", f"{ref}.block.1")
+    base, oc = f"{ref}.block.2.block", f"{port}.oc"
+    e += _conv_bias(f"{oc}.conv", f"{base}.0") + _abn(f"{oc}.bn", f"{base}.1")
+    attn = f"{base}.2.stages.0"
+    e += _conv_bias(f"{oc}.attn.f_key", f"{attn}.f_key.0") + _abn(f"{oc}.attn.key_bn", f"{attn}.f_key.1")
+    e += _conv_bias(f"{oc}.attn.f_value", f"{attn}.f_value") + _conv_bias(f"{oc}.attn.W", f"{attn}.W")
+    e += _conv_bias(f"{oc}.proj", f"{base}.2.conv_bn_dropout.0")
+    e += _abn(f"{oc}.proj_bn", f"{base}.2.conv_bn_dropout.1")
+    return e + _up(f"{port}.up", f"{ref}.block.3")
+
+
+def _decoder_seibn(port: str, ref: str) -> List[Entry]:
+    """DecoderUnetSEIBN (decoder.py:25-35): SELayer (bias-free ``fc``
+    Linears) and ImprovedIBNaDecoderBlock (ibn.py:24-38: 1x1 reduce, IBN with
+    the instance norm's affine ``IN.0`` and the batch norm's ABN ``BN``,
+    deconv, ABN, 1x1 proj, ABN)."""
+    e = _weight(f"{port}.se.fc1", f"{ref}.block.0.fc.0") + _weight(f"{port}.se.fc2",
+                                                                   f"{ref}.block.0.fc.2")
+    ibn = f"{ref}.block.1.block"
+    e += _conv_bias(f"{port}.reduce", f"{ibn}.0") + _conv_bias(f"{port}.inorm", f"{ibn}.1.IN.0")
+    e += _abn(f"{port}.bnorm", f"{ibn}.1.BN") + _up(f"{port}.up", f"{ibn}.2")
+    e += _abn(f"{port}.up_bn", f"{ibn}.3")
+    return e + _conv_bias(f"{port}.proj", f"{ibn}.4") + _abn(f"{port}.proj_bn", f"{ibn}.5")
+
+
+_ENCDEC_DECODERS = {"unet_scse": _decoder_scse, "unet_oc": _decoder_oc,
+                    "unet_seibn": _decoder_seibn}
+
+
+def encdec_entries(model) -> List[Entry]:
+    """EncoderDecoderNet (models_deeplab/net.py:12-79; the JAX package's
+    ``import_encdec``): the torchvision resnet split into ``encoder1`` (conv1,
+    bn1, relu, maxpool) and ``encoder2..5`` (its layers), the decoders
+    ``center`` and ``decoder5..1`` of the model's type, and ``logits`` (1x1
+    conv, ABN, 1x1 conv)."""
+    e = _weight("stem", "encoder1.0") + _bn("stem_bn", "encoder1.1")
+    convs = ("1", "2", "3") if model.enc_type not in ("resnet18", "resnet34") else ("1", "2")
+    for li, names in enumerate(model.stages):
+        for bi, name in enumerate(names):
+            pre = f"encoder{li + 2}.{bi}"
+            for k in convs:
+                e += _weight(f"{name}.c{k}", f"{pre}.conv{k}") + _bn(f"{name}.b{k}", f"{pre}.bn{k}")
+            if getattr(model, name).has_down:
+                e += _weight(f"{name}.down", f"{pre}.downsample.0")
+                e += _bn(f"{name}.down_bn", f"{pre}.downsample.1")
+    decoder = _ENCDEC_DECODERS[model.dec_type]
+    for ours, theirs in (("center", "center"), ("dec5", "decoder5"), ("dec4", "decoder4"),
+                         ("dec3", "decoder3"), ("dec2", "decoder2"), ("dec1", "decoder1")):
+        e += decoder(ours, theirs)
+    e += _conv_bias("logits1", "logits.0") + _abn("logits_bn", "logits.1")
+    return e + _conv_bias("logits2", "logits.2")
+
+
+def import_encdec(state_dict, model) -> Dict[str, torch.Tensor]:
+    """A reference EncoderDecoderNet state dict -> {name in ``model``:
+    tensor}, as the JAX package's ``import_encdec`` maps it for the model's
+    ``enc_type`` and ``dec_type``."""
+    return _apply(encdec_entries(model), state_dict)
 
 
 _EMBEDDING = "hanet_last.pos_emb1d_2nd.pos_embedding.weight"

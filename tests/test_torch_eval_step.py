@@ -17,7 +17,24 @@
   ``apply_fn``, in both modes: within 1e-6 relative.
 * ``MetricAccumulator`` against the JAX one on the same rows: summaries
   within 1e-12 relative, tables and mean±std strings equal.
+* ``parallel/spatial.py``: ``split_bands``/``merge_bands`` equal to the
+  JAX package's exactly, and ``spatial_shard_infer`` over the flagship above
+  (1x64x128 in two bands with a 16-row halo, batched as 2x64x128) within
+  1e-3 * max|ref| of the JAX package's over the same weights.
+* ``utils/viz.py:show_results`` with matplotlib hidden: one decodable PNG a
+  sample, six panels in a 2 x 3 grid, the seg panels the JAX package's
+  ``decode_segmap`` of the argmax, the disparity and error panels their
+  colour maps.
+* ``utils/viz.py:colorize`` against the mapping the JAX package's panels
+  and confusion heatmap draw with, ``imshow``'s (matplotlib's ``Normalize``
+  over the panel's range, then its ``jet``, ``Blues`` or ``magma``), on
+  values at the maps' 256 levels: jet and Blues within 0.5 of 255 (the
+  rounding to uint8), magma within 3 (its 256 colours interpolated between
+  17 of them). The JAX package's figures add titles, axes and a resampling
+  to the figure's size, so its PNGs are not compared pixel for pixel.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,12 +43,14 @@ import torch
 from torch_port import reduced_depth, torch_threads, variables_from_port  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
-from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import pad_to_bucket
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import pad_to_bucket, png
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.evaluation import (
     MetricAccumulator,
     tiled_inference,
 )
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.parallel import spatial as tspatial
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import step as tstep
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import viz as tviz
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu import models as jmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.core import PMTConfig as JaxConfig
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.evaluation import (
@@ -40,6 +59,8 @@ from pmt_learning_for_semantic_segmentation_and_disparity_tpu.evaluation import 
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.evaluation import (
     tiled_inference as jax_tiled_inference,
 )
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.data.labels import decode_segmap
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.parallel import spatial as jspatial
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.training import step as jstep
 from torch_port import STACK, port_config
 
@@ -126,7 +147,8 @@ def flagship_eval():
     tmodels.load_jax_variables(port, variables["params"], variables["batch_stats"])
     out, rows = tstep.make_eval_step(cfg, port, device="cpu")(
         {k: torch.from_numpy(v) for k, v in batch.items()})
-    return {"ref_out": {k: np.asarray(v) for k, v in ref_out.items()},
+    return {"model": model, "variables": variables, "port": port,
+            "ref_out": {k: np.asarray(v) for k, v in ref_out.items()},
             "ref_rows": {k: np.asarray(v) for k, v in ref_rows.items()},
             "out": {k: v.numpy() for k, v in out.items()},
             "rows": {k: v.numpy() for k, v in rows.items()}}
@@ -193,3 +215,76 @@ def test_metric_accumulator_matches_jax():
         np.testing.assert_allclose(got[k], v, rtol=1e-12, err_msg=k)
     assert port.mean_and_std() == ref.mean_and_std()
     assert port.final_table() == ref.final_table()
+
+
+def test_split_and_merge_bands_match_jax():
+    x = np.random.default_rng(4).standard_normal((2, 48, 20, 3), dtype=np.float32)
+    got, meta, full = tspatial.split_bands(torch.from_numpy(x), 3, halo=8)
+    ref, jmeta, jfull = jspatial.split_bands(jnp.asarray(x), 3, halo=8)
+    assert (meta, full) == (jmeta, jfull) and got.shape == (6, 32, 20, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    merged = tspatial.merge_bands(got, meta, full, halo=8)
+    np.testing.assert_array_equal(merged.numpy(), np.asarray(jspatial.merge_bands(ref, jmeta, jfull, halo=8)))
+    np.testing.assert_array_equal(merged.numpy(), x)
+
+
+def test_spatial_shard_infer_matches_jax(flagship_eval):
+    rng = np.random.default_rng(5)
+    left, right = (rng.standard_normal((1, 64, 128, 3), dtype=np.float32) for _ in range(2))
+    model, variables, port = (flagship_eval[k] for k in ("model", "variables", "port"))
+    with reduced_depth():
+        apply = jax.jit(lambda a, b: model.apply(variables, a, b, train=False))
+        ref = jspatial.spatial_shard_infer(apply, jnp.asarray(left), jnp.asarray(right), n_bands=2,
+                                           halo=16)
+    with torch.no_grad():
+        got = tspatial.spatial_shard_infer(port, torch.from_numpy(left), torch.from_numpy(right),
+                                           n_bands=2, halo=16)
+    assert set(got) == set(ref) == {"seg1", "seg2", "disp1", "disp2"}
+    for k, r in ref.items():
+        r = np.asarray(r)
+        assert got[k].shape == r.shape and r.shape[:3] == (1, 64, 128), k
+        assert np.abs(got[k].numpy() - r).max() <= 1e-3 * np.abs(r).max(), k
+
+
+def test_show_results_writes_six_panels(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # as on the card's machine
+    rng = np.random.default_rng(6)
+    b, h, w = 2, 16, 24
+    left = rng.standard_normal((b, h, w, 3), dtype=np.float32)
+    logits = rng.standard_normal((b, h, w, 5), dtype=np.float32)
+    gt = np.eye(5, dtype=np.float32)[rng.integers(0, 5, (b, h, w))]
+    disp_pred, disp_gt = (rng.random((b, h, w, 1), dtype=np.float32) * 50 for _ in range(2))
+    tviz.show_results(str(tmp_path / "out"), "val", left, logits, gt, disp_pred, disp_gt)
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == ["val_0.png", "val_1.png"]
+    g = tviz.GAP
+    for i in range(b):
+        grid = png.read(str(tmp_path / "out" / f"val_{i}.png"))[..., ::-1]  # BGR -> RGB
+        assert grid.shape == (2 * h + g, 3 * w + 2 * g, 3)
+        panel = [grid[r * (h + g):r * (h + g) + h, c * (w + g):c * (w + g) + w]
+                 for r in range(2) for c in range(3)]
+        np.testing.assert_array_equal(panel[1], decode_segmap(gt[i].argmax(-1)))
+        np.testing.assert_array_equal(panel[2], decode_segmap(logits[i].argmax(-1)))
+        np.testing.assert_array_equal(panel[3], tviz.colorize(disp_gt[i, ..., 0], "jet"))
+        np.testing.assert_array_equal(panel[4], tviz.colorize(disp_pred[i, ..., 0], "jet"))
+        err = np.abs(disp_pred[i, ..., 0] - disp_gt[i, ..., 0])
+        np.testing.assert_array_equal(panel[5], tviz.colorize(err, "magma"))
+        img = left[i].astype(np.float64)
+        assert np.abs(panel[0] - 255 * (img - img.min()) / (img.max() - img.min())).max() <= 0.5 + 1e-9
+    # the ends of each colour map: jet's dark blue and dark red, magma's black
+    ramp = np.linspace(0, 1, 5)[None]
+    assert tviz.colorize(ramp, "jet")[0, [0, -1]].tolist() == [[0, 0, 128], [128, 0, 0]]
+    assert tviz.colorize(ramp, "magma")[0, 0].tolist() == [0, 0, 4]
+
+
+@pytest.mark.parametrize("cmap,tol", [("jet", 0.5), ("Blues", 0.5), ("magma", 3.0)])
+def test_colorize_matches_matplotlib(cmap, tol):
+    import matplotlib
+    from matplotlib.colors import Normalize
+
+    rng = np.random.default_rng(7)
+    levels = np.concatenate([[0, 255], rng.permutation(256)]).reshape(2, 129)
+    values = 2.0 + 7.3 * levels / 255.0  # each panel's minimum and maximum are levels 0 and 255
+    want = 255.0 * matplotlib.colormaps[cmap](Normalize()(values))[..., :3]
+    got = tviz.colorize(values, cmap)
+    assert got.dtype == np.uint8 and got.shape == values.shape + (3,)
+    assert np.abs(got - want).max() <= tol + 1e-9

@@ -4,7 +4,9 @@ on the CPU, inputs from numpy seeds, each fed what the dispatcher feeds it
 (the sigmoid for binary CE, the log-softmax or softmax otherwise). Bounds as
 in ``test_torch_losses.py``: values within 1e-5 relative, gradients within
 1e-5 * max|ref|. The area losses take ground truth made of 4x4 blocks, so
-some windows lie inside one class.
+some windows lie inside one class. ``lovasz_hinge`` (the binary Lovász
+hinge, which no loss name dispatches to) is held at 1e-6, with ``ignore``
+on and off.
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from test_torch_losses import SHAPE, compare, logits_and_labels
 from torch_port import torch_threads  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import losses as tl
+from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import lovasz as jlovasz
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.losses import seg as jseg
 
 
@@ -72,3 +75,24 @@ def test_seg_loss_matches_jax(name):
             jfn = lambda x, g: jseg.categorical_nll(jax.nn.log_softmax(x), g, jnp.asarray(w19))  # noqa: E731
             tfn = lambda x, g: tl.categorical_nll(x.log_softmax(-1), g, torch.from_numpy(w19))  # noqa: E731
     compare(jfn, lambda x, g: tfn(x, torch.from_numpy(g)), logits, gt)
+
+
+@pytest.mark.parametrize("ignore", [None, 255])
+def test_lovasz_hinge_matches_jax(ignore):
+    """Value within 1e-6 relative and the gradient of the logits within
+    1e-6 * max|ref| (both read exact here), 0/1 labels, a fifth of the
+    pixels ``ignore`` where it is set."""
+    rng = np.random.default_rng(19)
+    logits = (2 * rng.standard_normal(SHAPE)).astype(np.float32)
+    labels = rng.integers(0, 2, SHAPE).astype(np.int32)
+    if ignore is not None:
+        labels[rng.random(SHAPE) < 0.2] = ignore
+    ref, ref_g = jax.jit(jax.value_and_grad(lambda x: jlovasz.lovasz_hinge(x, labels, ignore)))(logits)
+    x = torch.from_numpy(logits).requires_grad_()
+    got = tl.lovasz_hinge(x, torch.from_numpy(labels).long(), ignore)
+    got.backward()
+    assert abs(got.item() - float(ref)) <= 1e-6 * abs(float(ref)), (got.item(), float(ref))
+    ref_g = np.asarray(ref_g)
+    np.testing.assert_allclose(x.grad.numpy(), ref_g, rtol=0, atol=1e-6 * np.abs(ref_g).max())
+    if ignore is not None:
+        assert not x.grad.numpy()[labels == ignore].any()

@@ -1,7 +1,8 @@
-"""The port's user path on the CPU, torch only: the CLI (``cli.train.main``)
-trains the flagship with the trunk at ``reduced_depth()`` from the files of
-a 4+3-image roses fixture of 64x128, at ``-b 2``, with the eval bucket at
-72x136 (so ``pad_mask`` matters) and an eval every epoch.
+"""The port's user path on the CPU (torch only, but for ``StepTimer``'s
+reference): the CLI (``cli.train.main``) trains the flagship with the
+trunk at ``reduced_depth()`` from the files of a 4+3-image roses fixture
+of 64x128, at ``-b 2``, with the eval bucket at 72x136 (so ``pad_mask``
+matters) and an eval every epoch.
 
 * A run of ``-e 1`` resumed to ``-e 2`` equals an uninterrupted ``-e 2``:
   the same weights and BatchNorm statistics, optimizer state, step count
@@ -13,8 +14,16 @@ a 4+3-image roses fixture of 64x128, at ``-b 2``, with the eval bucket at
   (a padded tail either way) within 1e-5 relative in fp32.
 * A reference ``.pth.tar``, ``-pretrained_path``, ``-multaskloss 1``,
   ``-hanet 1``, ``-net deeplab`` and ``-tta 1`` run through the eval CLI.
+* The eval CLI at ``-show_results 1`` (the flag's default) with matplotlib
+  hidden, as on the card's machine: it prints its summary and writes both
+  confusion heatmaps, which decode through the port's PNG codec.
+* ``utils/profiling.py``: ``StepTimer`` equal to the JAX package's on the
+  same patched clock (intervals, mean and throughput), and ``trace``
+  writing a Chrome trace file of the steps it wraps.
 """
+import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,7 +32,7 @@ from torch_port import reduced_depth, torch_threads  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.cli import train as cli
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import config_from_args
-from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture, png
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
     CheckpointManager,
     Session,
@@ -182,6 +191,51 @@ def test_ported_options_run_through_the_eval_cli(fixture_argv, tmp_path, extra):
     if extra == "-multaskloss 1":
         rows = session.accumulator.rows
         assert all(r["loss"] == pytest.approx(r["loss_seg"] + r["loss_disp"]) for r in rows)
+
+
+def test_eval_cli_show_results_without_matplotlib(runs, monkeypatch, tmp_path, capsys):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # `import matplotlib` raises
+    monkeypatch.chdir(tmp_path)  # the CLI writes its artifacts to ./testResults
+    session = run(runs["argv"] + ["-train", "0", "-load_weights", runs["first_dir"],
+                                  "-show_results", "1"])
+    assert session.cfg.run.show_results
+    printed = capsys.readouterr().out.strip().splitlines()[-1]
+    assert printed == str(session.eval_summary)
+    for head in (1, 2):
+        heatmap = png.read(str(tmp_path / "testResults" / f"confusion_head{head}.png"))
+        assert heatmap.shape == (64, 64, 3)  # 2 classes, 32 pixels a cell
+    assert sorted(os.listdir(tmp_path / "testResults"))[:2] == ["confusion_head1.png",
+                                                                 "confusion_head2.png"]
+
+
+def test_step_timer_on_a_patched_clock(monkeypatch):
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import profiling
+    from pmt_learning_for_semantic_segmentation_and_disparity_tpu.utils import profiling as jprofiling
+
+    clock = np.cumsum(np.random.default_rng(8).uniform(0.01, 2.0, 9)).tolist()
+    timers = {}
+    for name, module in (("port", profiling), ("jax", jprofiling)):
+        ticks = iter(clock)
+        monkeypatch.setattr(module.time, "perf_counter", lambda: next(ticks))
+        timer = module.StepTimer(warmup=3)
+        assert (timer.mean, timer.throughput(8)) == (0.0, 0.0)
+        for _ in clock:
+            timer.tick()
+        timers[name] = timer
+    port, ref = timers["port"], timers["jax"]
+    assert port.times == ref.times and len(port.times) == 5  # the first three intervals warm up
+    assert port.mean == ref.mean and port.throughput(8) == ref.throughput(8)
+    assert port.mean == pytest.approx((clock[-1] - clock[3]) / 5)
+
+
+def test_trace_writes_a_trace_file(tmp_path):
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path / "prof")):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    with open(tmp_path / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "aten::matmul" for e in events)
 
 
 def test_session_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

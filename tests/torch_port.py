@@ -506,3 +506,27 @@ def _stat_error(got, ref, name):
     if name.endswith("running_mean"):
         scale = max(scale, np.sqrt(ref[name[:-len("mean")] + "var"]).max())
     return float(np.abs(got[name] - ref[name]).max() / scale)
+
+
+# ---- EncoderDecoderNet (test_torch_encdec*.py) ----
+@torch.no_grad()
+def nonzero_leaves(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Give every leaf that the seeded init leaves constant a seeded random
+    value, so that no weight mapping is invisible to a comparison: biases,
+    norm scales and shifts, running statistics, and convolutions the JAX
+    package initialises to zero (the attention's ``W``, whose zero init
+    would make the attention path add exactly nothing)."""
+    g = torch.Generator().manual_seed(seed)
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if name.endswith("num_batches_tracked"):
+            continue
+        noise = torch.randn(t.shape, generator=g)
+        if name.endswith("running_var"):
+            t.copy_(0.5 + torch.rand(t.shape, generator=g))
+        elif t.dim() == 1 and name.endswith("weight"):  # a norm's scale
+            t.copy_(1.0 + 0.1 * noise)
+        elif t.dim() == 1:
+            t.copy_(0.1 * noise)
+        elif not t.any():
+            t.copy_(noise / np.sqrt(t[0].numel()))
+    return model
