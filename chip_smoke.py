@@ -137,7 +137,25 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    rows and for a halo spanning the whole image (corr1d once a forward
    either way); two controls: one band without a halo is the monolithic
    forward, and the banded forward is each band's own forward put in place
-   (fp32, TF32 off), each within 1e-3 * max|ref|.
+   (fp32, TF32 off), each within 1e-3 * max|ref|;
+13. data parallel (``parallel/mesh.py`` over ``torch.distributed``), two
+   ranks spawned over gloo, both on the one card (NCCL refuses two ranks on
+   one card), the kernels built before they start: (a) fp32, TF32 off, the
+   flagship at full width and depth on one pair of 64x128 a rank against
+   one process on both pairs from the same weights, with BatchNorm
+   cross-replica and per replica: in train mode the loss, the summed
+   confusions and every running statistic within 1e-3 * max|ref|; with
+   ``freeze_bn`` on images scaled by 1e-2 and cuDNN off, every gradient
+   tensor within 1e-3 * max|ref|; (b) the flagship's bf16 step (bench loss
+   stack, Adam, cross-replica BatchNorm) on 4 pairs of 256x512 a rank, 2
+   warm-up and 4 timed steps: finite, corr1d's forward and backward once a
+   step on each rank, the replicas' weights and statistics bit-equal after
+   the steps, ms/step printed as a reading (the ranks share the card); (c)
+   ``cli.train.main`` in each rank on phase 8's files, one epoch and the
+   sharded eval: rank 0 alone prints and writes the checkpoint, a fresh
+   one-card ``Session`` restores it bit-equal to rank 0's state, and the
+   sharded eval's summary table equals the one-card eval CLI's from that
+   checkpoint within 1e-3 relative.
 
 Phase 8's eval CLI runs at ``-show_results 1`` (the flag's default): the
 summary is printed and both confusion heatmaps decode.
@@ -162,6 +180,14 @@ phase 8 only, ``--options`` phase 9 only (``--serve flagship_aspp2`` and
 only (``--serve dlab``, ``--train flagship_resnet101`` and the like),
 ``--zoo`` phase 11 only (``--serve pspnet``, ``--train deeplab_mod`` and the
 like), ``--encdec`` phase 12 only.
+
+    python3 chip_smoke.py --ddp
+
+runs phase 13 over NCCL with one rank on each visible card (it fails with
+fewer than two), and then the flagship's bf16 step at 8 pairs of 256x512 a
+card on 1, 2 and 4 cards in the same call: ms/step, pairs/s, and the NCCL
+kernels' time a step and share of it from a ``utils/profiling.py:trace`` of
+two more steps on rank 0; it prints no result line.
 """
 from __future__ import annotations
 
@@ -453,6 +479,18 @@ ENCDEC_SMALL = (1, 64, 128, 3)  # card vs CPU, fp32
 BANDED_SHAPE, BANDS, HALO = (2, H, W), 8, 64
 BANDED_SMALL, SMALL_BANDS, SMALL_HALO = (1, 128, 128), 2, 32
 SEAM_ROWS = 4
+# phase 13: data parallel over torch.distributed (parallel/mesh.py). The
+# default run spawns DDP_RANKS ranks over gloo, all on the one card (NCCL
+# refuses two ranks on one card); --ddp spawns one rank a card over NCCL
+DDP_RANKS = 2
+DDP_SMALL = (64, 128)  # (a): one pair a rank, fp32, against one process on every rank's pairs
+DDP_PAIRS = 4          # (b): pairs a rank of the timed bf16 step (8x256x512 on two ranks)
+DDP_WARMUP, DDP_STEPS = 2, 4
+DDP_FILES = FILES_TRAIN + ["-e", "1"]  # (c): phase 8's run for one epoch (the last -e counts)
+DDP_SCALE_CARDS = (1, 2, 4)  # --ddp: the bf16 step at TRAIN_BATCH pairs a card on 1, 2 and 4 cards
+DDP_SCALE_STEPS = 6          # timed, after DDP_WARMUP
+DDP_TRACE_STEPS = 2          # --ddp: steps traced (utils/profiling.py:trace) on each mesh's rank 0
+DDP_TIMEOUT_S = 900
 
 
 class SmokeFailure(Exception):
@@ -928,10 +966,13 @@ def train_batch(shape, g, device, dataset: str = "roses", edges: bool = False):
 
 
 def train_setup(run: str, device: str, bf16: bool, freeze_bn: bool = False,
-                losses=TRAIN_LOSSES, dataset: str = "roses"):
+                losses=TRAIN_LOSSES, dataset: str = "roses", mesh=None, sync_bn: bool = True):
     """The net of the run (``RUNS``), its Adam train state and its train step
-    on ``device`` (the same weights from seed 0 on every device)."""
+    on ``device`` (the same weights from seed 0 on every device). With a
+    ``mesh`` (phase 13), the step of one rank: BatchNorm cross-replica over
+    the mesh's data group where ``sync_bn``, the state rank 0's."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.parallel import replicate
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
         TrainState,
         build_optimizer,
@@ -943,8 +984,12 @@ def train_setup(run: str, device: str, bf16: bool, freeze_bn: bool = False,
     cfg.data.dataset_name = dataset
     cfg.optim.freeze_bn = freeze_bn
     model = models.get_network(cfg, device=device, seed=0)
+    if mesh is not None and sync_bn:
+        models.set_batch_norm_group(model, mesh.data_group)
     state = TrainState.create(model, build_optimizer(cfg.optim, cfg.model.net, len(losses)))
-    return model, state, make_train_step(cfg, model, device=device)
+    if mesh is not None:
+        replicate(mesh, state)
+    return model, state, make_train_step(cfg, model, device=device, mesh=mesh)
 
 
 def rel_l2(got: dict, ref: dict) -> float:
@@ -999,9 +1044,9 @@ def small_step(net: str, device: str, batch: dict, freeze_bn: bool = False, conv
              if n.endswith(("running_mean", "running_var"))})
 
 
-def hold_loss(tag: str, loss: float, ref: float) -> None:
+def hold_loss(tag: str, loss: float, ref: float, names=("card", "CPU")) -> None:
     err = abs(loss - ref)
-    print(f"{tag} loss card {loss:.8g} CPU {ref:.8g}: |d| = {err:.6g} "
+    print(f"{tag} loss {names[0]} {loss:.8g} {names[1]} {ref:.8g}: |d| = {err:.6g} "
           f"(tolerance {1e-3 * abs(ref):.6g} = 1e-3 * |ref|)", flush=True)
     check(err <= 1e-3 * abs(ref), f"{tag}: loss {loss} against {ref}")
 
@@ -1013,14 +1058,14 @@ def worst_tensor(got: dict, ref: dict):
                for n, r in ref.items())
 
 
-def hold_tensors(tag: str, what: str, got: dict, ref: dict) -> None:
+def hold_tensors(tag: str, what: str, got: dict, ref: dict, ref_name: str = "the CPU's") -> None:
     """Every tensor of ``got`` within 1e-3 * max|ref| of ``ref``'s."""
     check(set(got) == set(ref), f"{tag}: {what} of other names")
     for n, r in ref.items():
         err, bound = (got[n] - r).abs().max().item(), 1e-3 * r.abs().max().item()
         check(err <= bound, f"{tag}: {what} {n}: max|d| {err} > {bound}")
     rel, name = worst_tensor(got, ref)
-    print(f"{tag} every {what} tensor ({len(ref)}) within 1e-3 * max|ref| of the CPU's; the "
+    print(f"{tag} every {what} tensor ({len(ref)}) within 1e-3 * max|ref| of {ref_name}; the "
           f"closest to its bound: {name} at {rel / 1e-3:.3g} of it", flush=True)
 
 
@@ -1274,6 +1319,27 @@ def same_tensors(tag: str, got: dict, ref: dict) -> None:
             check(got[k] == v, f"{tag}: {k} is {got[k]!r}, saved {v!r}")
 
 
+def eval_table(rows: list, summary: dict) -> dict:
+    """An eval's pooled summary with the mean and std of each column of its
+    per-row table."""
+    table = dict(summary)
+    for k in rows[0]:
+        table[f"{k} mean"] = float(np.mean([r[k] for r in rows]))
+        table[f"{k} std"] = float(np.std([r[k] for r in rows]))
+    return table
+
+
+def hold_eval_tables(tag: str, a: dict, b: dict) -> None:
+    """Every value of two eval tables (``eval_table``) within
+    ``FILES_EVAL_RTOL`` relative."""
+    check(set(a) == set(b), f"{tag}: eval summaries of other keys")
+    rel = {k: abs(a[k] - b[k]) / max(abs(a[k]), abs(b[k]), 1e-12) for k in a}
+    worst = max(rel, key=rel.get)
+    print(f"{tag}: the farthest of {len(rel)} summary values {worst} at {rel[worst]:.3g} relative "
+          f"(tolerance {FILES_EVAL_RTOL:g})", flush=True)
+    check(rel[worst] <= FILES_EVAL_RTOL, f"{tag}: eval summaries differ: {worst} {a[worst]} vs {b[worst]}")
+
+
 def phase_files(card: str):
     """Phase 8: the flagship trained, resumed and evaluated from PNG files
     through the CLI; returns each kernel's launches in the first training
@@ -1386,26 +1452,13 @@ def phase_files(card: str):
             t = ev.timings
             hold_cli_launches(f"[files eval -b {b}]", ev, launches)
             check(t["eval_rows"] == FILES_TEST_PAIRS, f"eval -b {b}: {t}")
-            rows = ev.accumulator.rows
-            summaries[b] = (dict(ev.eval_summary),
-                            {k: (float(np.mean([r[k] for r in rows])), float(np.std([r[k] for r in rows])))
-                             for k in rows[0]})
+            summaries[b] = eval_table(ev.accumulator.rows, ev.eval_summary)
             print(f"[files eval -b {b}] {t['eval_batches']} batches: {t['eval_rows'] / t['eval_s']:.2f} "
                   f"pairs/s (host, loading and -show_results 1's files included); launches {launches}; "
                   f"{card}", flush=True)
             del ev
-        (a, ms_a), (b, ms_b) = (summaries[k] for k in FILES_EVAL_BATCHES)
-        check(set(a) == set(b) and ms_a.keys() == ms_b.keys(), "eval summaries of other keys")
-        # the per-row mean±std table and the pooled summary
-        for k, (mean, std) in ms_a.items():
-            a[f"{k} mean"], a[f"{k} std"] = mean, std
-            b[f"{k} mean"], b[f"{k} std"] = ms_b[k]
-        rel = {k: abs(a[k] - b[k]) / max(abs(a[k]), abs(b[k]), 1e-12) for k in a}
-        worst = max(rel, key=rel.get)
-        print(f"[files eval] -b {FILES_EVAL_BATCHES[0]} vs -b {FILES_EVAL_BATCHES[1]}: the farthest of "
-              f"{len(rel)} summary values {worst} at {rel[worst]:.3g} relative (tolerance "
-              f"{FILES_EVAL_RTOL:g})", flush=True)
-        check(rel[worst] <= FILES_EVAL_RTOL, f"eval summaries differ: {worst} {a[worst]} vs {b[worst]}")
+        hold_eval_tables(f"[files eval] -b {FILES_EVAL_BATCHES[0]} vs -b {FILES_EVAL_BATCHES[1]}",
+                         *(summaries[k] for k in FILES_EVAL_BATCHES))
         ev, _, launches = cli_run(data + FILES_TRAIN + ["-train", "0", "-b", "5", "-slide_window", "1",
                                                         "-load_weights", ckpt], kernels)
         t = ev.timings
@@ -2162,6 +2215,492 @@ def phase_encdec(card: str) -> dict:
     return paths
 
 
+# ---- phase 13: data parallel over torch.distributed (parallel/mesh.py) ----
+
+def free_card() -> None:
+    """Drop the garbage and cached blocks of a finished part."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def to_cpu(obj):
+    """``obj`` with every tensor in it on the CPU (dicts and lists walked)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    return obj
+
+
+def bn_stats(model) -> dict:
+    return {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def ddp_small_batch(world: int, freeze_bn: bool) -> dict:
+    """(a)'s global batch on the CPU: one pair of 64x128 a rank from phase
+    3's generator, the images scaled by 1e-2 for the freeze_bn step."""
+    batch = train_batch((world,) + DDP_SMALL, torch.Generator().manual_seed(4), "cpu")
+    if freeze_bn:
+        batch = dict(batch, left=batch["left"] * 1e-2, right=batch["right"] * 1e-2)
+    return batch
+
+
+def small_flags(freeze_bn: bool):
+    """cuDNN as phase 3 holds each check: on in train mode, off for the
+    freeze_bn gradients; TF32 off either way."""
+    return torch.backends.cudnn.flags(enabled=not freeze_bn, allow_tf32=False)
+
+
+DDP_SMALL_RUNS = {f"{'sync' if sync else 'local'} BN{', freeze_bn' if freeze else ''}": (sync, freeze)
+                  for sync in (True, False) for freeze in (False, True)}
+
+
+def ddp_small_step(mesh, sync: bool, freeze_bn: bool) -> dict:
+    """(a) in one rank: one fp32 step of the flagship on this rank's pair;
+    the reduced loss, summed confusions, averaged gradients and running
+    statistics on the CPU."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.parallel import mesh_size, shard_batch
+
+    model, state, step = train_setup("sdnet_mini_ext", mesh.device, bf16=False, freeze_bn=freeze_bn,
+                                     mesh=mesh, sync_bn=sync)
+    rows = {k: v.to(mesh.device)
+            for k, v in shard_batch(mesh, ddp_small_batch(mesh_size(mesh), freeze_bn)).items()}
+    with small_flags(freeze_bn):
+        _, metrics = step(state, rows)
+    return {"loss": metrics["loss"].item(), "conf": torch.stack([metrics["conf1"], metrics["conf2"]]).cpu(),
+            "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "stats": bn_stats(model)}
+
+
+def ddp_small_reference(world: int, sync: bool, freeze_bn: bool) -> dict:
+    """(a)'s reference in one process on the card, from the same weights and
+    the global batch: each pair's loss and gradient, with BatchNorm over
+    every pair's maps (``sync`` in train mode: one forward of the batch) or
+    over each pair's alone (one forward a pair, each from the same running
+    statistics, which then take the mean of the pairs' updates); the mean of
+    the losses and of the gradients (``freeze_bn``: BatchNorm's zeroed), the
+    summed confusions. The gradients are averaged, not taken of the mean
+    loss: MultiTversky's backward drops its output gradient, as the
+    reference's does, so the mean loss has another gradient than the mean
+    of the ranks'."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
+        compute_metrics,
+        make_forward_fn,
+        make_losses_fn,
+    )
+
+    cfg = run_config("sdnet_mini_ext")
+    cfg.loss.losses = TRAIN_LOSSES
+    cfg.optim.freeze_bn = freeze_bn
+    model = models.get_network(cfg, device="cuda", seed=0)
+    forward, losses = make_forward_fn(cfg, model, "cuda"), make_losses_fn(cfg)
+    batch = {k: v.cuda() for k, v in ddp_small_batch(world, freeze_bn).items()}
+    rows = [{k: v[r:r + 1] for k, v in batch.items()} for r in range(world)]
+    stats = {n: b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))}
+    with small_flags(freeze_bn):
+        if sync and not freeze_bn:
+            out = forward(batch, True)
+            outs = [{k: v[r:r + 1] for k, v in out.items() if isinstance(v, torch.Tensor)}
+                    for r in range(world)]
+        else:  # (with freeze_bn the statistics stay, and eval-mode BatchNorm saves them)
+            start = {n: b.clone() for n, b in stats.items()}
+            outs, ends = [], []
+            for row in rows:
+                if not freeze_bn:
+                    with torch.no_grad():
+                        for n, b in stats.items():
+                            b.copy_(start[n])
+                outs.append(forward(row, True))
+                ends.append({n: b.clone() for n, b in stats.items()})
+            if not freeze_bn:
+                with torch.no_grad():
+                    for n, b in stats.items():
+                        b.copy_(sum(e[n] for e in ends) / world)
+        row_losses = [losses(o, row)[0] for o, row in zip(outs, rows)]
+        params = dict(model.named_parameters())
+        grads = {n: torch.zeros_like(p) for n, p in params.items()}
+        for row_loss in row_losses:
+            for n, d in zip(params, torch.autograd.grad(row_loss, list(params.values()),
+                                                       retain_graph=True, allow_unused=True)):
+                if d is not None:
+                    grads[n] += d / world
+    if freeze_bn:
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                for n, _ in m.named_parameters(recurse=False):
+                    grads[f"{name}.{n}"].zero_()
+    with torch.no_grad():
+        conf = sum(torch.stack([m["conf1"], m["conf2"]]) for m in (
+            compute_metrics(cfg, {k: v.detach() for k, v in o.items() if isinstance(v, torch.Tensor)}, row)
+            for o, row in zip(outs, rows)))
+    return {"loss": sum(v.item() for v in row_losses) / world, "conf": conf.cpu(),
+            "grads": {n: g.cpu() for n, g in grads.items()}, "stats": bn_stats(model)}
+
+
+def allreduce_time(path: str, steps: int) -> dict:
+    """From a ``utils/profiling.py:trace`` file of ``steps`` steps: the card's
+    NCCL kernels (every all-reduce: the gradients', the statistics', the
+    metrics', the cross-replica BatchNorm's) and all its kernels, ms and
+    count a step."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [e for e in kernels if "nccl" in e.get("name", "").lower()]
+    return {"nccl_ms": sum(e["dur"] for e in nccl) / 1e3 / steps, "nccl_kernels": len(nccl) / steps,
+            "kernel_ms": sum(e["dur"] for e in kernels) / 1e3 / steps, "kernels": len(kernels) / steps}
+
+
+def ddp_train(mesh, pairs: int, n_warmup: int, n_steps: int, trace_dir: str = None) -> dict:
+    """(b) in one rank: the flagship's bf16 step (bench loss stack, Adam,
+    BatchNorm cross-replica) on ``pairs`` pairs of 256x512 a rank, each
+    rank its own; the host ms of each step (to a synchronize), the losses,
+    each kernel's launches in the timed steps, the peak memory and the final
+    weights and statistics. With ``trace_dir``, ``DDP_TRACE_STEPS`` more
+    steps, traced on the mesh's rank 0 (``allreduce_time``)."""
+    kernels = counters()
+    model, state, step = train_setup("sdnet_mini_ext", mesh.device, bf16=True, mesh=mesh)
+    g = torch.Generator(device=mesh.device).manual_seed(5 + 1000 * mesh.rank)
+    batches = [train_batch((pairs, TRAIN_H, TRAIN_W), g, mesh.device)
+               for _ in range(n_warmup + n_steps + (DDP_TRACE_STEPS if trace_dir else 0))]
+    # ground-truth disparities in [0.1, 1), as phase 4's: the squared
+    # relative error divides by them (torch.rand draws exact zeros)
+    for batch in batches:
+        batch["disp"] = batch["disp"] * 0.9 + 0.1
+    torch.cuda.synchronize(mesh.device)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    times, losses = [], []
+    for i, batch in enumerate(batches[:n_warmup + n_steps]):
+        if i == n_warmup:
+            zero_counts()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize(mesh.device)
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+              f"ddp train rank {mesh.rank} step {i}: a metric or loss is not finite: {metrics}")
+    out = {"ms": [1e3 * t for t in times], "losses": losses,
+           "launches": {name: k.launches for name, k in kernels.items()},
+           "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2**30}
+    if trace_dir is not None:
+        from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils.profiling import trace
+
+        traced = batches[n_warmup + n_steps:]
+        with trace(trace_dir) if mesh.rank == 0 else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for batch in traced:
+                step(state, batch)
+            torch.cuda.synchronize(mesh.device)
+            out["traced_ms"] = 1e3 * (time.perf_counter() - t0) / len(traced)
+        if mesh.rank == 0:
+            out.update(allreduce_time(os.path.join(trace_dir, "trace.json"), len(traced)))
+    out["state"] = to_cpu(model.state_dict())
+    return out
+
+
+def ddp_cli(argv) -> dict:
+    """(c) in one rank: ``cli.train.main(argv)`` joins the rank's group and
+    trains and evaluates over the mesh; what it printed, each kernel's
+    launches, the eval's rows and summary, and rank 0's final state."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.cli import train as cli
+
+    kernels = zero_counts()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        session = cli.main(argv)
+    torch.cuda.synchronize()
+    out = {"printed": text.getvalue(), "launches": {name: k.launches for name, k in kernels.items()},
+           "rows": session.accumulator.rows, "summary": session.eval_summary,
+           "steps": len(session.timings["step_s"]), "model": to_cpu(session.model.state_dict())}
+    if session.rank == 0:
+        out["optimizer"] = to_cpu(session.state.optimizer.state_dict())
+        out["step"] = session.state.step
+    return out
+
+
+def ddp_scale(mesh, trace_dir: str) -> dict:
+    """--ddp: the bf16 step at ``TRAIN_BATCH`` pairs a card on the first 1,
+    2 and 4 ranks (``DDP_SCALE_CARDS``; the others wait), each mesh's rank 0
+    traced; {cards: ``ddp_train``'s result} on the ranks that ran."""
+    import torch.distributed as dist
+
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.parallel import Mesh, mesh_size
+
+    out = {}
+    for cards in DDP_SCALE_CARDS:
+        if cards > mesh_size(mesh):
+            continue
+        group = dist.new_group(list(range(cards)))  # every rank makes every group
+        if mesh.rank < cards:
+            group = group if cards > 1 else None
+            sub = Mesh({"data": cards}, mesh.rank, mesh.device, group, group)
+            out[cards] = ddp_train(sub, TRAIN_BATCH, DDP_WARMUP, DDP_SCALE_STEPS,
+                                   os.path.join(trace_dir, f"cards{cards}"))
+            del out[cards]["state"]
+        free_card()
+        dist.barrier()
+    return out
+
+
+def ddp_rank(rank: int, spec: dict) -> None:
+    """One rank of phase 13, started by ``phase_ddp``: joins the group over
+    ``spec["backend"]`` (NCCL: one card a rank, ``LOCAL_RANK``; gloo: the
+    current card), runs (a)-(c) (and with ``spec["scale"]`` the scaling
+    steps) and saves its results to ``{out}/rank{rank}.pt``."""
+    import torch.distributed as dist
+
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.parallel import (
+        make_mesh,
+        setup_distributed,
+    )
+
+    if spec["backend"] == "nccl":
+        os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    setup_distributed(backend=spec["backend"], coordinator=f"localhost:{spec['port']}",
+                      num_processes=spec["world"], process_id=rank)
+    mesh = make_mesh()
+    out = {"card": torch.cuda.current_device(), "seconds": {}}
+    parts = {"small": lambda: {run: ddp_small_step(mesh, *flags) for run, flags in DDP_SMALL_RUNS.items()},
+             "train": lambda: ddp_train(mesh, DDP_PAIRS, DDP_WARMUP, DDP_STEPS),
+             "cli": lambda: ddp_cli(spec["argv"])}
+    if spec["scale"]:
+        parts["scale"] = lambda: ddp_scale(mesh, spec["trace_dir"])
+    for part, run in parts.items():
+        t0 = time.perf_counter()
+        out[part] = run()
+        free_card()
+        out["seconds"][part] = time.perf_counter() - t0
+    torch.save(out, os.path.join(spec["out"], f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks(world: int, spec: dict) -> None:
+    """Start ``world`` processes of ``ddp_rank`` and wait for them (at most
+    ``DDP_TIMEOUT_S``); a rank that fails or outlasts the limit fails the
+    phase, and no rank outlives this call."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(ddp_rank, args=(spec,), nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, f"phase 13: ranks still running after {DDP_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SmokeFailure(f"phase 13: a rank failed: {e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+
+
+def eval_rows_of(rank: int, world: int, batch: int) -> int:
+    """The real rows rank ``rank`` of ``world`` evaluates of (c)'s test pairs
+    at ``-b batch`` (one eval batch: ``eval_batch_size`` rows, the tail
+    padded)."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training.loop import eval_batch_size
+
+    local = eval_batch_size(batch, FILES_TEST_PAIRS, world) // world
+    return max(0, min(local, FILES_TEST_PAIRS - rank * local))
+
+
+def phase_ddp(card: str, nccl: bool = False) -> dict:
+    """Phase 13: the port's data-parallel layer, ``DDP_RANKS`` ranks over
+    gloo on the one card (``nccl``: one rank on each visible card over NCCL,
+    two or more); returns corr1d's and its backward's launches in each rank
+    in (b) and (c).
+
+    (a) fp32 (TF32 off): the flagship at full width and depth, one pair of
+    64x128 a rank, against one process on every rank's pairs with the same
+    weights (``ddp_small_reference``), with BatchNorm cross-replica and per
+    replica: in train mode the loss, the summed confusions and every running
+    statistic within 1e-3 * max|ref|; with ``freeze_bn`` on images scaled by
+    1e-2 and cuDNN off, every gradient tensor within 1e-3 * max|ref|; every
+    rank's reduced values equal rank 0's. (b) bf16: the flagship's step on
+    ``DDP_PAIRS`` pairs of 256x512 a rank, 2 warm-up and 4 timed steps:
+    finite, corr1d's forward and backward once a step on every rank, the
+    replicas' weights and statistics bit-equal after the steps; ms/step is a
+    reading. (c) From phase 8's files through ``cli.train.main`` in each
+    rank, one epoch and the sharded eval: rank 0 alone prints and writes the
+    checkpoint; a fresh one-card ``Session`` restores it bit-equal to rank
+    0's state; the sharded eval's table equals the one-card eval CLI's from
+    that checkpoint within ``FILES_EVAL_RTOL``. With ``nccl``, the scaling
+    steps of ``ddp_scale`` too: ms/step, pairs/s and the all-reduces' share
+    of a step on 1, 2 and 4 cards."""
+    import socket
+
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import config_from_args
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
+
+    world = torch.cuda.device_count() if nccl else DDP_RANKS
+    check(world >= 2, f"phase 13 needs two ranks or more, found {world} cards")
+    backend = "nccl" if nccl else "gloo"
+    where = f"{world} ranks over {backend}, " + ("one a card" if nccl else "all on cuda:0")
+    tmp = tempfile.mkdtemp(prefix="pmt_ddp_")
+    try:
+        refs = {run: ddp_small_reference(world, *flags) for run, flags in DDP_SMALL_RUNS.items()}
+        free_card()
+        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=FILES_TRAIN_PAIRS,
+                               n_test=FILES_TEST_PAIRS, hw=FILES_HW, seed=0)
+        data = []
+        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
+                          ("-inst", "inst")):
+            data += [flag, m[key], flag + "_test", m[key + "_t"]]
+        argv = data + DDP_FILES + ["-w_savePath", os.path.join(tmp, "runs")]
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        spec = {"world": world, "backend": backend, "port": port, "argv": argv, "out": tmp,
+                "scale": nccl, "trace_dir": os.path.join(tmp, "traces")}
+        t0 = time.perf_counter()
+        run_ranks(world, spec)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), map_location="cpu", weights_only=False)
+                 for r in range(world)]
+        print(f"[ddp] {where}: the ranks ran in {time.perf_counter() - t0:.1f} s, startup included "
+              f"(rank 0, s: " + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items())
+              + ")", flush=True)
+        check([r["card"] for r in ranks] == (list(range(world)) if nccl else [0] * world),
+              f"phase 13: ranks on cards {[r['card'] for r in ranks]}")
+
+        # (a) against one process on every rank's pairs
+        for run, (sync, freeze) in DDP_SMALL_RUNS.items():
+            tag = f"[ddp fp32 {world}x1x64x128 {run}]"
+            got, ref = ranks[0]["small"][run], refs[run]
+            hold_loss(tag, got["loss"], ref["loss"], (f"{world} ranks", "one process"))
+            err, bound = (got["conf"] - ref["conf"]).abs().max().item(), 1e-3 * ref["conf"].abs().max().item()
+            print(f"{tag} confusion sums max|d| = {err:.6g} (tolerance {bound:.6g} = 1e-3 * max|ref|)",
+                  flush=True)
+            check(err <= bound, f"{tag}: confusion sums {got['conf']} against {ref['conf']}")
+            if freeze:
+                hold_tensors(tag + " cuDNN off", "gradient", got["grads"], ref["grads"], "one process's")
+            else:
+                hold_tensors(tag, "BN running statistic", got["stats"], ref["stats"], "one process's")
+            for r, other in enumerate(ranks[1:], 1):
+                theirs = other["small"][run]
+                check(theirs["loss"] == got["loss"] and torch.equal(theirs["conf"], got["conf"]),
+                      f"{tag}: rank {r}'s reduced loss or confusions differ from rank 0's")
+                same_tensors(f"{tag} rank {r} gradients", theirs["grads"], got["grads"])
+                same_tensors(f"{tag} rank {r} statistics", theirs["stats"], got["stats"])
+        print(f"[ddp fp32] every rank's reduced loss, confusions, gradients and statistics equal rank "
+              f"0's in all {len(DDP_SMALL_RUNS)} runs", flush=True)
+
+        # (b) the bf16 step
+        launches = {"train": {}, "cli": {}}
+        for name in ("corr1d", "corr1d_backward", "corr2d", "corr2d_backward"):
+            launches["train"][name] = [r["train"]["launches"][name] for r in ranks]
+            per_step = 1 if name.startswith("corr1d") else 0
+            check(launches["train"][name] == [per_step * DDP_STEPS] * world,
+                  f"ddp train: {name} launched {launches['train'][name]} times on the ranks in "
+                  f"{DDP_STEPS} steps, expected {per_step} a step on each")
+        for r, other in enumerate(ranks[1:], 1):
+            same_tensors(f"[ddp train] rank {r}'s weights and statistics", other["train"]["state"],
+                         ranks[0]["train"]["state"])
+        t = ranks[0]["train"]
+        ms = float(np.mean(t["ms"][DDP_WARMUP:]))
+        print(f"[ddp train] {where}: flagship densenet121 bf16, CE + Lovasz + MultiTversky + OHEM, "
+              f"Adam, cross-replica BN, {DDP_PAIRS} pairs of {TRAIN_H}x{TRAIN_W} a rank "
+              f"({DDP_PAIRS * world} a step): {ms:.2f} ms/step, {DDP_PAIRS * world / ms * 1e3:.2f} "
+              f"training pairs/s over {DDP_STEPS} steps (rank 0, per step: "
+              f"{', '.join(f'{v:.2f}' for v in t['ms'])} ms, the first {DDP_WARMUP} warm-ups)"
+              f"{'; a reading: the ranks share one card' if not nccl else ''}; losses "
+              f"{', '.join(f'{v:.5g}' for v in t['losses'])}; peak memory a rank "
+              f"{', '.join(f'{r['train']['peak_gib']:.2f}' for r in ranks)} GiB; replicas bit-equal "
+              f"after the steps; launches a rank {launches['train']}; {card}", flush=True)
+
+        # (c) the CLI in every rank, then one card from its checkpoint
+        cfg = config_from_args(argv)
+        ckpt = os.path.join(tmp, "runs", cfg.model_id())
+        steps = FILES_TRAIN_PAIRS // cfg.run.batch
+        files = sorted(os.listdir(ckpt))
+        check("meta_0.json" in files and "best.json" in files
+              and len([f for f in files if f.startswith("model_best_IOU")]) == 1,
+              f"ddp files: checkpoint directory {ckpt}: {files}")
+        zero = ranks[0]["cli"]
+        check("model id:" in zero["printed"] and "final eval:" in zero["printed"],
+              "ddp files: rank 0 printed no model id or final eval")
+        for r, res in enumerate(ranks):
+            c = res["cli"]
+            check(r == 0 or c["printed"] == "", f"ddp files: rank {r} printed {c['printed'][:200]!r}")
+            own = eval_rows_of(r, world, cfg.run.batch)
+            expect = {"corr1d": c["steps"] + own, "corr1d_backward": c["steps"], "corr2d": 0,
+                      "corr2d_backward": 0}
+            check(c["steps"] == steps and c["launches"] == expect,
+                  f"ddp files rank {r}: {c['steps']} steps, launches {c['launches']}, expected {expect}")
+            same_tensors(f"[ddp files] rank {r}'s final state", c["model"], zero["model"])
+            check(len(c["rows"]) == FILES_TEST_PAIRS, f"ddp files rank {r}: {len(c['rows'])} eval rows")
+        for name in ("corr1d", "corr1d_backward"):
+            launches["cli"][name] = [r["cli"]["launches"][name] for r in ranks]
+        fresh = Session(config_from_args(argv + ["-load_weights", ckpt]))
+        fresh.init_state(steps_per_epoch=steps)
+        check(fresh.restore(ckpt)[0] == 1, "ddp files: restore's start epoch")
+        same_tensors("[ddp files restore] model", to_cpu(fresh.model.state_dict()), zero["model"])
+        same_tensors("[ddp files restore] optimizer", to_cpu(fresh.state.optimizer.state_dict()),
+                     zero["optimizer"])
+        check(fresh.state.step == zero["step"], "ddp files restore: step")
+        del fresh
+        free_card()
+        print(f"[ddp files] {where}: one epoch of {steps} steps of {cfg.run.batch} pairs from "
+              f"phase 8's PNGs through cli.train.main in each rank and the sharded eval of "
+              f"{FILES_TEST_PAIRS} pairs (rows a rank "
+              f"{[eval_rows_of(r, world, cfg.run.batch) for r in range(world)]}); "
+              f"rank 0 alone printed and wrote {os.path.basename(ckpt)}; the replicas' final states "
+              f"bit-equal; a one-card Session restores rank 0's weights, statistics, optimizer state "
+              f"and step bit-equal; launches a rank {launches['cli']}", flush=True)
+        kernels = counters()
+        with contextlib.chdir(tmp):
+            ev, _, one_card = cli_run(data + DDP_FILES + ["-train", "0", "-b", str(FILES_TEST_PAIRS),
+                                                          "-load_weights", ckpt], kernels)
+        hold_cli_launches("[ddp files one-card eval]", ev, one_card)
+        hold_eval_tables("[ddp files] the sharded eval vs the one-card eval CLI from its checkpoint",
+                         eval_table(zero["rows"], zero["summary"]),
+                         eval_table(ev.accumulator.rows, ev.eval_summary))
+        del ev
+        free_card()
+        if nccl:
+            launches["scale"] = phase_ddp_scale(ranks, card)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_ddp_scale(ranks: list, card: str) -> dict:
+    """--ddp: print the scaling steps' readings; returns {cards: {ms/step,
+    pairs/s, the NCCL kernels' ms a step and share of it}} (rank 0's)."""
+    out = {}
+    for cards, t in ranks[0]["scale"].items():
+        ms = float(np.mean(t["ms"][DDP_WARMUP:]))
+        for r in range(cards):
+            got = ranks[r]["scale"][cards]["launches"]
+            check(got["corr1d"] == got["corr1d_backward"] == DDP_SCALE_STEPS,
+                  f"ddp scale {cards} cards: rank {r} (cuda:{ranks[r]['card']}) launches {got}")
+        out[cards] = {"ms_per_step": ms, "pairs_per_s": cards * TRAIN_BATCH / ms * 1e3,
+                      "traced_ms_per_step": t["traced_ms"], "nccl_ms_per_step": t["nccl_ms"],
+                      "nccl_share": t["nccl_ms"] / t["traced_ms"], "nccl_kernels_per_step": t["nccl_kernels"],
+                      "kernel_ms_per_step": t["kernel_ms"], "kernels_per_step": t["kernels"],
+                      "ms": t["ms"], "peak_gib": t["peak_gib"]}
+        print(f"[ddp scale] {cards} card(s), {TRAIN_BATCH} pairs of {TRAIN_H}x{TRAIN_W} a card, bf16, "
+              f"bench loss stack, Adam, cross-replica BN: {ms:.2f} ms/step, "
+              f"{out[cards]['pairs_per_s']:.2f} training pairs/s over {DDP_SCALE_STEPS} steps (rank 0, per "
+              f"step: {', '.join(f'{v:.2f}' for v in t['ms'])} ms, the first {DDP_WARMUP} warm-ups); "
+              f"traced ({DDP_TRACE_STEPS} steps, utils/profiling.py:trace): {t['traced_ms']:.2f} ms/step, "
+              f"NCCL kernels {t['nccl_ms']:.3f} ms/step ({t['nccl_kernels']:.0f} a step, "
+              f"{100 * out[cards]['nccl_share']:.2f}% of the step), all kernels {t['kernel_ms']:.2f} "
+              f"ms/step ({t['kernels']:.0f}); corr1d and its backward once a step on cuda:"
+              f"{', cuda:'.join(str(ranks[r]['card']) for r in range(cards))}; {card}", flush=True)
+    print(json.dumps({"ddp_scale": {str(k): {n: v for n, v in r.items() if n != "ms"}
+                                    for k, r in out.items()}}), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net (or flagship_aspp2) "
@@ -2190,6 +2729,9 @@ def main() -> int:
                     help="only run EncoderDecoderNet and the banded forward (phase 12): each "
                          "decoder type card vs CPU, serving, training and restoring, then the "
                          "flagship in bands against its monolithic forward")
+    ap.add_argument("--ddp", action="store_true",
+                    help="only run phase 13 over NCCL with one rank on each visible card (two or "
+                         "more), and the bf16 step at 8 pairs a card on 1, 2 and 4 cards")
     ap.add_argument("--zoo", action="store_true",
                     help="only run the rest of the CLI's nets (phase 11): deeplab_mod, dsnet_warp "
                          "and pspnet serve and train, every other configuration, deeplab's TTA, "
@@ -2206,9 +2748,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if (args.serve or args.train or args.backward or args.files or args.options or args.trunks
-            or args.zoo or args.encdec):
+            or args.zoo or args.encdec or args.ddp):
         try:
-            if args.encdec:
+            if args.ddp:
+                phase_build()  # once, before any rank starts
+                phase_ddp(card, nccl=True)
+            elif args.encdec:
                 phase_encdec(card)
             elif args.files:
                 phase_files(card)
@@ -2291,6 +2836,13 @@ def main() -> int:
             records[name]["launches_encdec"] = sum(launches[name] for path, launches in paths.items()
                                                    if path.startswith("encdec_"))
         records["corr1d"]["launches_banded_serve"] = paths["banded"]["corr1d"]
+        # phase 13: two ranks on the card over gloo; corr1d's forward and
+        # backward once a step in each rank's timed steps and in its CLI run
+        free_card()
+        launches = phase_ddp(card)
+        for name in ("corr1d", "corr1d_backward"):
+            records[name]["launches_ddp_train_per_rank"] = launches["train"][name]
+            records[name]["launches_ddp_cli_per_rank"] = launches["cli"][name]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -6,9 +6,10 @@ flag unchanged, so an argv line gives the same config, ``model_id()`` and
 ``to_json()`` in both packages). It replaces the reference's single argparse
 namespace (torchConfig.py:5-58) and the dataset constants scattered through
 its layers (torch_implementation.py:644-655, util/utilTorchDataLoader.py:
-57-58,171-208, losses/multiLosses.py:11-21,44-57). On one card ``-gpu_n``,
-``-n`` and ``-nr`` are parsed and unused, and ``-f16``/``-torch_amp`` select
-the bf16 policy (``training/step.py``).
+57-58,171-208, losses/multiLosses.py:11-21,44-57). ``-gpu_n``, ``-n`` and
+``-nr`` are parsed and unused, as in the JAX package (several cards come
+from torchrun, ``cli/train.py``), and ``-f16``/``-torch_amp`` select the
+bf16 policy (``training/step.py``).
 """
 from __future__ import annotations
 
@@ -226,8 +227,10 @@ class OptimConfig:
 
 @dataclass
 class ParallelConfig:
-    """Parallelism and precision. The mesh fields mirror the JAX package's
-    (multi-GPU is ROADMAP.md queue 1, item 10; one card uses none of them)."""
+    """Parallelism and precision. ``data_axis`` and ``mesh_axes`` mirror the
+    JAX package's fields, which its ``Session`` does not read either; the
+    ranks of a multi-process run form the mesh (``parallel/mesh.py``), over
+    which BatchNorm is cross-replica when ``sync_batchnorm`` is on."""
 
     data_axis: int = 0  # 0 -> use all visible devices on the 'data' axis
     mesh_axes: Tuple[str, ...] = ("data",)

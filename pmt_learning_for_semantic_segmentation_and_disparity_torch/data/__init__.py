@@ -13,7 +13,7 @@ from .labels import (  # noqa: F401
     decode_segmap,
     CITYSCAPES_LABELS,
 )
-from .pipeline import DataLoader, pad_to_bucket, prefetch_to_device  # noqa: F401
+from .pipeline import DataLoader, pad_to_bucket, prefetch_to_device, prefetch_to_mesh  # noqa: F401
 from .synthetic import (  # noqa: F401
     apply_fixture_to_config,
     make_cityscapes_fixture,

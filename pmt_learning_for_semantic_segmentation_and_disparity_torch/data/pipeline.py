@@ -2,12 +2,13 @@
 card (the port's counterpart of the JAX package's ``data/pipeline.py``).
 
 ``DataLoader`` and ``pad_to_bucket`` are the JAX package's, unchanged: the
-same index permutation, per-epoch seeding, ``pad_batch`` and ``valid``, so
-both packages yield the same batches. ``prefetch_to_device`` takes the place
-of ``prefetch_to_mesh`` on one device: a thread loads the next batches into
-pinned host memory while the card works, and each is copied to the device
-with ``non_blocking``. Arrays stay NHWC (the models read them channels_last).
-Sharding over several cards is ROADMAP.md queue 1, item 10.
+same index permutation, per-epoch seeding, ``pad_batch`` and ``valid``, and
+with ``process_index``/``process_count`` each rank loads only its slice of
+every global batch, so both packages yield the same batches.
+``prefetch_to_device``: a thread loads the next batches into pinned host
+memory while the card works, and each is copied to the device with
+``non_blocking``; ``prefetch_to_mesh`` does so for a rank's slice onto its
+card. Arrays stay NHWC (the models read them channels_last).
 """
 from __future__ import annotations
 
@@ -70,6 +71,8 @@ class DataLoader:
         drop_last: bool = True,
         bucket_hw=None,
         pad_batch: bool = False,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -79,9 +82,20 @@ class DataLoader:
         self.drop_last = drop_last
         self.bucket_hw = bucket_hw
         # pad_batch: repeat the last sample so every batch has batch_size
-        # rows (one batch shape for every step); 'valid' in the batch dict
-        # records the true count.
+        # rows (one batch shape for every step, and every rank's slice
+        # full); 'valid' in the batch dict records the true count.
         self.pad_batch = pad_batch
+        # several ranks: batch_size is the GLOBAL batch; every rank draws the
+        # same (seed-synchronized) index permutation but loads ONLY its
+        # contiguous 1/process_count slice of each batch — the per-rank
+        # DistributedSampler analogue (torch_implementation.py:772-790)
+        # without ever materializing the global batch in one process.
+        if batch_size % max(1, process_count):
+            raise ValueError(
+                f"global batch {batch_size} not divisible by "
+                f"{process_count} processes")
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -102,6 +116,7 @@ class DataLoader:
         idx = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        local = self.batch_size // self.process_count
         with futures.ThreadPoolExecutor(self.num_workers) as pool:
             for start in range(0, n, self.batch_size):
                 chunk = idx[start : start + self.batch_size]
@@ -113,6 +128,9 @@ class DataLoader:
                         [chunk, np.repeat(chunk[-1:],
                                           self.batch_size - valid)]
                     )
+                # this rank's contiguous slice of the global batch
+                chunk = chunk[self.process_index * local:
+                              (self.process_index + 1) * local]
                 samples = list(pool.map(self.dataset.__getitem__, chunk))
                 batch = _stack(samples)
                 if self.bucket_hw is not None:
@@ -178,3 +196,20 @@ def prefetch_to_device(iterator, device: torch.device, size: int = 2):
     finally:
         stop.set()
         thread.join()
+
+
+def prefetch_to_mesh(iterator, mesh, size: int = 2):
+    """``prefetch_to_device`` onto the rank's card (``mesh.device``) of the
+    rank's slice of each global batch: (slice on the card, {"meta",
+    "valid"}), ``meta`` and ``valid`` (the global batch's count) on the
+    host. The iterator loads only that slice: a ``DataLoader`` with
+    ``process_index=mesh.rank`` and ``process_count`` the mesh's size, the
+    JAX package's per-host loading with one process per card. Raises for an
+    iterator of whole global batches on a mesh of several ranks."""
+    from ..parallel.mesh import mesh_size
+
+    got = (getattr(iterator, "process_index", 0), getattr(iterator, "process_count", 1))
+    if got != (mesh.rank, mesh_size(mesh)):
+        raise ValueError(f"prefetch_to_mesh on rank {mesh.rank} of {mesh_size(mesh)} needs a loader "
+                         f"of that rank's slice, got process_index, process_count = {got}")
+    return prefetch_to_device(iterator, mesh.device, size)

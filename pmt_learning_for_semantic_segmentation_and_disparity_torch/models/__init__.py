@@ -33,6 +33,7 @@ from .blocks import (  # noqa: F401
     DeconvBN,
     SameConvTranspose2d,
     init_parameters,
+    set_batch_norm_group,
 )
 from .jax_weights import load_jax_variables  # noqa: F401
 from .deeplab import SPPNetMono, SPPNetStereo, Xception65  # noqa: F401

@@ -30,6 +30,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -179,12 +180,26 @@ class BatchNorm2d(nn.BatchNorm2d):
     input). Train mode normalises by the batch statistics; eval mode by the
     running ones. The running buffers are updated in place in their own
     dtype, whatever the input's (fp32 under the bf16 policy). It takes maps
-    of any rank (N, C, ...): PSMNet's 3-D BatchNorms are these too."""
+    of any rank (N, C, ...): PSMNet's 3-D BatchNorms are these too.
+
+    Cross-replica (``set_batch_norm_group``): with a process ``group`` of
+    several ranks, train mode takes the statistics of the group's whole
+    batch, as flax's BatchNorm with an ``axis_name`` does
+    (``flax/linen/normalization.py:_compute_stats``): each rank's [E[x],
+    E[x^2]] per channel in at least fp32, averaged over the group in one
+    all-reduce that carries the gradient back to every rank's input, and
+    var = max(0, E[x^2] - E[x]^2). It normalises with those and moves the
+    running statistics toward them. Without a group the code above runs,
+    unchanged."""
+
+    group = None  # the process group of the cross-replica statistics
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if self.group is not None:
+            return self._cross_replica(x)
         # no running buffers in the op: autograd saves its inputs, and the
         # buffers change in place below and in the next call of this layer
         y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True,
@@ -194,6 +209,36 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(invstd.pow(-2) - self.eps, alpha=m)
         return y
+
+    def _cross_replica(self, x):
+        from ..parallel.mesh import all_reduce_with_grad
+
+        dims = [0, *range(2, x.dim())]
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = torch.stack([xs.mean(dims), xs.square().mean(dims)])
+        mean, mean_sq = all_reduce_with_grad(stats, self.group) / dist.get_world_size(self.group)
+        var = (mean_sq - mean.square()).clamp_min(0.0)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (xs - mean.view(shape)) * (torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        y = y + self.bias.view(shape)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        return y.to(x.dtype)
+
+
+def set_batch_norm_group(model: nn.Module, group) -> nn.Module:
+    """Make every ``BatchNorm2d`` of ``model`` cross-replica over the process
+    ``group`` (the counterpart of the JAX package's ``get_network(cfg,
+    axis_name="data")``); a group of one rank, or None, keeps them
+    per-replica. Returns the model."""
+    if group is not None and dist.get_world_size(group) <= 1:
+        group = None
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
+    return model
 
 
 def batch_norm(c: int, eps: float = 1e-5, momentum: float = 0.9) -> BatchNorm2d:

@@ -1,6 +1,6 @@
 """Forward, losses, train step, per-row eval step and on-device metrics,
-counterpart of the JAX package's ``training/step.py`` (single device; the
-mesh path is ROADMAP.md queue 1, item 10).
+counterpart of the JAX package's ``training/step.py``, on one card or on the
+ranks of a ``parallel.mesh.Mesh``.
 
 The bf16 policy (``cfg.parallel.bf16``): fp32 master weights, bf16 compute,
 fp32 outputs and losses. Every convolution weight is cast to bf16 for the
@@ -32,6 +32,7 @@ from ..losses.dispatch import compose_disp_loss, compose_seg_loss
 from ..losses.edge import balanced_edge_bce
 from ..metrics.dispmetrics import disp_metrics
 from ..metrics.segmetrics import seg_batch_metrics
+from ..parallel.mesh import Mesh, all_reduce, fold_in, gather_rows, mesh_size
 from .state import TrainState
 
 def _is_bn(m: torch.nn.Module) -> bool:
@@ -264,27 +265,76 @@ def _zero_bn_grads(model: torch.nn.Module) -> None:
                     p.grad.zero_()
 
 
+# metrics summed over the ranks; the others are averaged (the JAX step's)
+_SUM_METRICS = ("conf1", "conf2", "disp_err3px", "disp_valid")
+
+
+def _reduce_over_mesh(mesh: Mesh, model: torch.nn.Module,
+                      metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The JAX step's reductions over a mesh: the mean of the gradients and
+    of the BatchNorm running statistics (which differ between ranks when
+    BatchNorm is per-replica), in place, and the reduced metrics: the sum of
+    ``_SUM_METRICS``, the mean of the others. One all-reduce per dtype for
+    each of the three."""
+    n = mesh_size(mesh)
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:  # the optimizer reads a missing gradient as zero
+            p.grad = torch.zeros_like(p)
+    stats = [b for name, b in model.named_buffers()
+             if name.endswith(("running_mean", "running_var"))]
+    all_reduce(mesh, [p.grad for p in params], mean=True)
+    all_reduce(mesh, stats, mean=True)
+    metrics = {k: v.clone() for k, v in metrics.items()}
+    all_reduce(mesh, list(metrics.values()))
+    return {k: v if k in _SUM_METRICS else v / n for k, v in metrics.items()}
+
+
 def make_train_step(cfg: PMTConfig, model: torch.nn.Module,
-                    device: Optional[Union[str, torch.device]] = None):
+                    device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
     """Returns ``step(state, batch) -> (state, metrics)``: the train-mode
     forward, the configured losses, the backward, ``freeze_bn``, one
     optimizer update and the metrics (``compute_metrics`` plus the loss
     logs), on ``device`` (the card by default). ``state`` is updated in place
-    and returned."""
+    and returned.
+
+    With a ``mesh`` of several ranks, ``batch`` is this rank's slice of the
+    global batch; each rank's forward draws from its own random stream (a
+    seed from the shared stream with the rank's index folded in), and after
+    the backward the gradients, BatchNorm statistics and metrics are reduced
+    over the mesh as the JAX step reduces them (``_reduce_over_mesh``), so
+    every replica applies the same update. No ``DistributedDataParallel``:
+    the bf16 forward is a ``functional_call`` that never enters
+    ``DDP.forward``, and DDP's buffer broadcast would give every rank rank
+    0's statistics where the JAX package averages them."""
     loss_fn = make_loss_fn(cfg, model, device)
     device = resolve_device(device)
+    if mesh is not None and mesh_size(mesh) == 1:
+        mesh = None
+
+    def forward_backward(batch):
+        loss, (out, logs) = loss_fn(batch, True)
+        loss.backward()
+        return out, logs
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         batch = {k: v.to(device) for k, v in batch.items()}
         state.optimizer.zero_grad()
-        loss, (out, logs) = loss_fn(batch, True)
-        loss.backward()
+        if mesh is None:
+            out, logs = forward_backward(batch)
+        else:
+            seed = fold_in(int(torch.randint(2**62, ())), mesh.rank)
+            with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+                torch.manual_seed(seed)
+                out, logs = forward_backward(batch)
         if cfg.optim.freeze_bn:
             _zero_bn_grads(state.model)
         with torch.no_grad():
             metrics = compute_metrics(cfg, {k: v.detach() for k, v in out.items()
                                             if isinstance(v, torch.Tensor)}, batch)
             metrics.update({k: v.detach() for k, v in logs.items()})
+            if mesh is not None:
+                metrics = _reduce_over_mesh(mesh, state.model, metrics)
         return state.apply_gradients(), metrics
 
     return step
@@ -372,9 +422,14 @@ def _cat_rows(rows):
 
 
 def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
-                   device: Optional[Union[str, torch.device]] = None):
+                   device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
     """Returns ``step(batch) -> (outputs, per-row metrics)`` on ``device``
     (the card by default), the JAX package's ``make_eval_step``.
+
+    With a ``mesh`` of several ranks, ``batch`` is this rank's rows (none is
+    allowed) and the outputs are theirs; the metrics are every rank's rows,
+    gathered through the host in the global batch's row order, as CPU
+    tensors on every rank.
 
     Every metric has the batch as its leading dimension: scalars become (B,),
     the confusion matrices (B,n,n). Each row's metrics and losses are those
@@ -423,11 +478,19 @@ def make_eval_step(cfg: PMTConfig, model: torch.nn.Module,
         out["disp2"] = out["disp1"]
         return out
 
+    if mesh is not None and mesh_size(mesh) == 1:
+        mesh = None
+
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor]):
         batch = {k: v.to(device) for k, v in batch.items() if isinstance(v, torch.Tensor)}
+        rows = batch["left"].shape[0]
         out = _cat_rows([forward_eval({k: v[r:r + 1] for k, v in batch.items()})
-                         for r in range(batch["left"].shape[0])])
-        return out, eval_rows(cfg, losses, out, batch)
+                         for r in range(rows)]) if rows else {}
+        metrics = eval_rows(cfg, losses, out, batch) if rows else None
+        if mesh is None:
+            return out, metrics
+        local = {k: v.cpu().numpy() for k, v in metrics.items()} if rows else None
+        return out, {k: torch.from_numpy(v) for k, v in gather_rows(mesh, local).items()}
 
     return step

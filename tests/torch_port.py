@@ -25,11 +25,19 @@
 * ``float64_steps(net, corr_type)`` holds the port's ``make_train_step``
   against the JAX package's in float64 (two steps from the same variables
   and batch, the bench loss stack, Adam; see ``jax_float64_reference``).
+* ``spawn_ranks(world, out_dir, **spec)`` runs ``torch_ddp_worker.py`` as
+  the ranks of one gloo group on the CPU and returns what each computed.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -530,3 +538,34 @@ def nonzero_leaves(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         elif not t.any():
             t.copy_(noise / np.sqrt(t[0].numel()))
     return model
+
+
+# ---- several ranks on the CPU (test_torch_ddp_step.py, test_torch_mesh.py) ----
+WORKER = Path(__file__).with_name("torch_ddp_worker.py")
+RANK_TIMEOUT_S = 300
+
+
+def spawn_ranks(world: int, out_dir, **spec) -> list:
+    """Run ``torch_ddp_worker.py`` as ``world`` ranks of one gloo group on a
+    free localhost port (the trunk at ``REDUCED_BLOCKS``), each told ``spec``;
+    returns each rank's saved results, rank 0 first. Fails with a rank's
+    output if one fails; kills every rank still running at the end."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = str(WORKER.parents[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    procs = [subprocess.Popen(
+        [sys.executable, str(WORKER), json.dumps(dict(spec, rank=r, world=world, port=port,
+                                                      out=str(out_dir), blocks=REDUCED_BLOCKS))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
