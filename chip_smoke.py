@@ -16,7 +16,9 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    (corr1d's against ``correlation1d_vjp_plain`` at ``BACKWARD_CASES``,
    corr2d's against ``correlation2d_vjp_plain`` at ``BACKWARD2_CASES``: the
    training shape per view, the serving shape and edge shapes of its
-   transposed band), count HMMA in its own bf16 function, time it warm and
+   transposed band; corr2d's also at its bf16 items' edges, each case
+   launched twice and the two results bit-equal), count HMMA in its own
+   bf16 function, time it warm and
    with the L2 flushed before each launch, and hold the gradients that
    ``torch.autograd.grad`` takes through ``correlation`` (forward kernel,
    then backward kernel) at the training shape;
@@ -308,7 +310,12 @@ BACKWARD_CASES = [
 # serving shapes in both dtypes, then edge shapes: H and W against the 8-row
 # and 8-column reach of the patch and the 64-column tile (1, 7, 16, 17, 18,
 # 65), C against the 64-channel box (16, 24, 352, 360), element staging (C %
-# 8 != 0 in bf16, C % 4 != 0 in fp32) and element offsets of the storage
+# 8 != 0 in bf16, C % 4 != 0 in fp32) and element offsets of the storage (a
+# fourth entry: g's own offset where it differs); then the bf16 band's
+# items (4 output rows, 128 channels): H = 3, 5, 17 against the 4 rows, C =
+# 128, 136, 192 against the channel group and its second box, g's relayout
+# by element loads (W % 8 != 0 with 16-byte aligned inputs, g alone off
+# 16-byte alignment)
 BACKWARD2_CASES = [
     (TRAIN_SHAPE, torch.float32), (TRAIN_SHAPE, torch.bfloat16),
     (CORR_SHAPE, torch.float32), (CORR_SHAPE, torch.bfloat16),
@@ -328,6 +335,14 @@ BACKWARD2_CASES = [
     ((2, 9, 20, 37), torch.float32),        # C % 4 != 0: element staging and stores
     ((1, 16, 70, 36), torch.float32, 1),    # inputs off 16-byte alignment
     ((1, 16, 17, 352), torch.float32, 2),
+    ((1, 3, 64, 64), torch.bfloat16),       # H = 3: one item of 3 rows
+    ((1, 5, 64, 64), torch.bfloat16),       # H = 5: items of 4 and 1 rows
+    ((1, 17, 40, 64), torch.bfloat16),      # H = 17: F's reach both ways, a last row alone
+    ((1, 9, 24, 128), torch.bfloat16),      # C = 128: one channel group
+    ((1, 9, 24, 136), torch.bfloat16),      # C = 136: a second group of 8 channels
+    ((1, 9, 24, 192), torch.bfloat16),      # C = 192: the second group's second box past C
+    ((2, 6, 70, 64), torch.bfloat16),       # W % 8 != 0: g's rows by element loads
+    ((1, 9, 64, 64), torch.bfloat16, 0, 1),  # g alone off 16-byte alignment
 ]
 # phase 2, the trunks' sites (phase 10's nets): corr1d correlates the
 # enriched tap 2 (the trunk's tap-2 channels + 96) at /8, and the dlab net
@@ -720,14 +735,20 @@ def phase_backward(name: str, sass, cases=None, autograd: bool = True):
 
     record = {}
     for shape, dtype, *offset in default_cases if cases is None else cases:
-        f1, f2 = (inputs(shape, dtype, g, *offset) for _ in range(2))
-        grad = inputs(tuple(shape[:3]) + (patch[0] * patch[1],), dtype, g, *offset)
+        f1, f2 = (inputs(shape, dtype, g, *offset[:1]) for _ in range(2))
+        grad = inputs(tuple(shape[:3]) + (patch[0] * patch[1],), dtype, g, *offset[-1:])
         got = kernel(f1, f2, grad)
         torch.cuda.synchronize()
-        where = f" at element offset {offset[0]}" if offset else ""
-        errs = hold(got, plain(f1, f2, grad), f"[{name} backward] {tuple(shape)} {str(dtype)[6:]}{where}",
-                    f1.shape, dtype)
-        if offset or shape not in (TRAIN_SHAPE, CORR_SHAPE, ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE):
+        where = (f" at element offset {offset[0]}" if offset else "") + (
+            f", g at {offset[1]}" if len(offset) > 1 else "")
+        what = f"[{name} backward] {tuple(shape)} {str(dtype)[6:]}{where}"
+        errs = hold(got, plain(f1, f2, grad), what, f1.shape, dtype)
+        if name == "corr2d":  # one owner for each output element: a second launch is bit-equal
+            again = kernel(f1, f2, grad)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what}: two launches differ")
+            del again
+        if any(offset) or shape not in (TRAIN_SHAPE, CORR_SHAPE, ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE):
             continue
         # back to back (as the forward kernels are timed): the card's time
         # per launch, or the wrapper's host time where that is longer

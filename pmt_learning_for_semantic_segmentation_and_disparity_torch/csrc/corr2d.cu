@@ -48,17 +48,16 @@
 //
 // Backward (corr2d_backward). Replaces the lax VJP of the JAX package's
 // _corr2d (ops/correlation.py:_corr2d_bwd_lax), which the TPU ran as XLA code
-// beside the Pallas forward. With g = dL/dout and o = i - 8:
+// beside the Pallas forward. With g = dL/dout and o = i - 8, p = j - 8:
 //
-//   df1[b,y,x,c]   = sum_{i,j} g[b,y,x,17i+j]             * f2[b,y+o,x+j-8,c],
-//   df2[b,y',x',c] = sum_{i,j} g[b,y'-o,x'-j+8,17i+j]     * f1[b,y'-o,x'-j+8,c],
+//   df1[b,y,x,c]   = sum_{i,j} g[b,y,x,17i+j]         * f2[b,y+o,x+p,c],
+//   df2[b,y',x',c] = sum_{i,j} g[b,y'-o,x'-p,17i+j]   * f1[b,y'-o,x'-p,c],
 //
-// zero terms outside the image. For one row offset i both sums are corr1d's
-// backward (corr1d.cu) with g[..., 17i : 17i+17] as its g: df1's row y
-// gathers f2's row y+o, df2's row y' gathers f1's and g's row y'-o. So the
-// kernel runs corr1d's transposed band once per row offset and sums the 17
-// bands in registers. Each output element is one sum, owned by one thread:
-// no atomics, deterministic.
+// zero terms outside the image. Mirrored (i -> 16-i, j -> 16-j), df2 takes
+// df1's form: df2[y',x',c] = sum_{i,j} G2[y',x',i,j] * f1[y'+o,x'+p,c] with
+// G2[y',x',i,j] = g[y'+o, x'+p, 288-17i-j]. So one kernel computes both, as
+// out[y,x,c] = sum_{i,j} G[y,x,i,j] * F[y+o,x+p,c] with (G, F) = (g, f2) for
+// df1 and (G2, f1) for df2.
 //
 // Bound: it must read f1, f2 and g and write df1 and df2 once; at the training
 // shape per view, f1 = f2 = (8,32,64,352) and g = (8,32,64,289) in bf16, that
@@ -67,30 +66,56 @@
 // 0.0995 ms as fp32 FMAs on the CUDA cores: only the tensor cores can reach
 // the byte bound.
 //
-// bf16: one block per (b, y, 64-column tile, 64-channel box), 8 consumer
-// warps and 1 producer warp. Warp w owns the 16-column slab w % 4 of df1
-// (w < 4) or of df2 (w >= 4) for the block's 64 channels and keeps its 16 x 64
-// sums (32 fp32 registers a thread) across the row offsets; the slab is
-// final after the last offset and leaves by a TMA store of 16 columns x 64
-// channels. The producer walks the row offsets whose rows lie in the image
-// through a 3-stage ring (corr_band.cuh's mbarrier protocol), four tiled TMA
-// copies a stage: f1's 80 x 64 window box of row y-o and f2's of row y+o (in
-// the 128-byte swizzle; a row outside the image is not copied, and the warps
-// that would read it skip their products), and g's values 17i .. 17i+23 of
-// the 80 window columns of row y (df1's A) and of row y-o (df2's A). g's own
-// pixel stride, 289 x 2 = 578 bytes, is no tensor-map stride, so the wrapper
-// pads g to 296 values a pixel (592 bytes) first. The A fragments are built
-// from those boxes in registers, the band mask applied, and B fragments come
-// from the window boxes with ldmatrix.x4.trans, as in corr1d's backward.
-// (g read straight into the A fragments by element loads, each warp load
-// touching 8 pixels 578 bytes apart, took half the time of a first design,
-// and staging it by the producer's element loads twice the time: PERF.md
-// §6.) What it costs: each f1 and f2 window is copied from L2 once per output
-// row that reaches it, 17 times (0.49 GB from L2 at the training shape), the
-// price of keeping the sums of one output row per block in registers.
-// Inputs a tensor map cannot take (vec = 0: C % 8 != 0, or a pointer off
-// 16-byte alignment) take the same kernel with the producer staging the
-// windows by element loads and the consumers storing by element stores.
+// bf16, two launches. (1) The relayout (corr2d_bwd_relayout_kernel), one
+// block per (b, y, 64-column tile): g's row y with an 8-column halo each side
+// comes into shared memory (one 1-D bulk copy where g is 16-byte aligned and
+// W % 8 == 0, else element loads), and the block writes, into the workspace
+// the wrapper allocates, G's and G2's slices: for each (tensor, b, y, i,
+// tile) the 17 values j of the tile's 64 pixels back to back (2176 bytes, a
+// 1-D bulk copy's unit). At the training shape it reads g once (9.5 MB) and
+// writes 16.4 MB. (2) The band (corr2d_bwd_band_kernel), persistent: one
+// block per SM walks work items (tensor, b, 4 output rows y0 .. y0+3, 128
+// channels, 64-column tile). An item walks F's rows r = y0-8 .. y0+11 inside
+// the image, one stage each: F's 80-column window of row r in two 64-channel
+// boxes (TMA, 128-byte swizzle; zero outside the image and past C) and, for
+// each output row y' = y0 + a that row r reaches (i = r - y' + 8 in [0, 17)),
+// the slice (y', i) of G (a 1-D bulk copy). A producer warp issues the
+// copies; 8 consumer warps each take the 16-column slab w % 4 and the 64
+// channels of box w / 4 for all 4 rows: per stage, B fragments from the box
+// with ldmatrix.x4.trans (once for the 4 rows) and each row's banded A
+// fragment from its slice, six 32-bit loads, two of them masked to the band
+// 0 <= k - r <= 16 (mma.sync.m16n8k16, fp32 sums in registers: 128 a
+// thread). The ring of kStages stages runs on across items (corr_band.cuh's
+// mbarrier protocol), so the next item's copies overlap this item's last
+// products and its stores, which go straight from the registers, a pixel's
+// 64 channels in 8 consecutive stores. Every output element has one owner:
+// no atomics, deterministic.
+//
+// What bounds it, and what the design does about it (PERF.md §6 has the
+// readings of tools/probe_band.py --backward corr2d):
+// - the copies into shared memory, which run near 3.3 TB/s: each F window is
+//   copied once for every row group that reaches it, (4 + 16) / 4 = 5 times
+//   (17 in the one-row design before it), 0.10 GB of in-image columns at the
+//   training shape, and each slice once per 128-channel group (3 at C =
+//   352), 0.05 GB; items of 2 or 3 rows measured slower;
+// - the products: 32/17 of the useful products on mma.sync, 12.5 GFLOP at
+//   the training shape. wgmma would take M = 64 output columns against all
+//   80 window columns, 80/17 = 4.7x the useful products, so mma.sync stays
+//   (corr_band.cuh says the same of the forward). The copies alone and the
+//   products alone each take about 80% of the band's time;
+// - registers: 9 warps put 3 on one scheduler and cap a thread at 168
+//   registers, so the producer is a warpgroup that gives its registers up
+//   (setmaxnreg); a warp-0 producer between its own products, which spares
+//   them, serialised copies and products; an epilogue through shared memory
+//   and TMA stores spilled;
+// - hand-offs: 20 stages per 4 output rows and 128 channels, 6,528 at the
+//   training shape (~23,000 of 64 channels and one row before);
+// - device memory: the relayout's 16.4 MB written and read back from L2 is
+//   the price of slices a copy engine can take whatever g's alignment and W.
+// Inputs a tensor map cannot take (vec = 0: C % 8 != 0, or f1, f2, df1, df2
+// off 16-byte alignment) take the same kernel with the producer staging the
+// windows by element loads (the slices are the workspace's, always aligned)
+// and element stores out.
 //
 // fp32: corr_tile.cuh's backward tile with kPH = 17, on the CUDA cores.
 #include "corr_band.cuh"
@@ -173,65 +198,168 @@ namespace bwd {
 using band::bf16;
 constexpr int kPW = band::kPW;
 constexpr int kHalo = kPW / 2;            // 8
-constexpr int kCC = band::kCC;            // channels per box (and per block)
-constexpr int kSlab = 16;                 // output columns per consumer warp
+constexpr int kTX = band::kTX;            // output columns per item
+constexpr int kCC = band::kCC;            // channels per box
+constexpr int kR = 4;                     // output rows per item
+constexpr int kBoxes = 2;                 // 64-channel boxes per stage
+constexpr int kCG = kBoxes * kCC;         // channels per item
 constexpr int kWinBox = band::kF2Box;     // one window box: 80 columns x 64 channels (10 KB)
-constexpr int kGP = 296;                  // g's values a pixel as the kernel takes it: 289 + 7 unread
-// g values a g box takes at each row offset: 32 from 17i rounded down to a
-// multiple of 8 (a 16-byte aligned start), which hold the offset's 17
-constexpr int kGC = 32;
-constexpr int kGBox = band::kWin * kGC * 2;  // one g box: 80 columns x 32 values (5 KB)
-// a stage: F1w box, F2w box, df1's g box (row y), df2's g box (row y-o); 30
-// KB, which keeps the next stage's boxes on the swizzle's 1024 bytes
-constexpr int kStage = 2 * kWinBox + 2 * kGBox;
-static_assert(kStage % 1024 == 0, "a stage keeps the swizzle's alignment");
-constexpr int kOutBox = kSlab * kCC * 2;  // one warp's output box: 16 columns x 64 channels (2 KB)
-constexpr int kStages = 3;                // ring stages
-// [kStages stages][one output box per consumer warp][barriers], with 1 KB of
-// slack to align the boxes to the swizzle's 1024 bytes: ~107 KB, two blocks
-// an SM
-constexpr size_t kSmem = 1024 + (size_t)kStages * kStage + band::kConsumers * kOutBox +
-                         2 * kStages * 8;
+// a G slice: the 17 values j of the tile's 64 pixels back to back, pixel
+// q's value j at gpos(q, j). (A pad of 8 values every 4 pixels would put the
+// 8 pixel rows of an A load on 8 distinct bank groups, where none leaves
+// two-way conflicts; it measured no faster than the 10% fewer bytes.)
+constexpr int kSlice = kTX * kPW;  // 1088 values (2176 bytes)
+constexpr int kSliceBytes = kSlice * 2;
+static_assert(kSliceBytes % 16 == 0, "a slice is a bulk copy");
+__host__ __device__ constexpr int gpos(int q, int j) { return kPW * q + j; }
+// slice words between A rows r and r + 8: (gpos(q + 8, j - 8) - gpos(q, j)) / 2
+constexpr int kRow8 = (8 * kPW - 8) / 2;  // 64
+// a stage: kBoxes window boxes, then one slice per output row; kept on the
+// swizzle's 1024 bytes
+constexpr int kStage = (kBoxes * kWinBox + kR * kSliceBytes + 1023) / 1024 * 1024;
+constexpr int kStages = 7;                // ring stages
+// [kStages stages][barriers], with 1 KB of slack to align the boxes to the
+// swizzle's 1024 bytes
+constexpr size_t kSmem = 1024 + (size_t)kStages * kStage + 2 * kStages * 8;
+static_assert(kSmem <= band::kSmemMax, "the ring fits a block");
+// the relayout: g's row tile with its halo (80 pixels x 289 values) and one
+// tensor's 17 slices
+constexpr int kRelThreads = 256;
+constexpr size_t kRelSmem = (size_t)band::kWin * kPatch * 2 + (size_t)kPH * kSliceBytes + 16;
 
-// The producer warp's element copy of one g box: columns [xb, xb + 80) x
-// values [v0, v0 + 32) of one row of the (B, H, W, 296) g, zero outside
-// [0, W) x [0, 296), in the layout the copy engine writes (32 values a column).
-__device__ __forceinline__ void copy_gbox(bf16* dst, const bf16* __restrict__ row, int xb, int W,
-                                          int v0, int lane) {
-  for (int k = lane; k < band::kWin * kGC; k += 32) {
-    const int x = xb + k / kGC, v = v0 + k % kGC;
-    dst[k] = x >= 0 && x < W && v < kGP ? row[(size_t)x * kGP + v] : __float2bfloat16(0.f);
+// values of the workspace: G and G2 slices, [tensor][b][y][i][tile][kSlice]
+inline size_t work_values(int B, int H, int W) {
+  return (size_t)2 * B * H * kPH * ((W + kTX - 1) / kTX) * kSlice;
+}
+
+// The relayout: block (tile, y, b) writes, from g's row y, G's slices (b, y,
+// i, tile) whose F row y + i - 8 lies in the image and G2's slices (b, y + 8
+// - i, i, tile) whose row lies in the image (their F row is y):
+//   G [y,  x, i, j] = g[y, x, 17i + j],
+//   G2[y2, x, i, j] = g[y, x + j - 8, 288 - 17i - j],  y2 = y + 8 - i,
+// zero for x >= W and where x + j - 8 falls outside [0, W). Each tensor's
+// 17 slices are assembled in shared memory, then stored with 16-byte stores.
+__global__ void __launch_bounds__(kRelThreads)
+corr2d_bwd_relayout_kernel(const bf16* __restrict__ g, bf16* __restrict__ work, int B, int H,
+                           int W, int fast) {
+  extern __shared__ __align__(16) unsigned char smem_rel[];
+  bf16* tile = reinterpret_cast<bf16*>(smem_rel);  // pixel x0 - 8 + q at q * 289
+  bf16* stage = tile + band::kWin * kPatch;        // one tensor's 17 slices
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + kPH * kSlice);
+  const int tx = blockIdx.x, ntx = gridDim.x, y = blockIdx.y, b = blockIdx.z;
+  const int x0 = tx * kTX;
+  const int xs = max(0, x0 - kHalo), xe = min(W, x0 + kTX + kHalo);
+  const bf16* src = g + (((size_t)b * H + y) * W + xs) * kPatch;
+  bf16* dst = tile + (xs - (x0 - kHalo)) * kPatch;
+  const int n = (xe - xs) * kPatch;
+  if (fast) {  // g 16-byte aligned and W % 8 == 0: xs, xe are multiples of 8
+    if (threadIdx.x == 0) {
+      band::mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      band::mbar_expect_tx(bar, n * 2);
+      band::bulk_load(dst, src, n * 2, bar);
+    }
+    __syncthreads();
+    band::mbar_wait(bar, 0);
+  } else {  // element loads, 8 in flight a thread
+    for (int k0 = threadIdx.x; k0 < n; k0 += 8 * kRelThreads) {
+      bf16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = k0 + e * kRelThreads;
+        v[e] = k < n ? src[k] : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (k0 + e * kRelThreads < n) dst[k0 + e * kRelThreads] = v[e];
+    }
+    __syncthreads();
+  }
+  const size_t row_stride = (size_t)kPH * ntx * kSlice;  // values of one (tensor, b, y)
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int t = 0; t < 2; ++t) {
+    // the 17 slices in shared memory, one (i, pixel) a thread at a time
+    for (int k = threadIdx.x; k < kPH * kTX; k += kRelThreads) {
+      const int i = k / kTX, q = k % kTX;
+      const bool in = x0 + q < W;
+      bf16* o = stage + i * kSlice + gpos(q, 0);
+      if (t == 0) {
+        const bf16* s = tile + (q + kHalo) * kPatch + kPW * i;
+#pragma unroll
+        for (int j = 0; j < kPW; ++j) o[j] = in ? s[j] : zero;
+      } else {
+        // s[j * 288]: value 288 - 17i - j of pixel q + j
+        const bf16* s = tile + q * kPatch + (kPatch - 1) - kPW * i;
+#pragma unroll
+        for (int j = 0; j < kPW; ++j) {
+          const int xj = x0 + q + j - kHalo;
+          o[j] = in && xj >= 0 && xj < W ? s[j * (kPatch - 1)] : zero;
+        }
+      }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < kPH * (kSlice / 8); k += kRelThreads) {
+      const int i = k / (kSlice / 8), c8 = k % (kSlice / 8);
+      const int yy = t == 0 ? y : y + kHalo - i;  // the slice's output row
+      const int fr = t == 0 ? y + i - kHalo : y;  // the F row it multiplies
+      if (yy < 0 || yy >= H || fr < 0 || fr >= H) continue;  // never read
+      bf16* out = work + (((size_t)t * B + b) * H + yy) * row_stride +
+                  ((size_t)i * ntx + tx) * kSlice + 8 * c8;
+      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(stage + i * kSlice + 8 * c8);
+    }
+    __syncthreads();
   }
 }
 
+// A work item: tensor t (0: df1 from (G, f2), 1: df2 from (G2, f1)), image
+// b, output rows y0 .. y0+nr-1, channels c0 .. c0+127, columns x0 .. x0+63,
+// F rows r_lo .. r_hi-1.
+struct Item {
+  int t, b, y0, nr, c0, tx, x0, r_lo, r_hi;
+};
+
+__device__ __forceinline__ Item item_at(int k, int B, int H, int C, int ntx) {
+  const int ny = (H + kR - 1) / kR, ncg = (C + kCG - 1) / kCG;
+  Item it;
+  it.tx = k % ntx, k /= ntx;
+  const int yg = k % ny;
+  k /= ny;
+  it.c0 = (k % ncg) * kCG, k /= ncg;
+  it.b = k % B, it.t = k / B;
+  it.y0 = yg * kR, it.x0 = it.tx * kTX;
+  it.nr = min(kR, H - it.y0);
+  it.r_lo = max(0, it.y0 - kHalo);
+  it.r_hi = min(H, it.y0 + it.nr + kHalo);
+  return it;
+}
+
+constexpr int kConsumers = 8;                    // 4 slabs x 2 boxes
+constexpr int kThreads = 32 * (4 + kConsumers);  // + the producer warpgroup
+// registers a thread after setmaxnreg: the producer warpgroup's and the
+// consumers' (4 x 32 x 56 + 8 x 32 x 224 <= 65536)
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+
+// The band. Warpgroup 0 is the producer (its warp 0 issues the copies, and
+// the warpgroup hands its registers to the consumers with setmaxnreg);
+// warpgroups 1 and 2 are the 8 consumer warps.
 template <bool kTma>
-__global__ void __launch_bounds__(band::kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 corr2d_bwd_band_kernel(const __grid_constant__ CUtensorMap tm1,
-                       const __grid_constant__ CUtensorMap tm2,
-                       const __grid_constant__ CUtensorMap tmg,
-                       const __grid_constant__ CUtensorMap td1,
-                       const __grid_constant__ CUtensorMap td2, const bf16* __restrict__ f1,
-                       const bf16* __restrict__ f2, const bf16* __restrict__ g,
-                       bf16* __restrict__ df1, bf16* __restrict__ df2, int H, int W, int C) {
+                       const __grid_constant__ CUtensorMap tm2, const bf16* __restrict__ f1,
+                       const bf16* __restrict__ f2, const bf16* __restrict__ work,
+                       bf16* __restrict__ df1, bf16* __restrict__ df2, int B, int H, int W,
+                       int C) {
   using namespace band;
   extern __shared__ unsigned char smem_bwd[];
-  const int nb = (C + kCC - 1) / kCC;
-  const int c0 = (blockIdx.x % nb) * kCC;
-  const int x0 = (blockIdx.x / nb) * kTX;
-  const int y = blockIdx.y, b = blockIdx.z;
-  const size_t img = (size_t)b * H;
-  // row offsets: df1 reads f2's row y + i - 8 and df2 f1's and g's row
-  // y - i + 8; those of either inside [0, H) form one range (both hold i = 8)
-  const int i_lo = max(0, min(kHalo - y, y + kHalo + 1 - H));
-  const int i_hi = min(kPH, max(H + kHalo - y, y + kHalo + 1));
-  const int items = i_hi - i_lo;
+  const int ntx = (W + kTX - 1) / kTX;
+  const int items = 2 * B * ((C + kCG - 1) / kCG) * ((H + kR - 1) / kR) * ntx;
+  const size_t row_stride = (size_t)kPH * ntx * kSlice;
 
   unsigned char* ring = smem_bwd + ((1024 - (smem_u32(smem_bwd) & 1023)) & 1023);
-  unsigned char* obox = ring + (size_t)kStages * kStage;
-  uint64_t* full = reinterpret_cast<uint64_t*>(obox + kConsumers * kOutBox);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)kStages * kStage);
   uint64_t* empty = full + kStages;
 
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -242,158 +370,206 @@ corr2d_bwd_band_kernel(const __grid_constant__ CUtensorMap tm1,
   }
   __syncthreads();
 
-  if (warp == kConsumers) {
-    // ---- producer: stage j = row offset i = i_lo + j: F1w (row y-o), F2w
-    // (row y+o), and g's 32 values from 8 * floor(17i / 8) of rows y and y-o ----
-    for (int j = 0; j < items; ++j) {
-      const int s = j % kStages;
-      const int u = j / kStages;
-      if (u > 0) mbar_wait(&empty[s], (u - 1) & 1);  // the consumers have released it
-      const int i = i_lo + j;
-      const int r1 = y - i + kHalo, r2 = y + i - kHalo;
-      const bool in1 = r1 >= 0 && r1 < H, in2 = r2 >= 0 && r2 < H;
-      unsigned char* st = ring + (size_t)s * kStage;
-      bf16* g1 = reinterpret_cast<bf16*>(st + 2 * kWinBox);
-      bf16* g2 = g1 + kWin * kGC;
-      if (kTma) {
-        if (lane == 0) {
-          mbar_expect_tx(&full[s], in1 * (kWinBox + kGBox) + in2 * kWinBox + kGBox);
-          if (in1) tma_load(st, &tm1, c0, x0 - kHalo, r1, b, &full[s]);
-          if (in2) tma_load(st + kWinBox, &tm2, c0, x0 - kHalo, r2, b, &full[s]);
-          tma_load(g1, &tmg, i * kPW & ~7, x0 - kHalo, y, b, &full[s]);
-          if (in1) tma_load(g2, &tmg, i * kPW & ~7, x0 - kHalo, r1, b, &full[s]);
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= 32) return;
+    // ---- producer: stage j = F row r of the block's items in turn: F's
+    // window boxes of row r and the slices of the output rows it reaches ----
+    int j = 0;
+    for (int k = blockIdx.x; k < items; k += gridDim.x) {
+      const Item it = item_at(k, B, H, C, ntx);
+      const int nbox = min(kBoxes, (C - it.c0 + kCC - 1) / kCC);
+      const bf16* gw = work + ((size_t)it.t * B + it.b) * H * row_stride + (size_t)it.tx * kSlice;
+      for (int r = it.r_lo; r < it.r_hi; ++r, ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);  // released
+        unsigned char* st = ring + (size_t)s * kStage;
+        if (!kTma) {
+          const bf16* frow = (it.t == 0 ? f2 : f1) + ((size_t)it.b * H + r) * W * C;
+          for (int q = 0; q < nbox; ++q)
+            copy_box(st + q * kWinBox, frow, it.x0 - kHalo, kWin, W, C, it.c0 + q * kCC, lane);
+          __syncwarp();
         }
-      } else {
-        if (in1) copy_box(st, f1 + (img + r1) * W * C, x0 - kHalo, kWin, W, C, c0, lane);
-        if (in2) copy_box(st + kWinBox, f2 + (img + r2) * W * C, x0 - kHalo, kWin, W, C, c0, lane);
-        copy_gbox(g1, g + (img + y) * W * kGP, x0 - kHalo, W, i * kPW & ~7, lane);
-        if (in1) copy_gbox(g2, g + (img + r1) * W * kGP, x0 - kHalo, W, i * kPW & ~7, lane);
+        if (lane == 0) {
+          int rows = 0;  // output rows y0 + a that F's row r reaches
+          for (int a = 0; a < it.nr; ++a) rows += abs(r - it.y0 - a) <= kHalo;
+          mbar_expect_tx(&full[s], (kTma ? nbox * kWinBox : 0) + rows * kSliceBytes);
+          if (kTma)
+            for (int q = 0; q < nbox; ++q)
+              tma_load(st + q * kWinBox, it.t == 0 ? &tm2 : &tm1, it.c0 + q * kCC,
+                       it.x0 - kHalo, r, it.b, &full[s]);
+          for (int a = 0; a < it.nr; ++a) {
+            const int i = r - it.y0 - a + kHalo;
+            if (i >= 0 && i < kPH)
+              bulk_load(st + kBoxes * kWinBox + a * kSliceBytes,
+                        gw + (size_t)(it.y0 + a) * row_stride + (size_t)i * ntx * kSlice,
+                        kSliceBytes, &full[s]);
+          }
+        }
         __syncwarp();
-        if (lane == 0) mbar_arrive(&full[s]);
       }
     }
     return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 
   // ---- consumers ----
-  const int m = warp & 3;       // slab: output columns 16m .. 16m+15 of the tile
-  const int t = warp >> 2;      // 0: df1 (B from F2w), 1: df2 (B from F1w)
+  const int warp = (threadIdx.x >> 5) - 4;
+  const int m = warp & 3;   // slab: output columns 16m .. 16m+15 of the tile
+  const int h = warp >> 2;  // box h of the stage: the item's channels 64h .. 64h+63
   const int gid = lane >> 2, tig = lane & 3;
-  const bool live = x0 + 16 * m < W;  // the slab has columns inside the image
-  // ldmatrix.trans rows of this lane: window column 16m + 16ks + kr, channels
-  // 16np + cb .. +7 (matrices: k 0-7 / 8-15 x channels 0-7 / 8-15)
+  // B fragments: ldmatrix.trans rows window column 16m + 16ks + kr, channels
+  // 16np + cb .. +7 (matrices: k 0-7 / 8-15 x channels 0-7 / 8-15), in the
+  // box's swizzle; k-step ks adds 16 rows (2048 bytes)
   const int kr = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int cb = (lane >> 4) * 8;
-  float acc[kCC / 8][4];
+  uint32_t boff[kCC / 16];
 #pragma unroll
-  for (int n = 0; n < kCC / 8; ++n)
+  for (int np = 0; np < kCC / 16; ++np) boff[np] = h * kWinBox + swz(16 * m + kr, 16 * np + cb);
+  // A fragments of the slab's band A[r,k] = G[x0+16m+r, i, k-r] (zero unless
+  // 0 <= k-r <= 16), register q of k-step ks holding rows r = gid + 8(q&1),
+  // columns k = 16ks + 8(q>>1) + 2tig + {0, 1}: one 32-bit word of the
+  // slice at word gpos(16m+r, k-r) / 2 = abase + kRow8(q&1) + 8ks + 4(q>>1).
+  // With d = 2tig - gid in [-7, 6]: (ks, q) = (0, 1), (1, 2) lie outside the
+  // band (zero), (0, 2), (1, 1) inside it, and (0, 0), (0, 3) keep the halves
+  // with d >= 0 / d + 1 >= 0, (1, 0), (1, 3) those with d <= 0 / d <= -1.
+  const int abase = gpos(16 * m + gid, 2 * tig - gid) / 2;
+  const int d = 2 * tig - gid;
+  const uint32_t m0 = (d >= 0 ? 0xffffu : 0u) | (d + 1 >= 0 ? 0xffff0000u : 0u);
+  const uint32_t m16 = (d <= 0 ? 0xffffu : 0u) | (d <= -1 ? 0xffff0000u : 0u);
+  float acc[kR][kCC / 8][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int a = 0; a < kR; ++a)
+#pragma unroll
+    for (int n = 0; n < kCC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
 
-  for (int j = 0; j < items; ++j) {
-    const int s = j % kStages;
-    const int i = i_lo + j;
-    const int row = t == 0 ? y + i - kHalo : y - i + kHalo;  // the row of this warp's B
-    mbar_wait(&full[s], (j / kStages) & 1);
-    if (live && row >= 0 && row < H) {
-      // A fragments of the slab's two k-steps (k = 16m + kk, kk in [0, 32)),
-      // register q holding row gid + 8(q&1), columns 8(q>>1) + 2 tig + {0, 1},
-      // from the stage's g boxes (window column w is image column x0 - 8 + w,
-      // box value v is g's 8 * floor(17i / 8) + v, so offset i's value d sits
-      // at v = i % 8 + d; zero outside [0, W)):
-      //   df1: A1[r,k] = g[y,   x0 + r,     17i + k - r]
-      //   df2: A2[r,k] = g[y-o, x0 - 8 + k, 17i + 16 - (k - r)]
-      // both zero unless 0 <= k - r <= 16
-      const unsigned char* st = ring + (size_t)s * kStage;
-      const bf16* ga = reinterpret_cast<const bf16*>(st + 2 * kWinBox) + t * kWin * kGC +
-                       16 * m * kGC + (i & 7);
-      uint32_t afrag[2][4];
+  int j = 0;  // stages consumed
+  for (int k = blockIdx.x; k < items; k += gridDim.x) {
+    const Item it = item_at(k, B, H, C, ntx);
+    const int cw = it.c0 + kCC * h;  // this warp's first channel
+    // the slab has a column and the box a channel inside the image (channels
+    // of the box past C are zeros: the copies fill them)
+    const bool live = it.x0 + 16 * m < W && cw < C;
+    for (int r = it.r_lo; r < it.r_hi; ++r, ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      if (live) {
+        const unsigned char* st = ring + (size_t)s * kStage;
+        const uint32_t bx = smem_u32(st);
+        const uint32_t* sa = reinterpret_cast<const uint32_t*>(st + kBoxes * kWinBox) + abase;
+        bool on[kR];  // output row y0 + a is served by F's row r (uniform)
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
+        for (int a = 0; a < kR; ++a) on[a] = a < it.nr && abs(r - it.y0 - a) <= kHalo;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = gid + 8 * (q & 1);  // slab-local output column
-          bf16 v[2];
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t bfrag[kCC / 16][4], afrag[kR][4];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int kk = 16 * ks + 8 * (q >> 1) + 2 * tig + e;
-            const int dd = kk - r;
-            v[e] = __float2bfloat16(0.f);
-            if (dd >= 0 && dd < kPW)
-              v[e] = t == 0 ? ga[(r + kHalo) * kGC + dd] : ga[kk * kGC + kPW - 1 - dd];
+          for (int np = 0; np < kCC / 16; ++np)
+            ldmatrix_x4_trans(bfrag[np], bx + boff[np] + 2048 * ks);
+#pragma unroll
+          for (int a = 0; a < kR; ++a) {  // every row's slot: a row not served is not used
+            const uint32_t* w = sa + a * (kSliceBytes / 4);
+            if (ks == 0) {
+              afrag[a][0] = w[0] & m0;
+              afrag[a][1] = 0u;
+              afrag[a][2] = w[4];
+              afrag[a][3] = w[kRow8 + 4] & m0;
+            } else {
+              afrag[a][0] = w[8] & m16;
+              afrag[a][1] = w[kRow8 + 8];
+              afrag[a][2] = 0u;
+              afrag[a][3] = w[kRow8 + 12] & m16;
+            }
           }
-          const __nv_bfloat162 p = __halves2bfloat162(v[0], v[1]);
-          afrag[ks][q] = *reinterpret_cast<const uint32_t*>(&p);
+#pragma unroll
+          for (int a = 0; a < kR; ++a) {
+            if (!on[a]) continue;
+#pragma unroll
+            for (int np = 0; np < kCC / 16; ++np) {
+              mma_bf16(acc[a][2 * np], afrag[a], bfrag[np][0], bfrag[np][1]);
+              mma_bf16(acc[a][2 * np + 1], afrag[a], bfrag[np][2], bfrag[np][3]);
+            }
+          }
         }
-      const uint32_t bx = smem_u32(st + (t == 0 ? kWinBox : 0));
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done reading stage s
+    }
+    if (!live) continue;  // nothing accumulated
+    // the item is complete: accumulator (row, column) of n-tile n of row a is
+    // output (y0 + a, x0 + 16m + row, cw + 8n + column); a pixel's 64
+    // channels go out in 8 consecutive stores
+    bf16* out = (it.t == 0 ? df1 : df2) + ((size_t)it.b * H + it.y0) * W * C;
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
+    for (int a = 0; a < kR; ++a)
 #pragma unroll
-        for (int np = 0; np < kCC / 16; ++np) {
-          uint32_t bfrag[4];
-          ldmatrix_x4_trans(bfrag, bx + swz(16 * m + 16 * ks + kr, 16 * np + cb));
-          mma_bf16(acc[2 * np], afrag[ks], bfrag[0], bfrag[1]);
-          mma_bf16(acc[2 * np + 1], afrag[ks], bfrag[2], bfrag[3]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int x = it.x0 + 16 * m + gid + 8 * hh;
+#pragma unroll
+        for (int n = 0; n < kCC / 8; ++n) {
+          const int c = cw + 8 * n + 2 * tig;
+          if (a < it.nr && x < W && c < C) {
+            bf16* o = out + ((size_t)a * W + x) * C + c;
+            if (kTma) {  // C % 8 == 0 and 16-byte aligned outputs
+              *reinterpret_cast<__nv_bfloat162*>(o) =
+                  __floats2bfloat162_rn(acc[a][n][2 * hh], acc[a][n][2 * hh + 1]);
+            } else {
+              o[0] = __float2bfloat16(acc[a][n][2 * hh]);
+              if (c + 1 < C) o[1] = __float2bfloat16(acc[a][n][2 * hh + 1]);
+            }
+          }
+          acc[a][n][2 * hh] = acc[a][n][2 * hh + 1] = 0.f;
         }
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done reading stage s
-  }
-  if (!live) return;  // the whole slab lies past the image
-
-  // the slab is complete: accumulator (row, column) of n-tile n is output
-  // column x0 + 16m + row, channel c0 + 8n + column
-  if (kTma) {
-    unsigned char* ob = obox + warp * kOutBox;
-#pragma unroll
-    for (int n = 0; n < kCC / 8; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<__nv_bfloat162*>(ob + swz(gid + 8 * h, 8 * n + 2 * tig)) =
-            __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
-    fence_async_shared();
-    __syncwarp();
-    if (lane == 0) {
-      tma_store(t == 0 ? &td1 : &td2, ob, c0, x0 + 16 * m, y, b);
-      bulk_commit();
-      bulk_wait<0>();  // the store is done before the block ends
-    }
-  } else {
-    bf16* out = (t == 0 ? df1 : df2) + (img + y) * W * C;
-#pragma unroll
-    for (int n = 0; n < kCC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = x0 + 16 * m + gid + 8 * (e >> 1);
-        const int c = c0 + 8 * n + 2 * tig + (e & 1);
-        if (x < W && c < C) out[(size_t)x * C + c] = __float2bfloat16(acc[n][e]);
       }
   }
 }
 
-int launch_bf16(const void* f1, const void* f2, const void* g, void* df1, void* df2, int B, int H,
-                int W, int C, bool vec, cudaStream_t stream) {
-  // vec (C a multiple of 8, 16-byte aligned tensors) is what a tensor map
-  // takes; g, with 296 values a pixel (592 bytes), takes one whenever it is
-  // 16-byte aligned, which the wrapper's allocation is
-  CUtensorMap tm1{}, tm2{}, tmg{}, td1{}, td2{};
+
+// SMs of the current device
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+int launch_bf16(const void* f1, const void* f2, const void* g, void* df1, void* df2, void* work,
+                int B, int H, int W, int C, bool vec, cudaStream_t stream) {
+  if (work == nullptr || reinterpret_cast<uintptr_t>(work) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // (1) the relayout of g into G's and G2's slices
+  const bool fast = W % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  cudaError_t err = cudaFuncSetAttribute(corr2d_bwd_relayout_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kRelSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntx = (W + kTX - 1) / kTX;
+  corr2d_bwd_relayout_kernel<<<dim3(ntx, H, B), kRelThreads, kRelSmem, stream>>>(
+      static_cast<const bf16*>(g), static_cast<bf16*>(work), B, H, W, (int)fast);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // (2) the band: vec (C a multiple of 8, 16-byte aligned f1, f2, df1, df2)
+  // is what a tensor map and the paired stores take
+  CUtensorMap tm1{}, tm2{};
   if (vec) {
-    cudaError_t err = band::tensor_map(&tm1, f1, B, H, W, C, band::kWin);
+    err = band::tensor_map(&tm1, f1, B, H, W, C, band::kWin);
     if (err == cudaSuccess) err = band::tensor_map(&tm2, f2, B, H, W, C, band::kWin);
-    if (err == cudaSuccess)
-      err = band::tensor_map(&tmg, g, B, H, W, kGP, band::kWin, kGC, CU_TENSOR_MAP_SWIZZLE_NONE);
-    if (err == cudaSuccess) err = band::tensor_map(&td1, df1, B, H, W, C, kSlab);
-    if (err == cudaSuccess) err = band::tensor_map(&td2, df2, B, H, W, C, kSlab);
     if (err != cudaSuccess) return (int)err;
   }
   auto kernel = vec ? corr2d_bwd_band_kernel<true> : corr2d_bwd_band_kernel<false>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(((W + band::kTX - 1) / band::kTX) * ((C + kCC - 1) / kCC), H, B);
-  kernel<<<grid, band::kThreads, kSmem, stream>>>(
-      tm1, tm2, tmg, td1, td2, static_cast<const bf16*>(f1), static_cast<const bf16*>(f2),
-      static_cast<const bf16*>(g), static_cast<bf16*>(df1), static_cast<bf16*>(df2), H, W, C);
+  const long long items =
+      2LL * B * ((C + kCG - 1) / kCG) * ((H + kR - 1) / kR) * ntx;
+  const int sms = sm_count();
+  if (items > 0x7fffffffLL || sms <= 0) return (int)cudaErrorInvalidValue;
+  const int grid = items < sms ? (int)items : sms;
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      tm1, tm2, static_cast<const bf16*>(f1), static_cast<const bf16*>(f2),
+      static_cast<const bf16*>(work), static_cast<bf16*>(df1), static_cast<bf16*>(df2), B, H, W, C);
   return (int)cudaGetLastError();
 }
 
@@ -426,25 +602,31 @@ void corr2d_forward_plan(int C, int* out) {
 }
 
 // The gradients of corr2d_forward (no normalize): f1, f2, df1, df2 contiguous
-// (B,H,W,C), one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); any
-// alignment of the element type. g, the output gradient, contiguous: fp32
-// (B,H,W,289); bf16 (B,H,W,296) and 16-byte aligned, its values 289 .. 295 a
-// pixel never read (the padding gives it a tensor map's stride). vec: C a multiple of 16 /
-// sizeof(dtype) and f1, f2, df1, df2 16-byte aligned (bf16: tensor-map copies
-// in and out; fp32: 16-byte loads and stores); with vec = 0 the same kernels
-// stage and store element by element. Writes every element of df1 and df2.
-// Launches on `stream` without synchronising; returns the launch's CUDA error
-// code (0 on success).
-int corr2d_backward(const void* f1, const void* f2, const void* g, void* df1, void* df2, int B,
-                    int H, int W, int C, int is_bf16, int vec, void* stream) {
+// (B,H,W,C), one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); g, the
+// output gradient, contiguous (B,H,W,289) of the same dtype; any alignment of
+// the element type. work: bf16, corr2d_backward_workspace(...) bytes,
+// 16-byte aligned, for g's relayout (fp32 takes none: nullptr). vec: C a
+// multiple of 16 / sizeof(dtype) and f1, f2, df1, df2 16-byte aligned (bf16:
+// tensor-map copies in and paired stores out; fp32: 16-byte loads and
+// stores); with vec = 0 the same kernels stage and store element by element.
+// Writes every element of df1 and df2. Launches on `stream` without
+// synchronising; returns the launch's CUDA error code (0 on success).
+int corr2d_backward(const void* f1, const void* f2, const void* g, void* df1, void* df2,
+                    void* work, int B, int H, int W, int C, int is_bf16, int vec, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || H > 65535 || B > 65535 ||
       ((long long)W + band::kTX - 1) / band::kTX * ((C + band::kCC - 1) / band::kCC) >
           0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd::launch_bf16(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s)
+  return is_bf16 ? bwd::launch_bf16(f1, f2, g, df1, df2, work, B, H, W, C, vec != 0, s)
                  : corr::launch_bwd_fp32<kPH>(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s);
+}
+
+// The bytes of corr2d_backward's workspace at this shape and dtype.
+size_t corr2d_backward_workspace(int B, int H, int W, int C, int is_bf16) {
+  (void)C;
+  return is_bf16 && B > 0 && H > 0 && W > 0 ? bwd::work_values(B, H, W) * 2 : 0;
 }
 
 }  // extern "C"

@@ -23,9 +23,11 @@ channel count.
 * ``correlation2d_cuda`` -- the hand-written Hopper kernel for the 2-D
   (17, 17) patch (``csrc/corr2d.cu``), counterpart of ``correlation2d_pallas``.
 * ``correlation2d_backward_cuda`` -- the hand-written Hopper kernel for
-  corr2d's gradients (``corr2d_backward`` in ``csrc/corr2d.cu``: bf16 as 17
-  row offsets of corr1d's transposed band on the tensor cores, fp32 on the
-  CUDA cores), which ``correlation2d_cuda``'s backward launches.
+  corr2d's gradients (``corr2d_backward`` in ``csrc/corr2d.cu``: bf16 as a
+  relayout of g into per-offset slices, then a persistent band over 4 output
+  rows and 128 channels an item on the tensor cores, df2 as df1 of the
+  mirrored g; fp32 on the CUDA cores), which ``correlation2d_cuda``'s
+  backward launches.
 
   Both kernels run bf16 inputs on the tensor cores (the band tile of
   ``csrc/corr_band.cuh``) and fp32 inputs on the CUDA cores (the row tile of
@@ -165,12 +167,21 @@ def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
     return out
 
 
-def _launch_backward(name: str, f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
-                     g_pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+def backward_workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool) -> int:
+    """The bytes of scratch ``corr2d_backward`` takes at this shape: the bf16
+    path's relayout of g (``csrc/corr2d.cu``), none for fp32."""
+    fn = _kernels.load("corr2d").corr2d_backward_workspace
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_size_t
+    return int(fn(b, h, w, c, int(bf16)))
+
+
+def _launch_backward(name: str, f1: torch.Tensor, f2: torch.Tensor,
+                     g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check the inputs, then run ``<name>_backward`` of ``csrc/<name>.cu``
-    on the current stream: (df1, df2) for the output gradient ``g``, passed
-    with ``g_pad`` values of padding a pixel. Everything is checked before
-    the kernel is built."""
+    on the current stream: (df1, df2) for the output gradient ``g``; corr2d
+    gets its workspace (``backward_workspace_bytes``) allocated here.
+    Everything is checked before the kernel is built."""
     what = f"{name} backward"
     _check_pair(what, f1, f2)
     b, h, w, c = f1.shape
@@ -180,19 +191,24 @@ def _launch_backward(name: str, f1: torch.Tensor, f2: torch.Tensor, g: torch.Ten
                          f"{f1.dtype} on {f1.device}, got {tuple(g.shape)} {g.dtype} on {g.device}")
     if min(b, h, w, c) == 0 or max(b, h) > 65535 or max(f1.numel(), g.numel()) >= 2**31:
         raise ValueError(f"{what}: unsupported shape {tuple(f1.shape)}")
-    g = F.pad(g, (0, g_pad)) if g_pad else g.contiguous()
+    g = g.contiguous()
     fn = getattr(_kernels.load(name), f"{name}_backward")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    extra = ()
+    if name == "corr2d":
+        nbytes = backward_workspace_bytes(b, h, w, c, f1.dtype == torch.bfloat16)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=f1.device)
+        extra = (work.data_ptr() if nbytes else None,)
+    fn.argtypes = [ctypes.c_void_p] * (5 + len(extra)) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
-    # as in _launch, and for the outputs too: bf16 copies them in and out
-    # through tensor maps, fp32 with 16-byte loads and stores
+    # as in _launch, and for the outputs too: bf16 copies the inputs in
+    # through tensor maps and stores pairs, fp32 uses 16-byte loads and stores
     vec = (c % (16 // f1.element_size()) == 0
            and all(t.data_ptr() % 16 == 0 for t in (f1, f2, df1, df2)))
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), df1.data_ptr(), df2.data_ptr(),
-                 b, h, w, c, int(f1.dtype == torch.bfloat16), int(vec), stream)
+                 *extra, b, h, w, c, int(f1.dtype == torch.bfloat16), int(vec), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
     return df1, df2
@@ -213,10 +229,10 @@ def correlation2d_backward_cuda(f1: torch.Tensor, f2: torch.Tensor,
                                 g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(df1, df2) of the 2-D (17, 17) correlation (no normalize) on the card
     with the ``corr2d_backward`` kernel of ``csrc/corr2d.cu``; ``g`` is the
-    output gradient (B,H,W,289). A bf16 ``g`` is padded to 296 values a pixel
-    first, the stride at which the kernel's copy engine takes it.
+    output gradient (B,H,W,289), taken as it is: in bf16 the kernel's own
+    relayout pass rewrites it into the workspace first.
     ``correlation2d_backward_cuda.launches`` counts the kernel's launches."""
-    out = _launch_backward("corr2d", f1, f2, g, g_pad=7 if f1.dtype == torch.bfloat16 else 0)
+    out = _launch_backward("corr2d", f1, f2, g)
     correlation2d_backward_cuda.launches += 1
     return out
 

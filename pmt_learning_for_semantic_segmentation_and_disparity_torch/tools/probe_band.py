@@ -85,20 +85,30 @@ construction. ``flushed`` writes the 256 MB (the L2 is left holding dirty
 lines of the flush), ``read-flushed`` reads them (a clean L2 of other data).
 
 ``--backward corr2d`` probes corr2d's bf16 backward (``corr2d_backward``,
-17 row offsets of the transposed band, ``csrc/corr2d.cu``) the same way, at
-the same two shapes with g of 289 channels:
+``csrc/corr2d.cu``: g's relayout into slices, then the persistent band over
+4 output rows and 128 channels an item) the same way, at the same two
+shapes with g of 289 channels and each variant's own workspace:
 
-* ``kernel``       -- the sources as they are (a 3-stage ring);
-* ``stages-2``, ``stages-4`` -- a ring of 2 or 4 stages (4: one block an SM);
+* ``kernel``       -- the sources as they are (a 7-stage ring);
+* ``stages-3`` .. ``stages-6`` -- a ring of 3 to 6 stages;
+* ``rows-2``, ``rows-3`` -- items of 2 or 3 output rows instead of 4 (each F
+  window copied (R + 16) / R times);
+* ``producer-warp`` -- one producer warp (9 warps) instead of a producer
+  warpgroup that gives its registers to the consumers (``setmaxnreg``);
 * ``no-g-reads``   -- the A fragments are built from a constant instead of
-  the stage's g boxes (the band mask stays);
-* ``no-g-copies``  -- g's boxes are not copied into the stages;
+  the stage's slices (the band mask stays);
+* ``no-relayout``  -- the relayout is not launched (the band reads a stale
+  workspace): the band's time alone;
+* ``no-band``      -- the band is not launched: the relayout's time alone;
+* ``no-g-copies``  -- no slice is copied into the stages;
 * ``no-loads``     -- nothing is copied (the ring's hand-offs remain);
 * ``no-products``  -- no ``ldmatrix`` and no tensor-core product (the A
-  fragments are still built);
-* ``no-stores``    -- no slab is stored.
+  fragments are still loaded);
+* ``no-compute``   -- the warps only wait for and release each stage, and
+  store;
+* ``no-stores``    -- no output is stored.
 
-The first three compute the same gradients; the rest are wrong by
+The first eight compute the same gradients; the rest are wrong by
 construction.
 
 Prints the card's name and power limit, the nvcc release and one JSON
@@ -109,6 +119,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -266,37 +277,77 @@ BWD_VARIANTS = {
 }
 BWD_SHAPES = {"train": (8, 32, 64, 352), "serve": (16, 64, 120, 352)}
 # corr2d's backward: variant -> (file, text, replacement) edits
-BWD2_EXPECT = "mbar_expect_tx(&full[s], in1 * (kWinBox + kGBox) + in2 * kWinBox + kGBox);"
-BWD2_F_LOADS = ("          if (in1) tma_load(st, &tm1, c0, x0 - kHalo, r1, b, &full[s]);\n"
-                "          if (in2) tma_load(st + kWinBox, &tm2, c0, x0 - kHalo, r2, b, &full[s]);\n")
-BWD2_G_LOADS = ("          tma_load(g1, &tmg, i * kPW & ~7, x0 - kHalo, y, b, &full[s]);\n"
-                "          if (in1) tma_load(g2, &tmg, i * kPW & ~7, x0 - kHalo, r1, b, &full[s]);\n")
-BWD2_A = "v[e] = t == 0 ? ga[(r + kHalo) * kGC + dd] : ga[kk * kGC + kPW - 1 - dd];"
-BWD2_PRODUCTS = "      const uint32_t bx = smem_u32(st + (t == 0 ? kWinBox : 0));"
-BWD2_STAGES = "constexpr int kStages = 3;"
-BWD2_STORE = "tma_store(t == 0 ? &td1 : &td2, ob, c0, x0 + 16 * m, y, b);"
+BWD2_EXPECT = "mbar_expect_tx(&full[s], (kTma ? nbox * kWinBox : 0) + rows * kSliceBytes);"
+BWD2_BOX_LOADS = "          if (kTma)\n            for (int q = 0; q < nbox; ++q)\n              tma_load("
+BWD2_SLICE_LOADS = "            if (i >= 0 && i < kPH)\n              bulk_load("
+BWD2_A = ("              afrag[a][0] = w[0] & m0;\n              afrag[a][1] = 0u;\n"
+          "              afrag[a][2] = w[4];\n              afrag[a][3] = w[kRow8 + 4] & m0;\n"
+          "            } else {\n              afrag[a][0] = w[8] & m16;\n"
+          "              afrag[a][1] = w[kRow8 + 8];\n              afrag[a][2] = 0u;\n"
+          "              afrag[a][3] = w[kRow8 + 12] & m16;\n")
+BWD2_LDMATRIX = "ldmatrix_x4_trans(bfrag[np], bx + boff[np] + 2048 * ks);"
+BWD2_MMA = "            if (!on[a]) continue;"
+BWD2_STAGES = "constexpr int kStages = 7;"
+BWD2_ROWS = "constexpr int kR = 4;"
+BWD2_STORE = "if (a < it.nr && x < W && c < C) {"
+BWD2_RELAYOUT = "  corr2d_bwd_relayout_kernel<<<"
+BWD2_BAND = "  kernel<<<grid, kThreads, kSmem, stream>>>("
+BWD2_COMPUTE = "      if (live) {\n        const unsigned char* st = ring"
 BWD2_VARIANTS = {
     "kernel": (),
-    **{f"stages-{n}": (("corr2d.cu", BWD2_STAGES, f"constexpr int kStages = {n};"),) for n in (2, 4)},
-    "no-g-reads": (("corr2d.cu", BWD2_A, "v[e] = __float2bfloat16(0.5f);"),),
-    "no-g-copies": (("corr2d.cu", BWD2_G_LOADS, ""),
-                    ("corr2d.cu", BWD2_EXPECT, "mbar_expect_tx(&full[s], (in1 + in2) * kWinBox);")),
-    "no-loads": (("corr2d.cu", BWD2_G_LOADS, ""), ("corr2d.cu", BWD2_F_LOADS, ""),
+    **{f"stages-{n}": (("corr2d.cu", BWD2_STAGES, f"constexpr int kStages = {n};"),)
+       for n in (3, 4, 5, 6)},
+    **{f"rows-{n}": (("corr2d.cu", BWD2_ROWS, f"constexpr int kR = {n};"),) for n in (2, 3)},
+    # the workspace is left as it is: wrong by construction, the band's time alone
+    # a producer warp instead of a warpgroup, no setmaxnreg: 9 warps
+    "producer-warp": (
+        ("corr2d.cu", "constexpr int kThreads = 32 * (4 + kConsumers);",
+         "constexpr int kThreads = 32 * (1 + kConsumers);"),
+        ("corr2d.cu", '  if (threadIdx.x < 128) {\n    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" '
+                      '::"n"(kProducerRegs));\n    if (threadIdx.x >= 32) return;\n',
+         "  if (threadIdx.x < 32) {\n"),
+        ("corr2d.cu", '  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n', ""),
+        ("corr2d.cu", "  const int warp = (threadIdx.x >> 5) - 4;", "  const int warp = (threadIdx.x >> 5) - 1;")),
+    "no-relayout": (("corr2d.cu", BWD2_RELAYOUT, "  if (false) corr2d_bwd_relayout_kernel<<<"),),
+    "no-band": (("corr2d.cu", BWD2_BAND, "  if (false) " + BWD2_BAND.lstrip()),),
+    # the consumers wait and release each stage and store, nothing else
+    "no-compute": (("corr2d.cu", BWD2_COMPUTE, BWD2_COMPUTE.replace("if (live)", "if (false)")),),
+    "no-g-reads": (("corr2d.cu", BWD2_A, re.sub(r"w\[[^]]+\]", "0x3f803f80u", BWD2_A)),),
+    "no-g-copies": (("corr2d.cu", BWD2_SLICE_LOADS, BWD2_SLICE_LOADS.replace("i >= 0", "false")),
+                    ("corr2d.cu", BWD2_EXPECT, "mbar_expect_tx(&full[s], kTma ? nbox * kWinBox : 0);")),
+    "no-loads": (("corr2d.cu", BWD2_SLICE_LOADS, BWD2_SLICE_LOADS.replace("i >= 0", "false")),
+                 ("corr2d.cu", BWD2_BOX_LOADS, BWD2_BOX_LOADS.replace("if (kTma)", "if (false)")),
                  ("corr2d.cu", BWD2_EXPECT, "mbar_arrive(&full[s]);")),
-    # the A fragments stay live: their sum feeds one accumulator
-    "no-products": (("corr2d.cu", BWD2_PRODUCTS,
-                     "      uint32_t z = 0;\n      for (int q = 0; q < 8; ++q) "
-                     "z ^= afrag[q / 4][q % 4];\n      acc[0][0] += __uint_as_float(z);\n"
-                     "      if (false) {\n" + BWD2_PRODUCTS),
-                    ("corr2d.cu", "          mma_bf16(acc[2 * np + 1], afrag[ks], bfrag[2], bfrag[3]);\n"
-                                  "        }\n",
-                     "          mma_bf16(acc[2 * np + 1], afrag[ks], bfrag[2], bfrag[3]);\n"
-                     "        }\n      }\n")),
-    "no-stores": (("corr2d.cu", BWD2_STORE, "if (acc[0][0] == 1.5e-38f) " + BWD2_STORE),),
+    # the A fragments stay live: a test on them that never holds guards the products
+    "no-products": (("corr2d.cu", BWD2_LDMATRIX, "if (false) " + BWD2_LDMATRIX),
+                    ("corr2d.cu", BWD2_MMA, BWD2_MMA.replace(
+                        "!on[a]", "!on[a] || afrag[a][0] != 0x7fc17fc1u"))),
+    "no-stores": (("corr2d.cu", BWD2_STORE, BWD2_STORE[:-3] + " && acc[a][n][2 * hh] == 1.5e-38f) {"),),
 }
-# kernel -> (variants, g's values a pixel as the C function takes them: corr2d's
-# bf16 g comes padded to 296, as its wrapper pads it)
-BWD_KERNELS = {"corr1d": (BWD_VARIANTS, 17), "corr2d": (BWD2_VARIANTS, 296)}
+# kernel -> (variants, g's values a pixel, whether the C function takes a
+# workspace after df2)
+BWD_KERNELS = {"corr1d": (BWD_VARIANTS, 17, False), "corr2d": (BWD2_VARIANTS, 289, True)}
+
+
+def apply_edits(name: str, edits, read) -> dict:
+    """The sources of variant ``name`` after its (file, text, replacement)
+    edits in turn, file -> text; ``read(file)`` gives today's source. Raises
+    when a text is no longer there."""
+    files = {}
+    for fname, text, repl in edits:
+        body = files.get(fname, None) or read(fname)
+        if text not in body:
+            raise RuntimeError(f"variant {name}: {fname} no longer has {text!r}")
+        files[fname] = body.replace(text, repl)
+    return files
+
+
+def all_variants() -> dict:
+    """Every probe variant, forward and backward: "table variant" -> edits."""
+    out = {f"forward {n}": edits for n, (_, edits) in VARIANTS.items()}
+    for kernel, (variants, _, _) in BWD_KERNELS.items():
+        out.update({f"{kernel}-backward {n}": edits for n, edits in variants.items()})
+    return out
 
 
 def build_variants(variants: dict, prefix: str = "") -> dict:
@@ -308,12 +359,8 @@ def build_variants(variants: dict, prefix: str = "") -> dict:
     for name, (kernels, edits) in variants.items():
         src = root / (prefix + name)
         shutil.copytree(_kernels.CSRC, src)
-        for fname, text, repl in edits:
-            path = src / fname
-            body = path.read_text()
-            if text not in body:
-                raise RuntimeError(f"variant {name}: {fname} no longer has {text!r}")
-            path.write_text(body.replace(text, repl))
+        for fname, body in apply_edits(name, edits, lambda f: (src / f).read_text()).items():
+            (src / fname).write_text(body)
         for k in kernels:
             lib = src / f"lib{k}.so"
             cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(lib), str(src / _kernels.SOURCES[k])]
@@ -372,7 +419,7 @@ def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
     """Time the bf16 backward of ``kernel`` (corr1d, corr2d) and its variants
     at the training and serving shapes, warm and with the L2 flushed;
     returns the report."""
-    variants, g_values = BWD_KERNELS[kernel]
+    variants, g_values, takes_work = BWD_KERNELS[kernel]
     libs = build_variants({name: ((kernel,), edits) for name, edits in variants.items()},
                           prefix="bwd-")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -383,16 +430,23 @@ def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
         b, h, w, c = shape
         f1, f2 = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(2))
         grad = torch.randn((b, h, w, g_values), device="cuda", generator=g).bfloat16()
-        outs = {}
+        outs, works = {}, {}
         for _ in range(2):
             for (name, _), (lib, _) in libs.items():
                 fn = getattr(lib, f"{kernel}_backward")
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                fn.argtypes = ([ctypes.c_void_p] * (6 if takes_work else 5) + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p])
                 df = outs.setdefault(name, (torch.zeros_like(f1), torch.zeros_like(f2)))
+                work = ()
+                if takes_work:  # each variant's own workspace, as its wrapper allocates it
+                    size = getattr(lib, f"{kernel}_backward_workspace")
+                    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+                    work = (works.setdefault(name, torch.empty(size(b, h, w, c, 1), dtype=torch.uint8,
+                                                               device="cuda")).data_ptr(),)
 
                 def call():
                     err = fn(f1.data_ptr(), f2.data_ptr(), grad.data_ptr(), df[0].data_ptr(),
-                             df[1].data_ptr(), b, h, w, c, 1, 1, stream)
+                             df[1].data_ptr(), *work, b, h, w, c, 1, 1, stream)
                     if err != 0:
                         raise RuntimeError(f"{name}: cudaError {err}")
 
@@ -404,7 +458,7 @@ def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
         for name, df in outs.items():
             diff[f"{tag} {name}"] = max((a.float() - r.float()).abs().max().item()
                                         for a, r in zip(df, outs["kernel"]))
-        del f1, f2, grad, outs
+        del f1, f2, grad, outs, works
     hmma = {name: sass(path).count("HMMA") for (name, _), (_, path) in libs.items()}
     for key, ts in times.items():
         tag, _, name = key.split(" ", 2)

@@ -209,36 +209,114 @@ def test_corr1d_backward_band_decomposition(w, c):
 
 
 PH = 17
+# corr2d's bf16 backward (csrc/corr2d.cu): items of ROWS output rows x CG
+# channels (two 64-channel boxes) x one 64-column tile; a G slice holds the
+# 17 values j of the tile's 64 pixels, pixel q's value j at gpos(q, j)
+ROWS, CG, BOX = 4, 128, 64
+SLICE = TILE * PW
+ROW8 = (8 * PW - 8) // 2  # slice words between A rows r and r + 8
 
 
-def _shift_rows(t, o):
-    """out[:, y] = t[:, y + o], zero where y + o lies outside the map."""
-    h = t.shape[1]
-    out = torch.zeros_like(t)
-    if abs(o) < h:
-        out[:, max(0, -o):h - max(0, o)] = t[:, max(0, o):h - max(0, -o)]
-    return out
+def _gpos(q, j):
+    return PW * q + j
+
+
+def _relayout(g):
+    """The relayout kernel's workspace, (tensor, b, y, i, tile, SLICE): G's
+    slices (tensor 0) and the mirrored G2's (tensor 1), only those whose F
+    row lies in the image (the rest stay NaN: the band never reads them),
+    zero past W and outside the image."""
+    b, h, w, _ = g.shape
+    nt = -(-w // TILE)
+    work = torch.full((2, b, h, PH, nt, SLICE), float("nan"), dtype=g.dtype)
+    pos = torch.arange(SLICE)
+    q, j = pos // PW, pos % PW
+    for tx in range(nt):
+        x = tx * TILE + q
+        for y in range(h):
+            for i in range(PH):
+                if 0 <= y + i - HALO < h:  # G[y, x, i, j] = g[y, x, 17i + j]
+                    ok = x < w
+                    v = g[:, y, x.clamp(max=w - 1), (PW * i + j)]
+                    work[0, :, y, i, tx] = torch.where(ok, v, torch.zeros_like(v))
+                y2 = y + HALO - i  # G2[y2, x, i, j] = g[y, x + j - 8, 288 - 17i - j]
+                if 0 <= y2 < h:
+                    xj = x + j - HALO
+                    ok = (x < w) & (xj >= 0) & (xj < w)
+                    v = g[:, y, xj.clamp(0, w - 1), PH * PW - 1 - PW * i - j]
+                    work[1, :, y2, i, tx] = torch.where(ok, v, torch.zeros_like(v))
+    return work
+
+
+def _a_map():
+    """For each slab m, the slice position each A[r, k] reads (-1: zero), as
+    the band's lanes build their fragments: register q of k-step ks holds
+    rows gid + 8(q&1), columns 16ks + 8(q>>1) + 2tig + {0, 1}, one 32-bit
+    word at abase + ROW8(q&1) + 8ks + 4(q>>1), (0,1) and (1,2) zero, (0,2) and
+    (1,1) whole, the rest masked by d = 2tig - gid."""
+    amap = torch.full((TILE // SLAB, SLAB, 2 * SLAB), -1, dtype=torch.long)
+    for m in range(TILE // SLAB):
+        for lane in range(32):
+            gid, tig = lane // 4, lane % 4
+            abase = _gpos(16 * m + gid, 2 * tig - gid) // 2
+            d = 2 * tig - gid
+            keep = {(0, 0): (d >= 0, d + 1 >= 0), (0, 3): (d >= 0, d + 1 >= 0),
+                    (1, 0): (d <= 0, d <= -1), (1, 3): (d <= 0, d <= -1),
+                    (0, 2): (True, True), (1, 1): (True, True)}
+            for (ks, q), halves in keep.items():
+                word = abase + ROW8 * (q & 1) + 8 * ks + 4 * (q >> 1)
+                r, k = gid + 8 * (q & 1), 16 * ks + 8 * (q >> 1) + 2 * tig
+                for e in range(2):
+                    if halves[e]:
+                        amap[m, r, k + e] = 2 * word + e
+    return amap
 
 
 def _band2d_backward(f1, f2, g):
     """(df1, df2) of the 17x17 correlation as corr2d's bf16 backward kernel
-    (``csrc/corr2d.cu``) computes them, in plain PyTorch: for each output
-    row y, the row offsets i in the kernel's range [i_lo(y), i_hi(y)), each
-    one corr1d's transposed band (``_band_backward``) with g[..., 17i :
-    17i+17] as its g, df1 against f2's row y + i - 8 and df2 against f1's and
-    g's row y - i + 8."""
+    (``csrc/corr2d.cu``) computes them, in plain PyTorch: g's relayout into
+    G and G2 slices, then every work item (tensor t, b, channel group, row
+    group y0 .. y0+3, tile) walks F's rows r = y0-8 .. y0+11 inside the
+    image (F = f2, f1), each stage serving the item's rows y' with |r - y'|
+    <= 8 at offset i = r - y' + 8 from slice (y', i); warp (slab m, box h)
+    multiplies A, read from the slice through ``_a_map``, by the 32 window
+    columns 16m .. 16m+31 of F's row r (80 columns from x0 - 8, zero outside
+    the image and past C) for its 64 channels; stores keep x < W, c < C."""
     b, h, w, c = f1.shape
-    y = torch.arange(h)
-    i_lo = torch.minimum(HALO - y, y + HALO + 1 - h).clamp(min=0)
-    i_hi = torch.maximum(h + HALO - y, y + HALO + 1).clamp(max=PH)
-    df1, df2 = torch.zeros_like(f1), torch.zeros_like(f2)
-    for i in range(PH):
-        on = ((i_lo <= i) & (i < i_hi))[None, :, None, None]
-        gi = g[..., i * PW:(i + 1) * PW]
-        f1s, f2s = _shift_rows(f1, HALO - i), _shift_rows(f2, i - HALO)
-        df1 += on * _band_backward(f1s, f2s, gi)[0]
-        df2 += on * _band_backward(f1s, f2s, _shift_rows(gi, HALO - i))[1]
-    return df1, df2
+    nt = -(-w // TILE)
+    work = _relayout(g)
+    amap = _a_map()
+    zero_at = amap < 0
+    out = (torch.zeros_like(f1), torch.zeros_like(f2))
+    ncg = -(-c // CG)
+    pad = (0, ncg * CG - c, HALO, nt * TILE + HALO - w)  # channels, columns
+    fpad = {0: torch.nn.functional.pad(f2, pad), 1: torch.nn.functional.pad(f1, pad)}
+    for t in range(2):
+        for bb in range(b):
+            for cg in range(ncg):
+                for y0 in range(0, h, ROWS):
+                    nr = min(ROWS, h - y0)
+                    for tx in range(nt):
+                        x0 = tx * TILE
+                        # warp (m, box) is live where its slab has a column < W
+                        # and its box a channel < C
+                        live = ((x0 + 16 * torch.arange(TILE // SLAB) < w)[:, None, None]
+                                & (cg * CG + torch.arange(CG) // BOX * BOX < c)[None, None, :])
+                        acc = torch.zeros(ROWS, TILE // SLAB, SLAB, CG, dtype=f1.dtype)
+                        for r in range(max(0, y0 - HALO), min(h, y0 + nr + HALO)):
+                            win = fpad[t][bb, r, x0:x0 + TILE + 2 * HALO, cg * CG:(cg + 1) * CG]
+                            wins = torch.stack([win[16 * m:16 * m + 32] for m in range(TILE // SLAB)])
+                            for a in range(nr):
+                                i = r - y0 - a + HALO
+                                if not 0 <= i < PH:
+                                    continue
+                                sl = work[t, bb, y0 + a, i, tx]
+                                amat = torch.where(zero_at, torch.zeros(()), sl[amap.clamp(min=0)])
+                                acc[a] += torch.where(live, torch.bmm(amat, wins), torch.zeros(()))
+                        acc = acc.reshape(ROWS, TILE, CG)
+                        xs, cs = min(TILE, w - x0), min(CG, c - cg * CG)
+                        out[t][bb, y0:y0 + nr, x0:x0 + xs, cg * CG:cg * CG + cs] = acc[:nr, :xs, :cs]
+    return out
 
 
 @pytest.mark.parametrize("shape", [
@@ -250,14 +328,17 @@ def _band2d_backward(f1, f2, g):
     (1, 17, 18, 64),
     (1, 18, 65, 20),   # two column tiles
     (1, 20, 7, 20),
+    (1, 3, 70, 20),    # H = ROWS - 1; two tiles, W % 8 != 0
+    (1, 5, 9, 136),    # H = ROWS + 1; a second channel group of 8 channels
+    (1, 6, 12, 200),   # a second group whose second box holds 8 channels
 ])
 def test_corr2d_backward_band_decomposition(shape):
-    """The 2-D backward kernel's decomposition (the row-offset range of each
-    output row, the row shifts of f1, f2 and g, corr1d's band per offset)
-    against autograd through correlation_plain in float64 (1e-12 *
-    max|ref|), correlation2d_vjp_plain (fp32 sums, 1e-5) and, where both map
-    sides are at least the patch radius 8, jax.vjp of the JAX package's
-    correlation in fp32 (1e-5)."""
+    """The 2-D backward kernel's decomposition (g's relayout into slices,
+    the items' row groups, channel groups and tiles, each stage's rows and
+    offsets, the A fragments' words and masks) against autograd through
+    correlation_plain in float64 (1e-12 * max|ref|), correlation2d_vjp_plain
+    (fp32 sums, 1e-5) and, where both map sides are at least the patch
+    radius 8, jax.vjp of the JAX package's correlation in fp32 (1e-5)."""
     f1, f2 = _pair(12, shape)
     g = np.random.default_rng(13).standard_normal(shape[:3] + (PH * PW,), dtype=np.float32)
     got = _band2d_backward(*(torch.from_numpy(a).double() for a in (f1, f2, g)))
@@ -331,6 +412,14 @@ def test_corr2d_backward_wrapper_rejects_cpu_tensors(no_build):
     with pytest.raises(ValueError, match="CUDA"):
         tcorr.correlation2d_backward_cuda(f1, f2, g)
     assert tcorr.correlation2d_backward_cuda.launches == 0
+
+
+def test_probe_variants_edit_todays_sources():
+    # every variant of tools/probe_band.py is a text edit of csrc/: each text
+    # must still be there, or the probe stops on the card
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.tools import probe_band
+    for name, edits in probe_band.all_variants().items():
+        probe_band.apply_edits(name, edits, lambda f: (_kernels.CSRC / f).read_text())
 
 
 def test_every_kernel_has_a_source_and_a_patch():

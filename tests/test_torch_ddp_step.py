@@ -33,9 +33,10 @@ from torch_port import (  # noqa: F401
     ADAM_B1,
     flax_stats_to_port,
     flax_to_port,
+    join_ranks,
     numpy_batch,
     reduced_depth,
-    spawn_ranks,
+    start_ranks,
     torch_threads,
     variables_from_port,
     worst_relative,
@@ -123,10 +124,15 @@ def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ddp_step")
     batch = numpy_batch(0, SHAPE)
     np.savez(tmp / "batch.npz", **batch)
-    ranks = spawn_ranks(RANKS, tmp, task="step", batch=str(tmp / "batch.npz"))
-    with reduced_depth():
-        port = tmodels.get_network(step_config(), device="cpu", seed=0)
-        return {"ranks": ranks, "jax": _jax_mesh(port, batch), "one": _port_one_process(port, batch)}
+    # the ranks run while this process compiles and runs the JAX mesh steps
+    handle = start_ranks(RANKS, tmp, task="step", batch=str(tmp / "batch.npz"))
+    try:
+        with reduced_depth():
+            port = tmodels.get_network(step_config(), device="cpu", seed=0)
+            out = {"jax": _jax_mesh(port, batch), "one": _port_one_process(port, batch)}
+    finally:
+        ranks = join_ranks(handle)
+    return {"ranks": ranks, **out}
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -26,7 +26,9 @@
   against the JAX package's in float64 (two steps from the same variables
   and batch, the bench loss stack, Adam; see ``jax_float64_reference``).
 * ``spawn_ranks(world, out_dir, **spec)`` runs ``torch_ddp_worker.py`` as
-  the ranks of one gloo group on the CPU and returns what each computed.
+  the ranks of one gloo group on the CPU and returns what each computed;
+  ``start_ranks``/``join_ranks`` split it, so a caller can work while the
+  ranks run.
 """
 from __future__ import annotations
 
@@ -545,27 +547,45 @@ WORKER = Path(__file__).with_name("torch_ddp_worker.py")
 RANK_TIMEOUT_S = 300
 
 
-def spawn_ranks(world: int, out_dir, **spec) -> list:
-    """Run ``torch_ddp_worker.py`` as ``world`` ranks of one gloo group on a
-    free localhost port (the trunk at ``REDUCED_BLOCKS``), each told ``spec``;
-    returns each rank's saved results, rank 0 first. Fails with a rank's
-    output if one fails; kills every rank still running at the end."""
+def start_ranks(world: int, out_dir, **spec):
+    """Start ``torch_ddp_worker.py`` as ``world`` ranks of one gloo group on
+    a free localhost port (the trunk at ``REDUCED_BLOCKS``), each told
+    ``spec``, each rank's output to ``out_dir/rank<r>.log``; returns the
+    handle ``join_ranks`` takes. The caller may work meanwhile."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     root = str(WORKER.parents[1])
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), json.dumps(dict(spec, rank=r, world=world, port=port,
-                                                      out=str(out_dir), blocks=REDUCED_BLOCKS))],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(WORKER), json.dumps(dict(spec, rank=r, world=world, port=port,
+                                                              out=str(out_dir), blocks=REDUCED_BLOCKS))],
+                stdout=log, stderr=subprocess.STDOUT, text=True, env=env))
+    return procs, str(out_dir)
+
+
+def join_ranks(handle) -> list:
+    """Wait for the ranks ``start_ranks`` started; returns each rank's saved
+    results, rank 0 first. Fails with a rank's output if one fails; kills
+    every rank still running at the end."""
+    procs, out_dir = handle
     try:
-        outs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+        for p in procs:
+            p.wait(timeout=RANK_TIMEOUT_S)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    for r, p in enumerate(procs):
+        with open(os.path.join(out_dir, f"rank{r}.log")) as log:
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log.read()[-4000:]}"
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(len(procs))]
+
+
+def spawn_ranks(world: int, out_dir, **spec) -> list:
+    """``start_ranks`` then ``join_ranks``: each rank's saved results."""
+    return join_ranks(start_ranks(world, out_dir, **spec))
