@@ -157,7 +157,18 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    sharded eval: rank 0 alone prints and writes the checkpoint, a fresh
    one-card ``Session`` restores it bit-equal to rank 0's state, and the
    sharded eval's summary table equals the one-card eval CLI's from that
-   checkpoint within 1e-3 relative.
+   checkpoint within 1e-3 relative;
+14. the CLI's default precision, fp32 (no ``-f16``), with cuDNN's TF32 as
+   the program leaves it (printed): sdnet at full width and depth serves
+   16 pairs of 512x960 (a warm-up and 3 timed batches, corr2d's fp32 kernel
+   once a batch) and trains at 8x256x512 (2 warm-up and 8 timed steps,
+   corr2d's fp32 forward and backward once a step each): ms/batch, pairs/s,
+   ms/step, peak memory, finite outputs and losses; then ``cli.train.main``
+   without ``-f16`` trains sdnet one epoch of 2 steps on phase 8's files and
+   evaluates the 5 test pairs (corr2d once a step and once an eval forward,
+   its backward once a step, corr1d never). Phase 2 holds the fp32 kernels
+   at their own edges too (4-row blocks, passes, stages; the backward's
+   items, channel groups and relayout).
 
 Phase 8's eval CLI runs at ``-show_results 1`` (the flag's default): the
 summary is printed and both confusion heatmaps decode.
@@ -170,7 +181,9 @@ kernel, the second-to-last the card's name and power limit, and the last
 
 only serves one net (phase 4 or 5, with 10 batches) and prints its time,
 and ``python3 chip_smoke.py --train [sdnet]`` only trains (phase 6, or 7
-with ``sdnet``, 2 warm-up and 10 timed steps): copied into the root of
+with ``sdnet``, 2 warm-up and 10 timed steps); with ``--fp32`` either runs
+in fp32 with TF32 as the program leaves it (``--serve sdnet --fp32``), and
+``--fp32`` alone runs phase 14 only: copied into the root of
 another checkout, it times that checkout's code the same way, so two commits
 can be compared in turns in one call; ``python3 chip_smoke.py --backward
 [corr2d]`` does the same for a backward kernel (corr1d's by default: its
@@ -343,6 +356,15 @@ BACKWARD2_CASES = [
     ((1, 9, 24, 192), torch.bfloat16),      # C = 192: the second group's second box past C
     ((2, 6, 70, 64), torch.bfloat16),       # W % 8 != 0: g's rows by element loads
     ((1, 9, 64, 64), torch.bfloat16, 0, 1),  # g alone off 16-byte alignment
+    # the fp32 band's items (4 output rows, 128 channels) and its relayout
+    ((1, 3, 64, 64), torch.float32),        # H = 3: one item of 3 rows
+    ((1, 5, 70, 136), torch.float32),       # H = 5: items of 4 and 1 rows; a second group of 8
+                                            # channels; W % 8 != 0: g's rows by element loads
+    ((1, 9, 24, 200), torch.float32),       # C = 200: a second group of 72 channels
+    ((1, 1, 65, 40), torch.float32),        # H = 1; one column past the tile; C = 40
+    ((2, 6, 17, 37), torch.float32),        # C % 4 != 0: element staging and stores; W = 17
+    ((1, 17, 40, 36), torch.float32, 2),    # inputs off 16-byte alignment; H = 17
+    ((1, 9, 64, 64), torch.float32, 0, 1),  # g alone off 16-byte alignment
 ]
 # phase 2, the trunks' sites (phase 10's nets): corr1d correlates the
 # enriched tap 2 (the trunk's tap-2 channels + 96) at /8, and the dlab net
@@ -416,10 +438,11 @@ FLUSH_BYTES = 256 * 2**20
 
 # kernel -> (wrapper in ops/correlation.py, the TPU kernel it replaces, edge
 # shapes with their dtypes, and an element offset of both inputs' storage
-# where it is not 0); its patch is ops/correlation.py's KERNEL_PATCH. fp32
-# runs corr_tile.cuh's row tile, bf16 corr_band.cuh's tensor-core band tile
-# (64-column tiles, 64-channel boxes of 16-channel mma steps; corr2d two rows
-# a block).
+# where it is not 0); its patch is ops/correlation.py's KERNEL_PATCH. bf16
+# runs corr_band.cuh's tensor-core band tile (64-column tiles, 64-channel
+# boxes of 16-channel mma steps; corr2d two rows a block); fp32 corr1d
+# corr_tile.cuh's row tile, fp32 corr2d corr2d.cu's own FFMA kernel (4 rows a
+# block).
 KERNELS = {
     "corr1d": ("correlation1d_cuda", f"{TPU_CORR}:159", [
         *ASPP2_CASES,                        # aspp 2's site: W 60 and 32, C 256
@@ -458,6 +481,15 @@ KERNELS = {
         ((1, 20, 70, 360), torch.bfloat16),  # C = 360: a last box of 40 channels
         ((1, 6, 40, 1000), torch.bfloat16),  # f1 too large to stay resident
         ((1, 18, 70, 352), torch.bfloat16, 2),  # misaligned inputs: element staging
+        # the fp32 kernel's edges: 4-row blocks in 2 passes of 10 f2 rows,
+        # 8-channel stages of 16-byte copies, 64-column tiles
+        ((1, 3, 70, 352), torch.float32),    # H < 4: one block, rows cut by H
+        ((2, 6, 65, 40), torch.float32),     # H = 6: blocks of 4 and 2 rows; W = 65; C = 40: a
+                                             # last stage of 4 channels
+        ((1, 1, 17, 36), torch.float32),     # H = 1, W = 17
+        ((1, 21, 64, 8), torch.float32),     # 6 blocks, every f2 row of both passes; one stage
+        ((1, 9, 130, 37), torch.float32),    # C % 4 != 0: element staging; W = 130
+        ((1, 7, 40, 36), torch.float32, 1),  # inputs off 16-byte alignment: element staging
     ]),
 }
 
@@ -506,6 +538,16 @@ DDP_SCALE_CARDS = (1, 2, 4)  # --ddp: the bf16 step at TRAIN_BATCH pairs a card 
 DDP_SCALE_STEPS = 6          # timed, after DDP_WARMUP
 DDP_TRACE_STEPS = 2          # --ddp: steps traced (utils/profiling.py:trace) on each mesh's rank 0
 DDP_TIMEOUT_S = 900
+# phase 14: the CLI's default precision (no -f16): sdnet in fp32 at full width
+# and depth, serving BATCH pairs of HxW (a warm-up and FP32_SERVE_BATCHES - 1
+# timed batches) and training at TRAIN_BATCH pairs of 256x512 (TRAIN_WARMUP
+# and FP32_TRAIN_STEPS timed steps), with cuDNN's TF32 as the program leaves
+# it; then the CLI on phase 8's files, one epoch of 2 steps and its eval
+FP32_SERVE_BATCHES = 4
+FP32_TRAIN_STEPS = 8
+FP32_FILES = ("-net sdnet -backbone densenet -corrType 2dcorr -crop 256 512 -b 8 -e 1 "
+              "-loss cross_entropy lovasz_loss tversky_loss ohm_loss -output_activation linear "
+              "-datasetName roses -train 1 -show_results 0").split()
 
 
 class SmokeFailure(Exception):
@@ -663,7 +705,11 @@ def phase_kernel(name: str, sass: dict):
                 {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms, "ms_warm": warm_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": err,
                  "share_of_bound": bound_ms / ms})
-        elif dtype == torch.bfloat16:  # the serving path's dtype
+        elif dtype == torch.float32:  # the CLI's default precision
+            record["fp32"] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                              "max_abs_err": err, "share_of_bound": bound_ms / ms}
+        else:  # bf16, the serving path's dtype
             record = {**record, "name": name, "route": "cuda", "source": f"{PORT}/csrc/{name}.cu",
                       "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms,
@@ -773,7 +819,13 @@ def phase_backward(name: str, sass, cases=None, autograd: bool = True):
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
               f"{ops / 1e9:.2f} GFLOP, by {'bytes' if t_bytes >= t_ops else 'operations'}), "
               f"{bound_ms / ms:.1%} of the bound flushed, {bound_ms / warm_ms:.1%} warm", flush=True)
-        if shape in (ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE):  # aspp 2's site
+        if dtype == torch.float32 and shape in (TRAIN_SHAPE, CORR_SHAPE):  # the CLI's precision
+            record.setdefault("fp32", []).append(
+                {"shape": list(shape), "ms": ms, "ms_warm": warm_ms, "median_ms": median_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "max_abs_err": max(errs), "share_of_bound": bound_ms / ms})
+        elif shape in (ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE):  # aspp 2's site
             record.setdefault("other_shapes", []).append(
                 {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms, "ms_warm": warm_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": max(errs),
@@ -1185,13 +1237,13 @@ def phase_small_train(net: str):
     hold_tensors(tag, "gradient", grads, ref_grads)
 
 
-def phase_train(net: str, n_warmup: int, n_steps: int, card: str):
-    """Train ``net`` at full width (bf16 policy, the bench loss stack, Adam);
-    returns each kernel's launches in the timed steps, the counts set to 0
-    just before them."""
+def phase_train(net: str, n_warmup: int, n_steps: int, card: str, bf16: bool = True):
+    """Train ``net`` at full width (bf16 policy, or fp32 where not ``bf16``;
+    the bench loss stack, Adam); returns each kernel's launches in the timed
+    steps, the counts set to 0 just before them."""
     kernels = counters()
     expect = TRAIN[net]
-    _, state, step = train_setup(net, "cuda", bf16=True)
+    _, state, step = train_setup(net, "cuda", bf16=bf16)
     g = torch.Generator(device="cuda").manual_seed(5)
     batches = [train_batch((TRAIN_BATCH, TRAIN_H, TRAIN_W), g, "cuda")
                for _ in range(n_warmup + n_steps)]
@@ -1217,7 +1269,8 @@ def phase_train(net: str, n_warmup: int, n_steps: int, card: str):
               f"expected {per_step} per step")
     timed = times[n_warmup:]
     ms = 1e3 * sum(timed) / len(timed)
-    print(f"[train {net}] {trunk_name(run_config(net))} bf16, CE + Lovasz + MultiTversky + OHEM, Adam, "
+    print(f"[train {net}] {trunk_name(run_config(net))} {'bf16' if bf16 else 'fp32'}, CE + Lovasz + "
+          f"MultiTversky + OHEM, Adam, "
           f"{TRAIN_BATCH} pairs of {TRAIN_H}x{TRAIN_W}: {ms:.2f} ms/step, "
           f"{TRAIN_BATCH / ms * 1e3:.2f} training pairs/s over {len(timed)} steps (per step: "
           f"{', '.join(f'{1e3 * t:.2f}' for t in times)} ms, the first {n_warmup} warm-ups); "
@@ -1227,16 +1280,17 @@ def phase_train(net: str, n_warmup: int, n_steps: int, card: str):
     return launches
 
 
-def phase_serve(net: str, n_batches: int, expect: dict):
-    """Serve ``n_batches`` batches (the first a warm-up, not timed) and check
-    each kernel's launches against ``expect`` (name -> launches per batch)."""
+def phase_serve(net: str, n_batches: int, expect: dict, bf16: bool = True):
+    """Serve ``n_batches`` batches (the first a warm-up, not timed) under the
+    bf16 policy, or in fp32 where not ``bf16``, and check each kernel's
+    launches against ``expect`` (name -> launches per batch)."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch import models
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import (
         compute_metrics,
         make_forward_fn,
     )
 
-    cfg = run_config(net, bf16=True)
+    cfg = run_config(net, bf16=bf16)
     model = models.get_network(cfg, seed=0)
     forward = make_forward_fn(cfg, model)
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -1283,7 +1337,7 @@ def phase_serve(net: str, n_batches: int, expect: dict):
     timed = times[1:]
     ms = 1e3 * sum(timed) / len(timed)
     print(f"[serve {net}] metrics of the last batch: {json.dumps(metrics)}", flush=True)
-    print(f"[serve {net}] {trunk_name(cfg)} bf16, {BATCH} pairs of {H}x{W}: "
+    print(f"[serve {net}] {trunk_name(cfg)} {'bf16' if bf16 else 'fp32'}, {BATCH} pairs of {H}x{W}: "
           f"{ms:.2f} ms/batch, {BATCH / ms * 1e3:.2f} pairs/s over {len(timed)} batches "
           f"(per batch: {', '.join(f'{1e3 * t:.2f}' for t in times)} ms, the first a warm-up); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}",
@@ -1308,16 +1362,19 @@ def cli_run(argv, kernels: dict):
     return session, text, launches
 
 
-def hold_cli_launches(tag: str, session, launches: dict, sites: int = 1) -> None:
-    """corr1d's forward once a train step and once an eval forward (one a
-    reported row: the eval step runs each row alone and skips the padded
-    tail), its backward once a train step, corr2d's kernels never; each
-    ``sites`` times (2 at aspp 2)."""
+def hold_cli_launches(tag: str, session, launches: dict, sites: int = 1,
+                      corr: str = "corr1d") -> None:
+    """The net's correlation ``corr`` (corr1d, or corr2d: sdnet): its forward
+    once a train step and once an eval forward (one a reported row: the eval
+    step runs each row alone and skips the padded tail), its backward once a
+    train step, the other correlation's kernels never; each ``sites`` times
+    (2 at aspp 2)."""
     t = session.timings
     steps = len(t["step_s"])
     forwards = t["eval_rows"]
-    expect = {"corr1d": sites * (steps + forwards), "corr1d_backward": sites * steps, "corr2d": 0,
-              "corr2d_backward": 0}
+    other = "corr2d" if corr == "corr1d" else "corr1d"
+    expect = {corr: sites * (steps + forwards), f"{corr}_backward": sites * steps, other: 0,
+              f"{other}_backward": 0}
     check(launches == expect, f"{tag}: launches {launches}, expected {expect} "
           f"({steps} train steps, {forwards} eval forwards)")
 
@@ -1361,17 +1418,27 @@ def hold_eval_tables(tag: str, a: dict, b: dict) -> None:
     check(rel[worst] <= FILES_EVAL_RTOL, f"{tag}: eval summaries differ: {worst} {a[worst]} vs {b[worst]}")
 
 
+def files_fixture(root: str) -> list:
+    """Phase 8's files: a roses fixture of FILES_TRAIN_PAIRS training and
+    FILES_TEST_PAIRS test pairs of FILES_HW under ``root``, made by the port's
+    own ``make_roses_fixture``; returns the CLI's data flags."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
+
+    m = make_roses_fixture(root, n_train=FILES_TRAIN_PAIRS, n_test=FILES_TEST_PAIRS, hw=FILES_HW,
+                           seed=0)
+    data = []
+    for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
+                      ("-inst", "inst")):
+        data += [flag, m[key], flag + "_test", m[key + "_t"]]
+    return data
+
+
 def phase_files(card: str):
     """Phase 8: the flagship trained, resumed and evaluated from PNG files
     through the CLI; returns each kernel's launches in the first training
     run (its 4 train steps and its eval)."""
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import config_from_args
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import (
-        datasets,
-        make_roses_fixture,
-        native,
-        png,
-    )
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import datasets, native, png
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
 
     correlation = correlation_module()
@@ -1382,8 +1449,7 @@ def phase_files(card: str):
     tmp = tempfile.mkdtemp(prefix="pmt_files_")
     try:
         t0 = time.perf_counter()
-        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=FILES_TRAIN_PAIRS,
-                               n_test=FILES_TEST_PAIRS, hw=FILES_HW, seed=0)
+        data = files_fixture(os.path.join(tmp, "ds"))
         print(f"[files] roses fixture: {FILES_TRAIN_PAIRS} training and {FILES_TEST_PAIRS} test pairs "
               f"of {FILES_HW[0]}x{FILES_HW[1]} in {time.perf_counter() - t0:.2f} s", flush=True)
         rgb = png.read(os.path.join(tmp, "ds", "train_left_0.png"))
@@ -1395,10 +1461,6 @@ def phase_files(card: str):
             check(bool((png.read(path) == rgb).all()), f"png decode of {name}")
             print(f"[files] the port's PNG decoder: a {FILES_HW[0]}x{FILES_HW[1]} RGB image with "
                   f"{name} in {1e3 * (time.perf_counter() - t0):.1f} ms (host)", flush=True)
-        data = []
-        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
-                          ("-inst", "inst")):
-            data += [flag, m[key], flag + "_test", m[key + "_t"]]
         save = os.path.join(tmp, "runs")
         argv = data + FILES_TRAIN + ["-w_savePath", save]
 
@@ -2559,7 +2621,6 @@ def phase_ddp(card: str, nccl: bool = False) -> dict:
     import socket
 
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import config_from_args
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
     from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
 
     world = torch.cuda.device_count() if nccl else DDP_RANKS
@@ -2570,12 +2631,7 @@ def phase_ddp(card: str, nccl: bool = False) -> dict:
     try:
         refs = {run: ddp_small_reference(world, *flags) for run, flags in DDP_SMALL_RUNS.items()}
         free_card()
-        m = make_roses_fixture(os.path.join(tmp, "ds"), n_train=FILES_TRAIN_PAIRS,
-                               n_test=FILES_TEST_PAIRS, hw=FILES_HW, seed=0)
-        data = []
-        for flag, key in (("-colorL", "left"), ("-colorR", "right"), ("-seg", "seg"), ("-disp", "disp"),
-                          ("-inst", "inst")):
-            data += [flag, m[key], flag + "_test", m[key + "_t"]]
+        data = files_fixture(os.path.join(tmp, "ds"))
         argv = data + DDP_FILES + ["-w_savePath", os.path.join(tmp, "runs")]
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
@@ -2693,6 +2749,66 @@ def phase_ddp(card: str, nccl: bool = False) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 14: the CLI's default precision (fp32, no -f16) ----
+
+# cuDNN's and cuBLAS's TF32 switches as torch starts, before main() turns
+# them off for the held comparisons: what the program runs under, since the
+# port sets neither
+PROGRAM_TF32 = {"cudnn": torch.backends.cudnn.allow_tf32,
+                "matmul": torch.backends.cuda.matmul.allow_tf32}
+
+
+@contextlib.contextmanager
+def program_precision():
+    """TF32 as the program leaves it (``PROGRAM_TF32``) inside the block;
+    printed on entry."""
+    held = {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}
+    torch.backends.cudnn.allow_tf32 = PROGRAM_TF32["cudnn"]
+    torch.backends.cuda.matmul.allow_tf32 = PROGRAM_TF32["matmul"]
+    print(f"[fp32] torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32} (as the "
+          f"program leaves them: the port sets neither)", flush=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = held["cudnn"]
+        torch.backends.cuda.matmul.allow_tf32 = held["matmul"]
+
+
+def phase_fp32(card: str) -> dict:
+    """Phase 14: sdnet in fp32, the CLI's default precision, at full width
+    and depth: serving ``BATCH`` pairs of ``H``x``W`` (corr2d once a batch),
+    training at ``TRAIN_BATCH`` pairs of 256x512 (corr2d and its backward
+    once a step), then ``cli.train.main`` without ``-f16`` on phase 8's files
+    (``FP32_FILES``: one epoch of 2 steps and the eval of the 5 test pairs:
+    corr2d once a step and once an eval forward, its backward once a step,
+    corr1d never). Returns each path's launches."""
+    free_card()
+    out = {}
+    with program_precision():
+        out["serve"] = phase_serve("sdnet", FP32_SERVE_BATCHES, SERVE["sdnet"][1], bf16=False)
+        free_card()
+        out["train"] = phase_train("sdnet", TRAIN_WARMUP, FP32_TRAIN_STEPS, card, bf16=False)
+        free_card()
+        tmp = tempfile.mkdtemp(prefix="pmt_fp32_")
+        try:
+            data = files_fixture(os.path.join(tmp, "ds"))
+            session, _, launches = cli_run(data + FP32_FILES + ["-w_savePath", os.path.join(tmp, "runs")],
+                                           counters())
+            check(not session.cfg.parallel.bf16, "the fp32 CLI run took the bf16 policy")
+            t = session.timings
+            check(len(t["step_s"]) == 2 and t["eval_rows"] == FILES_TEST_PAIRS, f"fp32 CLI: {t}")
+            hold_cli_launches("[fp32 cli]", session, launches, corr="corr2d")
+            print(f"[fp32 cli] sdnet densenet121 fp32 from PNGs, 8 pairs of 256x512 a step: each step "
+                  f"with loading, ms: {step_times(t)}; eval of {t['eval_rows']} pairs at 512x960: "
+                  f"{t['eval_rows'] / t['eval_s']:.2f} pairs/s; launches {launches}; {card}", flush=True)
+            out["cli"] = launches
+            del session
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def phase_ddp_scale(ranks: list, card: str) -> dict:
     """--ddp: print the scaling steps' readings; returns {cards: {ms/step,
     pairs/s, the NCCL kernels' ms a step and share of it}} (rank 0's)."""
@@ -2753,6 +2869,9 @@ def main() -> int:
     ap.add_argument("--ddp", action="store_true",
                     help="only run phase 13 over NCCL with one rank on each visible card (two or "
                          "more), and the bf16 step at 8 pairs a card on 1, 2 and 4 cards")
+    ap.add_argument("--fp32", action="store_true",
+                    help="with --serve or --train: in fp32 (the CLI's default precision), with "
+                         "TF32 as the program leaves it; alone: phase 14 only")
     ap.add_argument("--zoo", action="store_true",
                     help="only run the rest of the CLI's nets (phase 11): deeplab_mod, dsnet_warp "
                          "and pspnet serve and train, every other configuration, deeplab's TTA, "
@@ -2769,7 +2888,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if (args.serve or args.train or args.backward or args.files or args.options or args.trunks
-            or args.zoo or args.encdec or args.ddp):
+            or args.zoo or args.encdec or args.ddp or args.fp32):
+        precision = program_precision() if args.fp32 else contextlib.nullcontext()
         try:
             if args.ddp:
                 phase_build()  # once, before any rank starts
@@ -2785,9 +2905,13 @@ def main() -> int:
             elif args.options:
                 phase_options(card)
             elif args.serve:
-                phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1])
+                with precision:
+                    phase_serve(args.serve, SERVE_BATCHES, SERVE[args.serve][1], bf16=not args.fp32)
             elif args.train:
-                phase_train(args.train, TRAIN_WARMUP, 10, card)
+                with precision:
+                    phase_train(args.train, TRAIN_WARMUP, 10, card, bf16=not args.fp32)
+            elif args.fp32:
+                phase_fp32(card)
             else:
                 phase_backward(args.backward, None, BACKWARDS[args.backward][2][:4], autograd=False)
         except SmokeFailure as e:
@@ -2864,6 +2988,13 @@ def main() -> int:
         for name in ("corr1d", "corr1d_backward"):
             records[name]["launches_ddp_train_per_rank"] = launches["train"][name]
             records[name]["launches_ddp_cli_per_rank"] = launches["cli"][name]
+        # phase 14: sdnet in fp32, the CLI's default precision: corr2d once a
+        # batch, corr2d and its backward once a step, and through the CLI
+        paths = phase_fp32(card)
+        records["corr2d"]["launches_fp32_serve"] = paths["serve"]["corr2d"]
+        for name in ("corr2d", "corr2d_backward"):
+            records[name]["launches_fp32_train"] = paths["train"][name]
+            records[name]["launches_fp32_cli"] = paths["cli"][name]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

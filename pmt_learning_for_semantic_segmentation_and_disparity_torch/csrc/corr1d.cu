@@ -81,7 +81,7 @@
 // element stores.
 //
 // fp32 (no TF32: it would break the 1e-4 tolerance): corr_tile.cuh's backward
-// tile with kPH = 1, on the CUDA cores in gather form. A block stages 80
+// tile, on the CUDA cores in gather form. A block stages 80
 // columns x 64 channels of f1 and f2 (64 output columns with the 8-column
 // halo) and g's 80 x 17 window in shared memory; a thread owns 4 adjacent
 // channels (one float4 of the window) of 4 adjacent columns of df1 and df2,
@@ -402,7 +402,7 @@ int corr1d_backward(const void* f1, const void* f2, const void* g, void* df1, vo
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? bwd::launch_bf16(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s)
-                 : corr::launch_bwd_fp32<1>(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s);
+                 : corr::launch_bwd_fp32(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s);
 }
 
 }  // extern "C"

@@ -39,12 +39,52 @@
 // 2 x 6 boxes x 10 KB = 120 KB. A C too large for f1 to stay resident stages
 // f1's boxes beside f2's in every stage instead.
 //
-// fp32: corr_tile.cuh's row tile on the CUDA cores (TF32 tensor cores would
-// not hold fp32's tolerance). The 17 vertical shifts are split across blocks:
-// grid (column tiles x 17, H, B), block (t*17 + i, y, b) runs the row tile of
-// f1's row y against f2's row y+i-8 and writes outputs [i*17, i*17+17) of each
-// of its pixels; a block whose f2 row lies outside [0,H) writes zeros. Its
-// floor is the 25.0 GFLOP as FMAs at 67 TFLOP/s, ~0.37 ms.
+// fp32 (corr2d_fp32_kernel): products and sums in fp32 FMAs on the CUDA cores,
+// as the Pallas kernel multiplies and sums in fp32 (TF32 tensor cores would
+// not hold fp32's tolerance). Bound: the 25.0 GFLOP of the sdnet shape are
+// 12.5 G FMAs, 0.373 ms at the 67 TFLOP/s fp32 peak; its bytes (488 MB in
+// fp32) take 0.146 ms, so the products bound it. At the training shape
+// (8,32,64,352): 3.33 GFLOP, 0.050 ms.
+// Design. One block owns kR = 4 output rows y0 .. y0+3 and 64 columns and
+// walks the channels in stages of 16; f1's 4 rows and the f2 rows they reach
+// (y0-8 .. y0+11) come into shared memory once per row group, 8.25 staged
+// channel vectors an output pixel (the one-row design before it staged 38).
+// The f2 rows are taken in 2 passes of 10 (a stage holds f1's 4 rows and 10
+// f2 rows: 70 KB), each pass a block of its own (they write disjoint
+// shifts), and within a pass every f2 row is worked at once, so the
+// sum over all C stays in registers and no thread reduces with another:
+// half-warp h of the 8 warps owns one (f2 row, row pair) unit that reaches
+// both rows of the pair, 16 a pass, and a lane holds 2 output rows x 4
+// adjacent columns x 17 shifts (136 fp32 accumulators). Per 4 channels it
+// reads f1's 8 values and f2's 20 window columns as 16-byte loads (28 loads
+// for 544 FMAs; 0.82 bytes of shared memory an FMA against the SM's 1), each
+// f2 value feeding both rows. The 4 (row, f2 row) pairs a row pair reaches
+// with one row only (f2 rows y0-8, y0+9 for pair 0, y0-6, y0+11 for pair 1)
+// are shared out among that pair's half-warps, 2 or 3 shifts each, from the
+// f1 values they hold already. A unit whose f2 row lies outside the image
+// skips its products and stores zeros. At the end of a pass each pair's
+// outputs go through the ring and out as whole runs of a pixel's shifts
+// (coalesced stores; 4-byte stores 1,156 bytes apart cost 0.17 ms more at
+// the serving shape).
+// Where f1 lives: f1's 4 rows at C = 352 are 360 KB in fp32, so f1 is
+// staged beside f2 in each stage rather than kept resident (the bf16 band
+// keeps its two rows resident in 96 KB), and copied twice, once a pass.
+// Grid (column tiles, 2 x row groups, B): 1,024 blocks at the serving shape.
+// Copies: every thread issues 16-byte cp.async copies of its share of the
+// next stage (zero-filled outside the image and past C), 4 threads a
+// pixel's 64 bytes, a ring of 2 stages with one barrier a stage (3 stages
+// measured slower). A tensor map's box cannot take the layout the lanes
+// need: a lane's 4 columns put 8 lanes of a 16-byte load 4 columns apart,
+// and only a pad of 16 bytes every 4 columns of 16 channels (chunk(col) = 4
+// col + col / 4) puts them on 8 distinct bank groups; nor is a producer warp
+// needed. 8 warps, not 9: 3 warps on one scheduler cap a thread at 168
+// registers, and the 136 accumulators then spilled. Inputs cp.async cannot
+// take (C % 4 != 0, or f1, f2 off 16-byte alignment) stage the same layout
+// by element loads.
+// What holds it (tools/probe_band.py --fp32, PERF.md §6): the copies,
+// barriers and stores alone take 0.41 of its 1.01 ms at the serving shape
+// (64-byte runs at ~3.7 TB/s) and overlap the products only in part; the
+// edge shares cost 0.13 ms; the products run at ~40% of the FFMA peak.
 //
 // Backward (corr2d_backward). Replaces the lax VJP of the JAX package's
 // _corr2d (ops/correlation.py:_corr2d_bwd_lax), which the TPU ran as XLA code
@@ -117,37 +157,337 @@
 // windows by element loads (the slices are the workspace's, always aligned)
 // and element stores out.
 //
-// fp32: corr_tile.cuh's backward tile with kPH = 17, on the CUDA cores.
+// fp32 (corr2d_bwd_fp32_kernel): the same two launches, in fp32. Replaces,
+// like the bf16 pair, the lax VJP _corr2d_bwd_lax. Bound: the 6.67 GFLOP of
+// the training shape as fp32 FMAs take 0.0995 ms at 67 TFLOP/s, its 111 MB
+// 0.033 ms: the products bound it (serving shape 0.746 ms, 834 MB).
+// The relayout is the bf16 one for 4-byte values, with each pixel's 17
+// values padded to 20 (a slice 5,120 bytes), so that the band reads G four
+// shifts at a time in 16-byte loads. The band is persistent, one block an
+// SM, walking the same items (4 output rows x 128 channels x 64 columns, df1
+// and df2 as df1 of the mirror): a stage is F's 80-column window of one row
+// (128 channels, 40 KB, 512-byte runs a pixel) and the slices of the item's
+// rows it serves, 3 stages in a ring of 16-byte cp.async copies that every
+// thread issues, run on across items so that the next item's copies overlap
+// this item's last products and stores. 8 warps, warp m the 8-column slab
+// 8m .. 8m+7; a lane owns 2 adjacent columns x 16 channels (4 quads, the 8
+// lanes of a column reading 8 consecutive 16-byte chunks: no bank conflict)
+// for all 4 rows (128 accumulators). Per window column it reads F's 4 quads
+// once for the rows F's row serves, and each G value (one address for the 8
+// lanes of a column) feeds 16 FMAs: 112 loads for 2,176 FMAs a stage that
+// serves the 4 rows (14 of an interior item's 20), one unrolled body for
+// those and one a row for the rest. Every output element has one owner: no
+// atomics, deterministic.
+// What holds it (tools/probe_band.py --backward corr2d --fp32, PERF.md §6):
+// the products. The copies alone take a third of the band's time and overlap
+// with them; the relayout is 0.03 ms of the 0.3. Tried and slower: a loop
+// over the window columns with a branch a row (1.5x: the branches keep the
+// loads from being hoisted), 8 channels a lane on 16 warps (4%), 2 stages
+// (equal).
 #include "corr_band.cuh"
-#include "corr_tile.cuh"
 
 namespace {
 
 constexpr int kPH = 17;                  // vertical shifts
-constexpr int kPatch = kPH * corr::kPW;  // 289 outputs per pixel
+constexpr int kPatch = kPH * band::kPW;  // 289 outputs per pixel
 constexpr int kRows = 2;                 // output rows per bf16 block
 constexpr int kBoxes = 6;                // 64-channel boxes per stage of the bf16 ring
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(corr::kThreads, 4)
-corr2d_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out,
-              int H, int W, int C) {
-  using namespace corr;
-  __shared__ __align__(16) float s1[kTX * kS];
-  __shared__ __align__(16) float s2[kF2Rows * kS];
-  const int i = blockIdx.x % kPH;
-  const int x0 = (blockIdx.x / kPH) * kTX;
-  const int y = blockIdx.y;
-  const int y2 = y + i - kPH / 2;
-  const size_t row = (size_t)blockIdx.z * H + y;
-  T* o = out + row * W * kPatch + i * kPW;
-  if (y2 < 0 || y2 >= H) {  // uniform over the block: no thread reaches a barrier
-    zero_tile(o, kPatch, x0, W);
-    return;
-  }
-  const size_t row2 = (size_t)blockIdx.z * H + y2;
-  row_tile<T, kVec>(f1 + row * W * C, f2 + row2 * W * C, o, kPatch, x0, W, C, s1, s2);
+// 16-byte copies from global to shared memory by cp.async (the fp32 kernels'
+// ring): zero-filled, and nothing read, where !in (src must still be a valid
+// address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(band::smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(in ? 16 : 0)
+               : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of the thread's cp.async groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 channels c .. c+3 of one pixel (row points at its channel 0), zero past C.
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, int C) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* e = &v.x;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (c + k < C) e[k] = row[c + k];
+  return v;
+}
+
+namespace fwd32 {
+
+constexpr int kPW = band::kPW;
+constexpr int kHalo = kPW / 2;             // 8
+constexpr int kTX = band::kTX;             // output columns per block
+constexpr int kWin = band::kWin;           // f2 columns a block reads (80)
+constexpr int kR = 4;                      // output rows per block (2 pairs)
+constexpr int kPasses = 2;                 // passes over the f2 rows y0-8 .. y0+11
+constexpr int kF2 = 10;                    // f2 rows per pass
+constexpr int kCS = 16;                    // channels per stage (4 quads)
+constexpr int kThreads = 32 * 8;           // 16 half-warps, one full unit each
+// a staged row: quad q (channels 4q .. 4q+3 of the stage) of column col at
+// 16-byte chunk chunk(col) + q; the pad every 4 columns puts the 8 lanes of
+// a 16-byte load (4 columns apart) on 8 distinct bank groups
+__host__ __device__ constexpr int chunk(int col) { return 4 * col + col / 4; }
+constexpr int kF1Row = chunk(kTX);         // 272 chunks
+constexpr int kF2Row = chunk(kWin);        // 340 chunks
+constexpr int kStage = kR * kF1Row + kF2 * kF2Row;  // 4,488 chunks (71,808 bytes)
+constexpr int kStages = 2;
+constexpr size_t kSmem = (size_t)kStages * kStage * 16;
+static_assert(kSmem <= band::kSmemMax, "the ring fits a block");
+static_assert(kPasses * kF2 == kR + 2 * kHalo, "the passes cover the f2 rows");
+
+
+// The full unit of half-warp hw in pass p: row pair `pair` (rows y0 + 2 pair,
+// + 1) against the pass's f2 row k (image row y0 - 8 + 10p + k), both rows
+// within reach. Pass 0 takes pair 0's f2 rows y0-7 .. y0+1 and pair 1's
+// y0-5 .. y0+1, pass 1 pair 0's y0+2 .. y0+8 and pair 1's y0+2 .. y0+10.
+__host__ __device__ constexpr int unit_pair(int p, int hw) { return hw >= (p == 0 ? 9 : 7); }
+__host__ __device__ constexpr int unit_row(int p, int hw) {
+  return p == 0 ? (hw < 9 ? hw + 1 : hw - 6) : (hw < 7 ? hw : hw - 7);
+}
+// The edge units a pair reaches with one row only (f2 row y0-8 or y0+9 for
+// pair 0, y0-6 or y0+11 for pair 1), one a pair and pass: pair e's edge in
+// pass p is its row p (row 2e + p of the block) against the pass's f2 row
+// k = 2e (p = 0) or 7 + 2e (p = 1), shift i = 0 or 16. The pair's own
+// half-warps share it, each its shifts edge_shift(n, u) .. edge_shift(n,
+// u + 1) - 1 of all 64 columns (u: the half-warp's place among the pair's n
+// = 7 or 9), from the f1 values of that row it holds already.
+__host__ __device__ constexpr int edge_f2(int p, int e) { return p == 0 ? 2 * e : 7 + 2 * e; }
+__host__ __device__ constexpr int edge_shift(int n, int u) { return (kPW * u + n - 1) / n; }
+constexpr int kEdgeShifts = 3;  // at most a half-warp's: 17 over 7
+
+// One 16-byte quad, channels c .. c+3 of pixel (row, x) of image img of a
+// (B, H, W, C) tensor, into dst: a cp.async copy (kVec), else element loads;
+// zero where !in.
+template <bool kVec>
+__device__ __forceinline__ void copy_quad(float4* dst, const float* __restrict__ base, size_t img,
+                                          int row, int x, int c, bool in, int W, int C) {
+  const float* src = base + (in ? ((img + row) * W + x) * C + c : 0);
+  if (kVec)
+    cp_async16(dst, src, in);
+  else
+    *dst = in ? load4(src - c, c, C) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// A lane's share of its pair's edge for one quad: shifts j0 .. j0 + 2 of its
+// 4 columns (those past its share are never stored), f1's values u (the
+// edge's row), f2's window columns 4l + j0 + t from se (the edge's f2 row at
+// the lane's column 4l), the last column repeated past the window.
+__device__ __forceinline__ void edge_products(float (&acce)[4][kEdgeShifts], const float4 (&u)[4],
+                                              const float4* __restrict__ se, int j0) {
+#pragma unroll
+  for (int t = 0; t < 3 + kEdgeShifts; ++t) {
+    const int wc = min(j0 + t, kWin - 1 - 4 * (int)(threadIdx.x & 15));
+    const float4 v2 = se[4 * wc + wc / 4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int jj = t - x;
+      if (jj < 0 || jj >= kEdgeShifts) continue;
+      float a = acce[x][jj];
+      a = fmaf(u[x].x, v2.x, a);
+      a = fmaf(u[x].y, v2.y, a);
+      a = fmaf(u[x].z, v2.z, a);
+      acce[x][jj] = fmaf(u[x].w, v2.w, a);
+    }
+  }
+}
+
+// This thread's copies of one stage into st: channels c0 .. c0+15 of f1's 4
+// rows (64 columns from x0) and of the 10 f2 rows from rbase (80 columns
+// from x0 - 8), zero outside the image and past C. Thread t copies quad
+// t % 4 of the staged columns t / 4 + 64n: 4 threads a pixel's 64 bytes.
+template <bool kVec>
+__device__ __forceinline__ void stage_copies(float4* __restrict__ st, const float* __restrict__ f1,
+                                             const float* __restrict__ f2, size_t img, int y0,
+                                             int x0, int rbase, int c0, int H, int W, int C) {
+  const int q = threadIdx.x & 3, m0 = threadIdx.x >> 2;
+  const int c = c0 + 4 * q;
+  const bool cin = c < C;
+#pragma unroll
+  for (int a = 0; a < kR; ++a)  // f1's rows: column m0
+    copy_quad<kVec>(st + a * kF1Row + chunk(m0) + q, f1, img, y0 + a, x0 + m0, c,
+                    cin && y0 + a < H && x0 + m0 < W, W, C);
+  int k = 0, col = m0;  // f2's staged column m0 + 64n: row k, column col
+#pragma unroll
+  for (int n = 0; n < (kF2 * kWin + 63) / 64; ++n) {
+    if (k < kF2) {
+      const int row = rbase + k, x = x0 - kHalo + col;
+      copy_quad<kVec>(st + kR * kF1Row + k * kF2Row + chunk(col) + q, f2, img, row, x, c,
+                      cin && row >= 0 && row < H && x >= 0 && x < W, W, C);
+    }
+    col += 64;
+    if (col >= kWin) col -= kWin, ++k;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+corr2d_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                   float* __restrict__ out, int H, int W, int C) {
+  extern __shared__ __align__(16) float4 ring32[];
+  // block (tile, 2 * row group + pass, b): the passes write disjoint shifts,
+  // so each is a block of its own (twice the blocks: 128 at the training
+  // shape, where one block a row group left half of the 132 SMs idle)
+  const int x0 = blockIdx.x * kTX, y0 = (blockIdx.y >> 1) * kR, p = blockIdx.y & 1;
+  const size_t img = (size_t)blockIdx.z * H;
+  const int nst = (C + kCS - 1) / kCS;       // stages a pass
+  const int hw = threadIdx.x >> 4, l = threadIdx.x & 15;  // lane l: columns 4l .. 4l+3
+  float acc[2][4][kPW], acce[4][kEdgeShifts];
+
+  {
+    const int rbase = y0 - kHalo + kF2 * p;  // the image row of the pass's f2 row 0
+    const int pair = unit_pair(p, hw), k = unit_row(p, hw);
+    const int r = rbase + k;                 // this unit's f2 row
+    // this half-warp's share of its pair's edge: shifts j0 .. j0 + ns - 1
+    const int first = pair == 0 ? 0 : (p == 0 ? 9 : 7), npair = pair == (p == 0 ? 0 : 1) ? 9 : 7;
+    const int j0 = edge_shift(npair, hw - first), ns = edge_shift(npair, hw - first + 1) - j0;
+    const int ke = edge_f2(p, pair), re = rbase + ke;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int j = 0; j < kPW; ++j) acc[a][x][j] = 0.f;
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int jj = 0; jj < kEdgeShifts; ++jj) acce[x][jj] = 0.f;
+
+    // stage s of the pass: channels 16s .. 16s+15; one cp.async group a
+    // stage, empty or not
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nst)
+        stage_copies<kVec>(ring32 + (size_t)s * kStage, f1, f2, img, y0, x0, rbase, s * kCS, H, W, C);
+      cp_async_commit();
+    }
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<kStages - 2>();  // this thread's copies of stage s are in
+      __syncthreads();               // ... every thread's; stage s - 1 is read
+      const int sn = s + kStages - 1;  // into stage s - 1's buffer
+      if (sn < nst)
+        stage_copies<kVec>(ring32 + (size_t)(sn % kStages) * kStage, f1, f2, img, y0, x0, rbase,
+                           sn * kCS, H, W, C);
+      cp_async_commit();
+      const float4* st = ring32 + (size_t)(s % kStages) * kStage;
+      // one body without a branch: rows outside the image are staged as
+      // zeros, so a unit or an edge there sums zeros (a branch around
+      // each kept the loads from being hoisted)
+#pragma unroll 1
+      for (int q = 0; q < kCS / 4; ++q) {
+        const float4* s1 = st + 2 * pair * kF1Row + 17 * l + q;  // chunk(4l) = 17l
+        float4 v1[2][4];  // the pair's f1 values, channels 4q .. 4q+3 of the stage
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) v1[a][x] = s1[a * kF1Row + 4 * x];
+        {
+          const float4* s2 = st + kR * kF1Row + k * kF2Row + 17 * l + q;
+#pragma unroll
+          for (int w = 0; w < 4 + kPW - 1; ++w) {  // f2 window column 4l + w
+            const float4 v2 = s2[4 * w + w / 4];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              const int j = w - x;  // the shift of column 4l + x that meets it
+              if (j < 0 || j >= kPW) continue;
+#pragma unroll
+              for (int a = 0; a < 2; ++a) {
+                float t = acc[a][x][j];
+                t = fmaf(v1[a][x].x, v2.x, t);
+                t = fmaf(v1[a][x].y, v2.y, t);
+                t = fmaf(v1[a][x].z, v2.z, t);
+                acc[a][x][j] = fmaf(v1[a][x].w, v2.w, t);
+              }
+            }
+          }
+        }
+        {
+          // the edge's shifts j0 + jj of the pair's row p: window columns
+          // 4l + j0 + t against the f1 values of v1[p]
+          float4 u[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) u[x] = p == 0 ? v1[0][x] : v1[1][x];
+          edge_products(acce, u, st + kR * kF1Row + ke * kF2Row + 17 * l + q, j0);
+        }
+      }
+    }
+    // The pass's outputs: row y0 + a holds shifts ilo(a) .. ihi(a) of this
+    // pass, one run of 17 (ihi - ilo + 1) values a pixel in the output. Each
+    // pair's rows go through the ring (free now) and out in whole runs, a
+    // warp a pixel: coalesced stores in place of 4-byte ones 1,156 bytes
+    // apart. Units whose f2 row lies outside the image hold zeros.
+    __syncthreads();  // every warp is done with the ring
+    float* stage = reinterpret_cast<float*>(ring32);
+#pragma unroll 1
+    for (int pr = 0; pr < 2; ++pr) {
+      int ilo[2], len[2], base[2];  // rows 2pr, 2pr + 1: first shift, run length, staging offset
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int y = y0 + 2 * pr + a;
+        ilo[a] = max(0, rbase + kHalo - y);
+        len[a] = kPW * (min(kPH - 1, rbase + kF2 - 1 + kHalo - y) - ilo[a] + 1);
+        base[a] = a == 0 ? 0 : kTX * len[0];
+      }
+      if (pair == pr) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int y = y0 + 2 * pr + a, i = r - y + kHalo;
+          if (i < 0 || i >= kPH) continue;
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            float* o = stage + base[a] + (4 * l + x) * len[a] + kPW * (i - ilo[a]);
+#pragma unroll
+            for (int j = 0; j < kPW; ++j) o[j] = acc[a][x][j];
+          }
+        }
+      }
+      if (pair == pr) {  // the pair's edge is its row p, shift i = 0 or 16
+        const int i = re - (y0 + 2 * pr + p) + kHalo;
+        const int eb = p == 0 ? base[0] : base[1], el = p == 0 ? len[0] : len[1];
+        const int ei = p == 0 ? ilo[0] : ilo[1];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float* o = stage + eb + (4 * l + x) * el + kPW * (i - ei) + j0;
+#pragma unroll
+          for (int jj = 0; jj < kEdgeShifts; ++jj)
+            if (jj < ns) o[jj] = acce[x][jj];
+        }
+      }
+      __syncthreads();
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int y = y0 + 2 * pr + a;
+        if (y >= H) continue;
+        for (int col = warp; col < kTX && x0 + col < W; col += kThreads / 32) {
+          const float* src = stage + base[a] + col * len[a];
+          float* o = out + ((img + y) * W + x0 + col) * kPatch + kPW * ilo[a];
+          for (int n = lane; n < len[a]; n += 32) o[n] = src[n];
+        }
+      }
+      __syncthreads();  // the staging is read before the next pair's
+    }
+  }
+}
+
+int launch(const float* f1, const float* f2, float* out, int B, int H, int W, int C, bool vec,
+           cudaStream_t stream) {
+  auto kernel = vec ? corr2d_fp32_kernel<true> : corr2d_fp32_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + kTX - 1) / kTX, kPasses * ((H + kR - 1) / kR), B);
+  kernel<<<grid, kThreads, kSmem, stream>>>(f1, f2, out, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd32
 
 template <bool kTma>
 __global__ void __launch_bounds__(band::kThreads, 1)
@@ -161,19 +501,8 @@ corr2d_band_kernel(const __grid_constant__ CUtensorMap tm1, const __grid_constan
                                kPH, ns, kb, f1_res != 0, smem);
 }
 
-template <typename T>
-int launch(const void* f1, const void* f2, void* out, int B, int H, int W, int C, bool vec,
-           cudaStream_t stream) {
-  const dim3 grid(((W + corr::kTX - 1) / corr::kTX) * kPH, H, B);
-  auto kernel = vec ? corr2d_kernel<T, true> : corr2d_kernel<T, false>;
-  kernel<<<grid, corr::kThreads, 0, stream>>>(static_cast<const T*>(f1), static_cast<const T*>(f2),
-                                              static_cast<T*>(out), H, W, C);
-  return (int)cudaGetLastError();
-}
-
-template <>
-int launch<band::bf16>(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
-                       bool vec, cudaStream_t stream) {
+int launch_bf16(const void* f1, const void* f2, void* out, int B, int H, int W, int C, bool vec,
+                cudaStream_t stream) {
   const band::Plan p = band::plan(C, kRows, kBoxes, band::kSmemMax);
   // vec (C a multiple of 8, 16-byte aligned inputs) is what a tensor map takes
   CUtensorMap tm1{}, tm2{};
@@ -208,10 +537,16 @@ constexpr int kWinBox = band::kF2Box;     // one window box: 80 columns x 64 cha
 // q's value j at gpos(q, j). (A pad of 8 values every 4 pixels would put the
 // 8 pixel rows of an A load on 8 distinct bank groups, where none leaves
 // two-way conflicts; it measured no faster than the 10% fewer bytes.)
-constexpr int kSlice = kTX * kPW;  // 1088 values (2176 bytes)
+constexpr int kSlice = kTX * kPW;  // 1088 values (2176 bytes): the bf16 slice
 constexpr int kSliceBytes = kSlice * 2;
 static_assert(kSliceBytes % 16 == 0, "a slice is a bulk copy");
 __host__ __device__ constexpr int gpos(int q, int j) { return kPW * q + j; }
+// fp32 slices pad a pixel's 17 values to 20, so that the band takes them 4 at
+// a time in 16-byte loads: pixel q's value j at 20q + j (5,120 bytes a slice)
+template <typename T>
+constexpr int kPixT = sizeof(T) == 4 ? 20 : kPW;
+template <typename T>
+constexpr int kSliceT = kTX * kPixT<T>;
 // slice words between A rows r and r + 8: (gpos(q + 8, j - 8) - gpos(q, j)) / 2
 constexpr int kRow8 = (8 * kPW - 8) / 2;  // 64
 // a stage: kBoxes window boxes, then one slice per output row; kept on the
@@ -223,13 +558,24 @@ constexpr int kStages = 7;                // ring stages
 constexpr size_t kSmem = 1024 + (size_t)kStages * kStage + 2 * kStages * 8;
 static_assert(kSmem <= band::kSmemMax, "the ring fits a block");
 // the relayout: g's row tile with its halo (80 pixels x 289 values) and one
-// tensor's 17 slices
+// tensor's 17 slices, in the element type T
 constexpr int kRelThreads = 256;
-constexpr size_t kRelSmem = (size_t)band::kWin * kPatch * 2 + (size_t)kPH * kSliceBytes + 16;
+template <typename T>
+constexpr size_t rel_smem() {
+  return ((size_t)band::kWin * kPatch + (size_t)kPH * kSliceT<T>) * sizeof(T) + 16;
+}
 
-// values of the workspace: G and G2 slices, [tensor][b][y][i][tile][kSlice]
+template <typename T>
+__device__ __forceinline__ T zero_value();
+template <>
+__device__ __forceinline__ bf16 zero_value<bf16>() { return __float2bfloat16(0.f); }
+template <>
+__device__ __forceinline__ float zero_value<float>() { return 0.f; }
+
+// values of the workspace: G and G2 slices, [tensor][b][y][i][tile][kSliceT<T>]
+template <typename T>
 inline size_t work_values(int B, int H, int W) {
-  return (size_t)2 * B * H * kPH * ((W + kTX - 1) / kTX) * kSlice;
+  return (size_t)2 * B * H * kPH * ((W + kTX - 1) / kTX) * kSliceT<T>;
 }
 
 // The relayout: block (tile, y, b) writes, from g's row y, G's slices (b, y,
@@ -239,35 +585,39 @@ inline size_t work_values(int B, int H, int W) {
 //   G2[y2, x, i, j] = g[y, x + j - 8, 288 - 17i - j],  y2 = y + 8 - i,
 // zero for x >= W and where x + j - 8 falls outside [0, W). Each tensor's
 // 17 slices are assembled in shared memory, then stored with 16-byte stores.
+// T: bf16 or fp32, g's and the workspace's element type (fp32 slices in the
+// padded layout of kPixT, the pads left as they are: never read as values).
+template <typename T>
 __global__ void __launch_bounds__(kRelThreads)
-corr2d_bwd_relayout_kernel(const bf16* __restrict__ g, bf16* __restrict__ work, int B, int H,
-                           int W, int fast) {
+corr2d_bwd_relayout_kernel(const T* __restrict__ g, T* __restrict__ work, int B, int H, int W,
+                           int fast) {
   extern __shared__ __align__(16) unsigned char smem_rel[];
-  bf16* tile = reinterpret_cast<bf16*>(smem_rel);  // pixel x0 - 8 + q at q * 289
-  bf16* stage = tile + band::kWin * kPatch;        // one tensor's 17 slices
-  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + kPH * kSlice);
+  T* tile = reinterpret_cast<T*>(smem_rel);  // pixel x0 - 8 + q at q * 289
+  T* stage = tile + band::kWin * kPatch;     // one tensor's 17 slices
+  constexpr int kS = kSliceT<T>, kP = kPixT<T>;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + kPH * kS);
   const int tx = blockIdx.x, ntx = gridDim.x, y = blockIdx.y, b = blockIdx.z;
   const int x0 = tx * kTX;
   const int xs = max(0, x0 - kHalo), xe = min(W, x0 + kTX + kHalo);
-  const bf16* src = g + (((size_t)b * H + y) * W + xs) * kPatch;
-  bf16* dst = tile + (xs - (x0 - kHalo)) * kPatch;
+  const T* src = g + (((size_t)b * H + y) * W + xs) * kPatch;
+  T* dst = tile + (xs - (x0 - kHalo)) * kPatch;
   const int n = (xe - xs) * kPatch;
   if (fast) {  // g 16-byte aligned and W % 8 == 0: xs, xe are multiples of 8
     if (threadIdx.x == 0) {
       band::mbar_init(bar, 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      band::mbar_expect_tx(bar, n * 2);
-      band::bulk_load(dst, src, n * 2, bar);
+      band::mbar_expect_tx(bar, n * sizeof(T));
+      band::bulk_load(dst, src, n * sizeof(T), bar);
     }
     __syncthreads();
     band::mbar_wait(bar, 0);
   } else {  // element loads, 8 in flight a thread
     for (int k0 = threadIdx.x; k0 < n; k0 += 8 * kRelThreads) {
-      bf16 v[8];
+      T v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int k = k0 + e * kRelThreads;
-        v[e] = k < n ? src[k] : __float2bfloat16(0.f);
+        v[e] = k < n ? src[k] : zero_value<T>();
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e)
@@ -275,21 +625,22 @@ corr2d_bwd_relayout_kernel(const bf16* __restrict__ g, bf16* __restrict__ work, 
     }
     __syncthreads();
   }
-  const size_t row_stride = (size_t)kPH * ntx * kSlice;  // values of one (tensor, b, y)
-  const bf16 zero = __float2bfloat16(0.f);
+  const size_t row_stride = (size_t)kPH * ntx * kS;  // values of one (tensor, b, y)
+  const T zero = zero_value<T>();
+  constexpr int kVec = 16 / sizeof(T);                   // values a 16-byte store
   for (int t = 0; t < 2; ++t) {
     // the 17 slices in shared memory, one (i, pixel) a thread at a time
     for (int k = threadIdx.x; k < kPH * kTX; k += kRelThreads) {
       const int i = k / kTX, q = k % kTX;
       const bool in = x0 + q < W;
-      bf16* o = stage + i * kSlice + gpos(q, 0);
+      T* o = stage + i * kS + kP * q;
       if (t == 0) {
-        const bf16* s = tile + (q + kHalo) * kPatch + kPW * i;
+        const T* s = tile + (q + kHalo) * kPatch + kPW * i;
 #pragma unroll
         for (int j = 0; j < kPW; ++j) o[j] = in ? s[j] : zero;
       } else {
         // s[j * 288]: value 288 - 17i - j of pixel q + j
-        const bf16* s = tile + q * kPatch + (kPatch - 1) - kPW * i;
+        const T* s = tile + q * kPatch + (kPatch - 1) - kPW * i;
 #pragma unroll
         for (int j = 0; j < kPW; ++j) {
           const int xj = x0 + q + j - kHalo;
@@ -298,14 +649,14 @@ corr2d_bwd_relayout_kernel(const bf16* __restrict__ g, bf16* __restrict__ work, 
       }
     }
     __syncthreads();
-    for (int k = threadIdx.x; k < kPH * (kSlice / 8); k += kRelThreads) {
-      const int i = k / (kSlice / 8), c8 = k % (kSlice / 8);
+    for (int k = threadIdx.x; k < kPH * (kS / kVec); k += kRelThreads) {
+      const int i = k / (kS / kVec), c8 = k % (kS / kVec);
       const int yy = t == 0 ? y : y + kHalo - i;  // the slice's output row
       const int fr = t == 0 ? y + i - kHalo : y;  // the F row it multiplies
       if (yy < 0 || yy >= H || fr < 0 || fr >= H) continue;  // never read
-      bf16* out = work + (((size_t)t * B + b) * H + yy) * row_stride +
-                  ((size_t)i * ntx + tx) * kSlice + 8 * c8;
-      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(stage + i * kSlice + 8 * c8);
+      T* out = work + (((size_t)t * B + b) * H + yy) * row_stride +
+               ((size_t)i * ntx + tx) * kS + kVec * c8;
+      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(stage + i * kS + kVec * c8);
     }
     __syncthreads();
   }
@@ -536,20 +887,33 @@ inline int sm_count() {
   return n;
 }
 
-int launch_bf16(const void* f1, const void* f2, const void* g, void* df1, void* df2, void* work,
-                int B, int H, int W, int C, bool vec, cudaStream_t stream) {
+// (1) of both dtypes: the relayout of g into G's and G2's slices
+template <typename T>
+int relayout(const void* g, void* work, int B, int H, int W, cudaStream_t stream) {
   if (work == nullptr || reinterpret_cast<uintptr_t>(work) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  // (1) the relayout of g into G's and G2's slices
   const bool fast = W % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(corr2d_bwd_relayout_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kRelSmem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      corr2d_bwd_relayout_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rel_smem<T>());
   if (err != cudaSuccess) return (int)err;
   const int ntx = (W + kTX - 1) / kTX;
-  corr2d_bwd_relayout_kernel<<<dim3(ntx, H, B), kRelThreads, kRelSmem, stream>>>(
-      static_cast<const bf16*>(g), static_cast<bf16*>(work), B, H, W, (int)fast);
-  err = cudaGetLastError();
+  corr2d_bwd_relayout_kernel<T><<<dim3(ntx, H, B), kRelThreads, rel_smem<T>(), stream>>>(
+      static_cast<const T*>(g), static_cast<T*>(work), B, H, W, (int)fast);
+  return (int)cudaGetLastError();
+}
+
+// (2) a persistent grid: one block an SM, or one an item
+inline int band_grid(int B, int H, int W, int C) {
+  const long long items =
+      2LL * B * ((C + kCG - 1) / kCG) * ((H + kR - 1) / kR) * ((W + kTX - 1) / kTX);
+  const int sms = sm_count();
+  if (items > 0x7fffffffLL || sms <= 0) return -1;
+  return items < sms ? (int)items : sms;
+}
+
+int launch_bf16(const void* f1, const void* f2, const void* g, void* df1, void* df2, void* work,
+                int B, int H, int W, int C, bool vec, cudaStream_t stream) {
+  cudaError_t err = (cudaError_t)relayout<bf16>(g, work, B, H, W, stream);
   if (err != cudaSuccess) return (int)err;
   // (2) the band: vec (C a multiple of 8, 16-byte aligned f1, f2, df1, df2)
   // is what a tensor map and the paired stores take
@@ -562,14 +926,230 @@ int launch_bf16(const void* f1, const void* f2, const void* g, void* df1, void* 
   auto kernel = vec ? corr2d_bwd_band_kernel<true> : corr2d_bwd_band_kernel<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return (int)err;
-  const long long items =
-      2LL * B * ((C + kCG - 1) / kCG) * ((H + kR - 1) / kR) * ntx;
-  const int sms = sm_count();
-  if (items > 0x7fffffffLL || sms <= 0) return (int)cudaErrorInvalidValue;
-  const int grid = items < sms ? (int)items : sms;
+  const int grid = band_grid(B, H, W, C);
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, kThreads, kSmem, stream>>>(
       tm1, tm2, static_cast<const bf16*>(f1), static_cast<const bf16*>(f2),
       static_cast<const bf16*>(work), static_cast<bf16*>(df1), static_cast<bf16*>(df2), B, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+// ---- fp32: the band on the CUDA cores ----
+constexpr int kThreads32 = 256;                 // 8 warps, one 8-column slab each
+constexpr int kWinChunks = band::kWin * kCG / 4;  // F's window: 80 columns x 128 channels (40 KB)
+constexpr int kSlice32 = kSliceT<float>;          // an fp32 slice: 1,280 values
+constexpr int kSliceChunks = kSlice32 / 4;        // 320 chunks of 16 bytes
+constexpr int kStage32 = kWinChunks + kR * kSliceChunks;  // 3,840 chunks (61,440 bytes)
+constexpr int kStages32 = 3;
+constexpr size_t kSmem32 = (size_t)kStages32 * kStage32 * 16;
+static_assert(kSmem32 <= band::kSmemMax, "the fp32 ring fits a block");
+
+// A stage of the block's walk: item k (Item) and its F row r.
+struct Cursor {
+  int k, r;
+  Item it;
+};
+
+__device__ __forceinline__ void cursor_at(Cursor& c, int k, int items, int B, int H, int C,
+                                          int ntx) {
+  c.k = k;
+  if (k < items) {
+    c.it = item_at(k, B, H, C, ntx);
+    c.r = c.it.r_lo;
+  }
+}
+
+__device__ __forceinline__ void cursor_next(Cursor& c, int items, int B, int H, int C, int ntx) {
+  if (++c.r == c.it.r_hi) cursor_at(c, c.k + gridDim.x, items, B, H, C, ntx);
+}
+
+// One F row's products for the rows of `on`: lane (xg, cg) of warp m owns
+// columns xl = 8m + 2xg, xl + 1 and the 16 channels 4cg + 32t + {0..3}, t <
+// 4. fw: the window's column xl, quad cq = cg; gs: the stage's slices, row a's at
+// gs + a * kSlice32, from the lane's pixel xl; G's values come 4 shifts at a
+// time (a 16-byte load at every fourth shift). kAll (every row served, 14 of an
+// interior item's 20 F rows): one unrolled body without a branch, F's 4 quads
+// read once a window column for the 4 rows; else a body a row it serves.
+// (A loop over the window columns with a branch a row measured 1.5x slower:
+// the branches keep the G loads from being hoisted.)
+template <bool kAll>
+__device__ __forceinline__ void products32(float (&acc)[kR][2][16], const float4* __restrict__ fw,
+                                           const float* __restrict__ gs, const bool (&on)[kR]) {
+#pragma unroll
+  for (int a0 = 0; a0 < (kAll ? 1 : kR); ++a0) {
+    if (!kAll && !on[a0]) continue;
+    float4 gq[kR][2];  // G's values of shifts 4(j / 4) .. +3 of row a, column xl + x
+#pragma unroll
+    for (int w = 0; w < 2 + kPW - 1; ++w) {  // window column xl + w
+      float4 f[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) f[t] = fw[w * (kCG / 4) + 8 * t];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int j = w - x;  // the shift of column xl + x that meets it
+        if (j < 0 || j >= kPW) continue;
+#pragma unroll
+        for (int a = 0; a < kR; ++a) {
+          if (!kAll && a != a0) continue;
+          if (j % 4 == 0)
+            gq[a][x] = *reinterpret_cast<const float4*>(gs + a * kSlice32 + kPixT<float> * x + j);
+          const float gv = j % 4 == 0 ? gq[a][x].x : j % 4 == 1 ? gq[a][x].y
+                         : j % 4 == 2 ? gq[a][x].z : gq[a][x].w;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            acc[a][x][4 * t] = fmaf(gv, f[t].x, acc[a][x][4 * t]);
+            acc[a][x][4 * t + 1] = fmaf(gv, f[t].y, acc[a][x][4 * t + 1]);
+            acc[a][x][4 * t + 2] = fmaf(gv, f[t].z, acc[a][x][4 * t + 2]);
+            acc[a][x][4 * t + 3] = fmaf(gv, f[t].w, acc[a][x][4 * t + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// This thread's copies of the stage (item it, F row r) into st: F's window
+// (80 columns x 128 channels from (x0 - 8, c0)) and the slices of the rows r
+// serves.
+template <bool kVec>
+__device__ __forceinline__ void stage_copies32(float4* __restrict__ st, const Item& it, int r,
+                                               const float* __restrict__ f1,
+                                               const float* __restrict__ f2,
+                                               const float* __restrict__ work, int B, int H, int W,
+                                               int C, int ntx, size_t row_stride) {
+  const float* frow = (it.t == 0 ? f2 : f1) + ((size_t)it.b * H + r) * W * C;
+  for (int n = threadIdx.x; n < kWinChunks; n += kThreads32) {
+    const int col = n / (kCG / 4), c = it.c0 + 4 * (n % (kCG / 4));
+    const int x = it.x0 - kHalo + col;
+    const bool in = x >= 0 && x < W && c < C;
+    const float* src = frow + (in ? (size_t)x * C + c : 0);
+    if (kVec)
+      cp_async16(st + n, src, in);
+    else
+      st[n] = in ? load4(src - c, c, C) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float* gw = work + ((size_t)it.t * B + it.b) * H * row_stride + (size_t)it.tx * kSlice32;
+  for (int a = 0; a < it.nr; ++a) {
+    const int i = r - it.y0 - a + kHalo;
+    if (i < 0 || i >= kPH) continue;
+    const float4* src = reinterpret_cast<const float4*>(
+        gw + (size_t)(it.y0 + a) * row_stride + (size_t)i * ntx * kSlice32);
+    for (int n = threadIdx.x; n < kSliceChunks; n += kThreads32)
+      cp_async16(st + kWinChunks + a * kSliceChunks + n, src + n, true);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads32, 1)
+corr2d_bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                       const float* __restrict__ work, float* __restrict__ df1,
+                       float* __restrict__ df2, int B, int H, int W, int C) {
+  extern __shared__ __align__(16) float4 ring_b32[];
+  const int ntx = (W + kTX - 1) / kTX;
+  const int items = 2 * B * ((C + kCG - 1) / kCG) * ((H + kR - 1) / kR) * ntx;
+  const size_t row_stride = (size_t)kPH * ntx * kSlice32;
+  const int lane = threadIdx.x & 31;
+  const int cq = lane & 7;                                  // channel quads cq + 8t
+  const int xl = 8 * (threadIdx.x >> 5) + 2 * (lane >> 3);  // columns xl, xl + 1 of the tile
+
+  // the loading cursor runs kStages32 - 1 stages ahead; its stage j goes
+  // into buffer j % kStages32, one cp.async group a stage, empty or not
+  Cursor ld;
+  cursor_at(ld, blockIdx.x, items, B, H, C, ntx);
+  int jl = 0;
+
+  float acc[kR][2][16];
+#pragma unroll
+  for (int a = 0; a < kR; ++a)
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[a][x][e] = 0.f;
+
+  for (int s = 0; s < kStages32 - 1; ++s, ++jl) {
+    if (ld.k < items) {
+      stage_copies32<kVec>(ring_b32 + (size_t)jl * kStage32, ld.it, ld.r, f1, f2, work, B, H, W, C,
+                           ntx, row_stride);
+      cursor_next(ld, items, B, H, C, ntx);
+    }
+    cp_async_commit();
+  }
+  Cursor cp;
+  cursor_at(cp, blockIdx.x, items, B, H, C, ntx);
+  for (int jc = 0; cp.k < items; ++jc) {
+    cp_async_wait<kStages32 - 2>();  // this thread's copies of stage jc are in
+    __syncthreads();                 // ... every thread's; stage jc - 1 is read
+    if (ld.k < items) {              // stage jl = jc + 2 into stage jc - 1's buffer
+      stage_copies32<kVec>(ring_b32 + (size_t)(jl % kStages32) * kStage32, ld.it, ld.r, f1, f2,
+                           work, B, H, W, C, ntx, row_stride);
+      cursor_next(ld, items, B, H, C, ntx);
+    }
+    cp_async_commit();
+    ++jl;
+    const Item& it = cp.it;
+    const bool live = it.x0 + xl < W;  // a column of the lane lies in the image
+    if (live) {
+      const float4* st = ring_b32 + (size_t)(jc % kStages32) * kStage32;
+      const float4* fw = st + xl * (kCG / 4) + cq;
+      const float* gs = reinterpret_cast<const float*>(st + kWinChunks) + kPixT<float> * xl;
+      bool on[kR];  // output row y0 + a is served by F's row r (uniform)
+      bool all_on = true;
+#pragma unroll
+      for (int a = 0; a < kR; ++a) {
+        on[a] = a < it.nr && abs(cp.r - it.y0 - a) <= kHalo;
+        all_on = all_on && on[a];
+      }
+      if (all_on)
+        products32<true>(acc, fw, gs, on);
+      else
+        products32<false>(acc, fw, gs, on);
+    }
+    if (cp.r == it.r_hi - 1) {
+      // the item is complete: a pixel's 16 channels of the lane in 4
+      // 16-byte stores, 8 lanes a column storing 128 consecutive bytes
+      float* out = (it.t == 0 ? df1 : df2) + ((size_t)it.b * H + it.y0) * W * C;
+#pragma unroll
+      for (int a = 0; a < kR; ++a)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int col = it.x0 + xl + x;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int c = it.c0 + 4 * cq + 32 * t;
+            if (a < it.nr && col < W && c < C) {
+              float* o = out + ((size_t)a * W + col) * C + c;
+              if (kVec) {
+                *reinterpret_cast<float4*>(o) = make_float4(acc[a][x][4 * t], acc[a][x][4 * t + 1],
+                                                            acc[a][x][4 * t + 2], acc[a][x][4 * t + 3]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  if (c + e < C) o[e] = acc[a][x][4 * t + e];
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[a][x][4 * t + e] = 0.f;
+          }
+        }
+    }
+    cursor_next(cp, items, B, H, C, ntx);
+  }
+}
+
+int launch_fp32(const void* f1, const void* f2, const void* g, void* df1, void* df2, void* work,
+                int B, int H, int W, int C, bool vec, cudaStream_t stream) {
+  cudaError_t err = (cudaError_t)relayout<float>(g, work, B, H, W, stream);
+  if (err != cudaSuccess) return (int)err;
+  // (2) the band: vec (C a multiple of 4, 16-byte aligned f1, f2, df1, df2)
+  // is what the 16-byte copies and stores take
+  auto kernel = vec ? corr2d_bwd_fp32_kernel<true> : corr2d_bwd_fp32_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem32);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = band_grid(B, H, W, C);
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, kThreads32, kSmem32, stream>>>(
+      static_cast<const float*>(f1), static_cast<const float*>(f2), static_cast<const float*>(work),
+      static_cast<float*>(df1), static_cast<float*>(df2), B, H, W, C);
   return (int)cudaGetLastError();
 }
 
@@ -586,13 +1166,14 @@ extern "C" {
 // CUDA error code (0 on success).
 int corr2d_forward(const void* f1, const void* f2, void* out, int B, int H, int W, int C, int ph,
                    int pw, int is_bf16, int vec, void* stream) {
-  if (ph != kPH || pw != corr::kPW || B <= 0 || H <= 0 || W <= 0 || C <= 0 || H > 65535 ||
-      B > 65535 || ((long long)W + corr::kTX - 1) / corr::kTX * kPH > 0x7fffffffLL) {
+  if (ph != kPH || pw != band::kPW || B <= 0 || H <= 0 || W <= 0 || C <= 0 || H > 65535 ||
+      B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<band::bf16>(f1, f2, out, B, H, W, C, vec != 0, s)
-                 : launch<float>(f1, f2, out, B, H, W, C, vec != 0, s);
+  return is_bf16 ? launch_bf16(f1, f2, out, B, H, W, C, vec != 0, s)
+                 : fwd32::launch(static_cast<const float*>(f1), static_cast<const float*>(f2),
+                                 static_cast<float*>(out), B, H, W, C, vec != 0, s);
 }
 
 // The plan the bf16 band's launch takes for C channels, as corr1d_forward_plan.
@@ -604,11 +1185,12 @@ void corr2d_forward_plan(int C, int* out) {
 // The gradients of corr2d_forward (no normalize): f1, f2, df1, df2 contiguous
 // (B,H,W,C), one dtype, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); g, the
 // output gradient, contiguous (B,H,W,289) of the same dtype; any alignment of
-// the element type. work: bf16, corr2d_backward_workspace(...) bytes,
-// 16-byte aligned, for g's relayout (fp32 takes none: nullptr). vec: C a
-// multiple of 16 / sizeof(dtype) and f1, f2, df1, df2 16-byte aligned (bf16:
-// tensor-map copies in and paired stores out; fp32: 16-byte loads and
-// stores); with vec = 0 the same kernels stage and store element by element.
+// the element type. work: corr2d_backward_workspace(...) bytes, 16-byte
+// aligned, for g's relayout in the same dtype. vec: C a multiple of 16 /
+// sizeof(dtype) and f1, f2, df1, df2 16-byte aligned (bf16: tensor-map copies
+// in and paired stores out; fp32: 16-byte cp.async copies in and 16-byte
+// stores out); with vec = 0 the same kernels stage and store element by
+// element.
 // Writes every element of df1 and df2. Launches on `stream` without
 // synchronising; returns the launch's CUDA error code (0 on success).
 int corr2d_backward(const void* f1, const void* f2, const void* g, void* df1, void* df2,
@@ -620,13 +1202,15 @@ int corr2d_backward(const void* f1, const void* f2, const void* g, void* df1, vo
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? bwd::launch_bf16(f1, f2, g, df1, df2, work, B, H, W, C, vec != 0, s)
-                 : corr::launch_bwd_fp32<kPH>(f1, f2, g, df1, df2, B, H, W, C, vec != 0, s);
+                 : bwd::launch_fp32(f1, f2, g, df1, df2, work, B, H, W, C, vec != 0, s);
 }
 
-// The bytes of corr2d_backward's workspace at this shape and dtype.
+// The bytes of corr2d_backward's workspace at this shape and dtype: G's and
+// G2's slices, 2 or 4 bytes a value.
 size_t corr2d_backward_workspace(int B, int H, int W, int C, int is_bf16) {
   (void)C;
-  return is_bf16 && B > 0 && H > 0 && W > 0 ? bwd::work_values(B, H, W) * 2 : 0;
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
+  return is_bf16 ? bwd::work_values<bwd::bf16>(B, H, W) * 2 : bwd::work_values<float>(B, H, W) * 4;
 }
 
 }  // extern "C"

@@ -1,16 +1,15 @@
-// The fp32 row tile shared by the correlation kernels (corr1d.cu, corr2d.cu);
-// bf16 inputs take the tensor-core band tile of corr_band.cuh instead.
+// corr1d's fp32 tiles (corr1d.cu), on the CUDA cores; bf16 inputs take the
+// tensor-core band tiles of corr_band.cuh instead, and corr2d's fp32 kernels
+// are corr2d.cu's own.
 //
-// One block of kThreads threads computes, for one row r1 of f1 and one row
-// r2 of f2 (both of one image, NHWC), kTX = 64 output columns x kPW = 17
+// The row tile: one block of kThreads threads computes, for one image row
+// (NHWC) of f1 and the same row of f2, kTX = 64 output columns x kPW = 17
 // horizontal shifts:
 //
-//   out[x, d] = sum_c r1[x, c] * r2[x + d - 8, c],  x in [x0, x0 + 64), d in [0, 17),
+//   out[x, d] = sum_c f1[x, c] * f2[x + d - 8, c],  x in [x0, x0 + 64), d in [0, 17),
 //
 // zero where x + d - 8 falls outside [0, W); products and sums in fp32 on the
-// CUDA cores (TF32 tensor cores would not hold fp32's tolerance). The 1-D
-// kernel takes r2 = r1's row of f2; the 2-D kernel takes r2 = row y + i - 8
-// for a vertical shift i.
+// CUDA cores (TF32 tensor cores would not hold fp32's tolerance).
 //
 // Design. The block walks the channels in chunks of kCC: each chunk of f1's
 // 64 columns and of f2's 64 + 16 columns (the 8-column halo on each side,
@@ -22,25 +21,21 @@
 // group split the chunk's channels and are summed with warp shuffles at the
 // end. The row stride kS = kCC + 2 keeps the shared-memory reads of a warp
 // free of bank conflicts (4 column groups at row distance 4 land 8 banks
-// apart; the 8 channel lanes fill the gaps).
-// Not yet done for this fp32 tile: double-buffered staging (cp.async / TMA)
-// to overlap the next chunk's loads with this chunk's products.
+// apart; the 8 channel lanes fill the gaps). The staging is single-buffered;
+// at 52-65% of its bound (PERF.md §6) the tile was left as it is.
 //
-// The fp32 backward tile (bwd_fp32_kernel, below) serves both backward
-// kernels: corr1d's (kPH = 1) and corr2d's (kPH = 17), in gather form on the
-// CUDA cores. With g = dL/dout (kPH * 17 values a pixel) and o = i - kPH/2:
+// The backward tile (bwd_fp32_kernel, below), in gather form on the CUDA
+// cores. With g = dL/dout (17 values a pixel):
 //
-//   df1[b,y,x,c] = sum_{i,d} g[b,y,x,17i+d]         * f2[b,y+o,x+d-8,c],
-//   df2[b,y,x,c] = sum_{i,d} g[b,y-o,x-d+8,17i+d]   * f1[b,y-o,x-d+8,c],
+//   df1[b,y,x,c] = sum_d g[b,y,x,d]        * f2[b,y,x+d-8,c],
+//   df2[b,y,x,c] = sum_d g[b,y,x-d+8,d]    * f1[b,y,x-d+8,c],
 //
 // zero terms outside the image. A block owns 64 columns x 64 channels of one
-// output row of df1 and df2; for each row offset i it stages 80 columns
-// (64 with the 8-column halo) x 64 channels of f1's row y-o and f2's row y+o,
-// and g's 80 x 17 windows of rows y and y-o, in shared memory; a thread owns
-// 4 adjacent channels (one float4) of 4 adjacent columns of df1 and df2 and
-// sums over every i in registers, so each broadcast of a g value feeds 4
-// FMAs. Each output element is one sum, owned by one thread: no atomics,
-// deterministic.
+// row of df1 and df2; it stages 80 columns (64 with the 8-column halo) x 64
+// channels of f1's and f2's row, and g's 80 x 17 window, in shared memory; a
+// thread owns 4 adjacent channels (one float4) of 4 adjacent columns of df1
+// and df2, so each broadcast of a g value feeds 4 FMAs. Each output element
+// is one sum, owned by one thread: no atomics, deterministic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -155,15 +150,6 @@ __device__ __forceinline__ void row_tile(const T* __restrict__ r1, const T* __re
   }
 }
 
-// A row tile whose f2 row lies outside the image: every output is zero.
-template <typename T>
-__device__ __forceinline__ void zero_tile(T* __restrict__ o, int out_stride, int x0, int W) {
-  for (int n = threadIdx.x; n < kTX * kPW; n += kThreads) {
-    const int x = x0 + n / kPW;
-    if (x < W) store(o + (size_t)x * out_stride + n % kPW, 0.f);
-  }
-}
-
 // ---- the fp32 backward tile ----
 constexpr int kBX = 64;                   // output columns per block
 constexpr int kBC = 64;                   // channels per block
@@ -173,27 +159,22 @@ constexpr int kRun = 4;                   // adjacent output columns per thread
 constexpr int kQ = 4;                     // adjacent channels per thread: one float4
 constexpr int kBThreads = (kBC / kQ) * (kBX / kRun);  // 256
 
-// dynamic shared memory of bwd_fp32_kernel<kPH>: the f1 and f2 windows, and
-// g's window of row y (and of row y - o when kPH > 1)
-constexpr size_t bwd_fp32_smem(int kPH) {
-  return (2 * kBWin * kBC + (kPH > 1 ? 2 : 1) * kBWin * kPW) * sizeof(float);
-}
+// dynamic shared memory of bwd_fp32_kernel: the f1 and f2 windows, and g's
+constexpr size_t kBwdSmem = (2 * kBWin * kBC + kBWin * kPW) * sizeof(float);
 
-// grid (column tiles x channel tiles, H, B), kBThreads threads, bwd_fp32_smem
+// grid (column tiles x channel tiles, H, B), kBThreads threads, kBwdSmem
 // bytes. kVec: C a multiple of 4 and 16-byte aligned tensors, so a quad of
 // channels is all in or all out of [0, C).
-template <int kPH, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kBThreads)
 bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
                 const float* __restrict__ g, float* __restrict__ df1, float* __restrict__ df2,
                 int H, int W, int C, int n_ctiles) {
-  constexpr int kP = kPH * kPW;  // g's values a pixel
   // window column j holds image column x0 - kHalo + j
   extern __shared__ __align__(16) float bwd_smem[];
   float (*s1)[kBC] = reinterpret_cast<float (*)[kBC]>(bwd_smem);
   float (*s2)[kBC] = s1 + kBWin;
-  float (*sg1)[kPW] = reinterpret_cast<float (*)[kPW]>(s2 + kBWin);  // g of row y
-  float (*sg2)[kPW] = kPH > 1 ? sg1 + kBWin : sg1;                   // g of row y - o
+  float (*sg)[kPW] = reinterpret_cast<float (*)[kPW]>(s2 + kBWin);  // g of row y
   const int x0 = (blockIdx.x / n_ctiles) * kBX;
   const int c0 = (blockIdx.x % n_ctiles) * kBC;
   const int y = blockIdx.y;
@@ -204,21 +185,16 @@ bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
 #pragma unroll
   for (int r = 0; r < kRun; ++r) a1[r] = a2[r] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int i = 0; i < kPH; ++i) {
-    const int r1 = y - i + kPH / 2;  // f1's and g's row of df2's terms
-    const int r2 = y + i - kPH / 2;  // f2's row of df1's terms
-    const bool in1 = r1 >= 0 && r1 < H, in2 = r2 >= 0 && r2 < H;
-    if (!in1 && !in2) continue;  // uniform over the block
-    __syncthreads();  // the previous offset's reads of shared memory are done
-    const size_t base1 = (img + r1) * W * C, base2 = (img + r2) * W * C;
+  {
+    const size_t base = (img + y) * W * C;
     for (int n = threadIdx.x; n < kBWin * kBC / kQ; n += kBThreads) {
       const int j = n / (kBC / kQ), cq = (n % (kBC / kQ)) * kQ, x = x0 - kHalo + j;
       const bool in = x >= 0 && x < W;
       float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f), v2 = v1;
       if (kVec) {
         if (in && c0 + cq < C) {
-          if (in1) v1 = *reinterpret_cast<const float4*>(f1 + base1 + (size_t)x * C + c0 + cq);
-          if (in2) v2 = *reinterpret_cast<const float4*>(f2 + base2 + (size_t)x * C + c0 + cq);
+          v1 = *reinterpret_cast<const float4*>(f1 + base + (size_t)x * C + c0 + cq);
+          v2 = *reinterpret_cast<const float4*>(f2 + base + (size_t)x * C + c0 + cq);
         }
       } else {
         float* p1 = &v1.x;
@@ -226,8 +202,8 @@ bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
 #pragma unroll
         for (int e = 0; e < kQ; ++e)
           if (in && c0 + cq + e < C) {
-            if (in1) p1[e] = f1[base1 + (size_t)x * C + c0 + cq + e];
-            if (in2) p2[e] = f2[base2 + (size_t)x * C + c0 + cq + e];
+            p1[e] = f1[base + (size_t)x * C + c0 + cq + e];
+            p2[e] = f2[base + (size_t)x * C + c0 + cq + e];
           }
       }
       *reinterpret_cast<float4*>(&s1[j][cq]) = v1;
@@ -235,9 +211,7 @@ bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     }
     for (int n = threadIdx.x; n < kBWin * kPW; n += kBThreads) {
       const int j = n / kPW, d = n % kPW, x = x0 - kHalo + j;
-      const bool in = x >= 0 && x < W;
-      sg1[j][d] = in ? g[((img + y) * W + x) * kP + i * kPW + d] : 0.f;
-      if (kPH > 1) sg2[j][d] = in && in1 ? g[((img + r1) * W + x) * kP + i * kPW + d] : 0.f;
+      sg[j][d] = x >= 0 && x < W ? g[((img + y) * W + x) * kPW + d] : 0.f;
     }
     __syncthreads();
 
@@ -253,7 +227,7 @@ bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
       for (int r = 0; r < kRun; ++r) {
         const int d1 = k - r;
         if (d1 >= 0 && d1 < kPW) {
-          const float w = sg1[xs + r + kHalo][d1];
+          const float w = sg[xs + r + kHalo][d1];
           a1[r].x = fmaf(w, v2.x, a1[r].x);
           a1[r].y = fmaf(w, v2.y, a1[r].y);
           a1[r].z = fmaf(w, v2.z, a1[r].z);
@@ -261,7 +235,7 @@ bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
         }
         const int d2 = r - k + 2 * kHalo;
         if (d2 >= 0 && d2 < kPW) {
-          const float w = sg2[xs + k][d2];
+          const float w = sg[xs + k][d2];
           a2[r].x = fmaf(w, v1.x, a2[r].x);
           a2[r].y = fmaf(w, v1.y, a2[r].y);
           a2[r].z = fmaf(w, v1.z, a2[r].z);
@@ -294,16 +268,15 @@ bwd_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   }
 }
 
-template <int kPH>
 inline int launch_bwd_fp32(const void* f1, const void* f2, const void* g, void* df1, void* df2,
                            int B, int H, int W, int C, bool vec, cudaStream_t stream) {
   const int n_ctiles = (C + kBC - 1) / kBC;
   const dim3 grid(((W + kBX - 1) / kBX) * n_ctiles, H, B);
-  auto kernel = vec ? bwd_fp32_kernel<kPH, true> : bwd_fp32_kernel<kPH, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bwd_fp32_smem(kPH));
+  auto kernel = vec ? bwd_fp32_kernel<true> : bwd_fp32_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBwdSmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kBThreads, bwd_fp32_smem(kPH), stream>>>(
+  kernel<<<grid, kBThreads, kBwdSmem, stream>>>(
       static_cast<const float*>(f1), static_cast<const float*>(f2), static_cast<const float*>(g),
       static_cast<float*>(df1), static_cast<float*>(df2), H, W, C, n_ctiles);
   return (int)cudaGetLastError();

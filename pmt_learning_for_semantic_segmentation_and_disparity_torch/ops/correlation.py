@@ -25,13 +25,14 @@ channel count.
 * ``correlation2d_backward_cuda`` -- the hand-written Hopper kernel for
   corr2d's gradients (``corr2d_backward`` in ``csrc/corr2d.cu``: bf16 as a
   relayout of g into per-offset slices, then a persistent band over 4 output
-  rows and 128 channels an item on the tensor cores, df2 as df1 of the
-  mirrored g; fp32 on the CUDA cores), which ``correlation2d_cuda``'s
-  backward launches.
+  rows and 128 channels an item, df2 as df1 of the mirrored g: on the tensor
+  cores in bf16, in fp32 FMAs on the CUDA cores), which
+  ``correlation2d_cuda``'s backward launches.
 
   Both kernels run bf16 inputs on the tensor cores (the band tile of
-  ``csrc/corr_band.cuh``) and fp32 inputs on the CUDA cores (the row tile of
-  ``csrc/corr_tile.cuh``); either takes any C, H and W the checks below let
+  ``csrc/corr_band.cuh``) and fp32 inputs on the CUDA cores (corr1d the row
+  tile of ``csrc/corr_tile.cuh``, corr2d its own kernel of 4-row blocks in
+  ``csrc/corr2d.cu``); either takes any C, H and W the checks below let
   through.
 * ``correlation``        -- the dispatcher: CPU tensors take the plain
   version, any other tensor the kernel of its patch (``ph == 1``: corr1d,
@@ -168,8 +169,9 @@ def _launch(name: str, f1: torch.Tensor, f2: torch.Tensor, patch: Tuple[int, int
 
 
 def backward_workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool) -> int:
-    """The bytes of scratch ``corr2d_backward`` takes at this shape: the bf16
-    path's relayout of g (``csrc/corr2d.cu``), none for fp32."""
+    """The bytes of scratch ``corr2d_backward`` takes at this shape: g's
+    relayout into per-offset slices (``csrc/corr2d.cu``), in the input dtype
+    (twice bf16's bytes in fp32)."""
     fn = _kernels.load("corr2d").corr2d_backward_workspace
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_size_t
@@ -202,7 +204,7 @@ def _launch_backward(name: str, f1: torch.Tensor, f2: torch.Tensor,
     fn.restype = ctypes.c_int
     df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
     # as in _launch, and for the outputs too: bf16 copies the inputs in
-    # through tensor maps and stores pairs, fp32 uses 16-byte loads and stores
+    # through tensor maps and stores pairs, fp32 uses 16-byte copies and stores
     vec = (c % (16 // f1.element_size()) == 0
            and all(t.data_ptr() % 16 == 0 for t in (f1, f2, df1, df2)))
     with torch.cuda.device(f1.device):

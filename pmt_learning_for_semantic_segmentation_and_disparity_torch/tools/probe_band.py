@@ -290,7 +290,7 @@ BWD2_MMA = "            if (!on[a]) continue;"
 BWD2_STAGES = "constexpr int kStages = 7;"
 BWD2_ROWS = "constexpr int kR = 4;"
 BWD2_STORE = "if (a < it.nr && x < W && c < C) {"
-BWD2_RELAYOUT = "  corr2d_bwd_relayout_kernel<<<"
+BWD2_RELAYOUT = "  corr2d_bwd_relayout_kernel<T><<<"
 BWD2_BAND = "  kernel<<<grid, kThreads, kSmem, stream>>>("
 BWD2_COMPUTE = "      if (live) {\n        const unsigned char* st = ring"
 BWD2_VARIANTS = {
@@ -308,7 +308,7 @@ BWD2_VARIANTS = {
          "  if (threadIdx.x < 32) {\n"),
         ("corr2d.cu", '  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n', ""),
         ("corr2d.cu", "  const int warp = (threadIdx.x >> 5) - 4;", "  const int warp = (threadIdx.x >> 5) - 1;")),
-    "no-relayout": (("corr2d.cu", BWD2_RELAYOUT, "  if (false) corr2d_bwd_relayout_kernel<<<"),),
+    "no-relayout": (("corr2d.cu", BWD2_RELAYOUT, "  if (false) corr2d_bwd_relayout_kernel<T><<<"),),
     "no-band": (("corr2d.cu", BWD2_BAND, "  if (false) " + BWD2_BAND.lstrip()),),
     # the consumers wait and release each stage and store, nothing else
     "no-compute": (("corr2d.cu", BWD2_COMPUTE, BWD2_COMPUTE.replace("if (live)", "if (false)")),),
@@ -327,6 +327,48 @@ BWD2_VARIANTS = {
 # kernel -> (variants, g's values a pixel, whether the C function takes a
 # workspace after df2)
 BWD_KERNELS = {"corr1d": (BWD_VARIANTS, 17, False), "corr2d": (BWD2_VARIANTS, 289, True)}
+
+# corr2d's fp32 forward (corr2d_fp32_kernel): variant -> (file, text, replacement) edits
+FWD32_STAGES = "constexpr int kStages = 2;"
+FWD32_UNITS = "        {\n          const float4* s2"
+FWD32_EDGES = "        {\n          // the edge's shifts"
+FWD32_COPY = "    cp_async16(dst, src, in);"
+FWD32_STORE = "          for (int n = lane; n < len[a]; n += 32) o[n] = src[n];"
+FWD32_VARIANTS = {
+    "kernel": (),
+    "stages-3": (("corr2d.cu", FWD32_STAGES, "constexpr int kStages = 3;"),),
+    # the ring's copies and barriers, f1's loads and the stores; no product
+    "no-products": (("corr2d.cu", FWD32_UNITS, "        if (false)" + FWD32_UNITS[8:]),
+                    ("corr2d.cu", FWD32_EDGES, "        if (false)" + FWD32_EDGES[8:])),
+    # the full units' products only: the edge units' shares cut out
+    "no-edges": (("corr2d.cu", FWD32_EDGES, "        if (false)" + FWD32_EDGES[8:]),),
+    # no copy into the ring (its barriers remain): the products on whatever it holds
+    "no-loads": (("corr2d.cu", FWD32_COPY, "    if (false) cp_async16(dst, src, in);"),),
+    # the staged outputs are not written out (a test that never holds keeps them)
+    "no-stores": (("corr2d.cu", FWD32_STORE, FWD32_STORE.replace(
+        "o[n] = src[n];", "if (src[n] == 1.5e-38f) o[n] = src[n];")),),
+}
+# corr2d's fp32 backward (the relayout in fp32, then corr2d_bwd_fp32_kernel)
+BWD32_STAGES = "constexpr int kStages32 = 3;"
+BWD32_BAND = "  kernel<<<grid, kThreads32, kSmem32, stream>>>("
+BWD32_COMPUTE = "    if (live) {\n      const float4* st = ring_b32"
+BWD32_WIN_COPY = "      cp_async16(st + n, src, in);"
+BWD32_SLICE_COPY = "      cp_async16(st + kWinChunks + a * kSliceChunks + n, src + n, true);"
+BWD32_STORE = "                *reinterpret_cast<float4*>(o) = make_float4("
+BWD32_VARIANTS = {
+    "kernel": (),
+    "stages-2": (("corr2d.cu", BWD32_STAGES, "constexpr int kStages32 = 2;"),),
+    # the workspace is left as it is: wrong by construction, the band's time alone
+    "no-relayout": (("corr2d.cu", BWD2_RELAYOUT, "  if (false) corr2d_bwd_relayout_kernel<T><<<"),),
+    "no-band": (("corr2d.cu", BWD32_BAND, "  if (false) " + BWD32_BAND.lstrip()),),
+    # the warps wait for and release each stage and store, nothing else
+    "no-products": (("corr2d.cu", BWD32_COMPUTE, BWD32_COMPUTE.replace("if (live)", "if (false)")),),
+    "no-loads": (("corr2d.cu", BWD32_WIN_COPY, "      if (false) cp_async16(st + n, src, in);"),
+                 ("corr2d.cu", BWD32_SLICE_COPY, "      if (false) " + BWD32_SLICE_COPY.lstrip())),
+    "no-stores": (("corr2d.cu", BWD32_STORE,
+                   "                if (acc[a][x][4 * t] == 1.5e-38f) "
+                   "*reinterpret_cast<float4*>(o) = make_float4("),),
+}
 
 
 def apply_edits(name: str, edits, read) -> dict:
@@ -347,6 +389,8 @@ def all_variants() -> dict:
     out = {f"forward {n}": edits for n, (_, edits) in VARIANTS.items()}
     for kernel, (variants, _, _) in BWD_KERNELS.items():
         out.update({f"{kernel}-backward {n}": edits for n, edits in variants.items()})
+    out.update({f"fp32 forward {n}": edits for n, edits in FWD32_VARIANTS.items()})
+    out.update({f"fp32 corr2d-backward {n}": edits for n, edits in BWD32_VARIANTS.items()})
     return out
 
 
@@ -415,11 +459,14 @@ def event_times_ms(fn, iters: int, flush: torch.Tensor = None, read: bool = Fals
     return [s.elapsed_time(e) for s, e in events]
 
 
-def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
-    """Time the bf16 backward of ``kernel`` (corr1d, corr2d) and its variants
-    at the training and serving shapes, warm and with the L2 flushed;
-    returns the report."""
+def probe_backward(card: str, nvcc: str, kernel: str = "corr1d", fp32: bool = False) -> dict:
+    """Time the bf16 backward of ``kernel`` (corr1d, corr2d; ``fp32``:
+    corr2d's fp32 backward) and its variants at the training and serving
+    shapes, warm and with the L2 flushed; returns the report."""
     variants, g_values, takes_work = BWD_KERNELS[kernel]
+    if fp32:
+        variants = BWD32_VARIANTS
+    dtype = torch.float32 if fp32 else torch.bfloat16
     libs = build_variants({name: ((kernel,), edits) for name, edits in variants.items()},
                           prefix="bwd-")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -428,8 +475,8 @@ def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
     times, diff = {}, {}
     for tag, shape in BWD_SHAPES.items():
         b, h, w, c = shape
-        f1, f2 = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(2))
-        grad = torch.randn((b, h, w, g_values), device="cuda", generator=g).bfloat16()
+        f1, f2 = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(2))
+        grad = torch.randn((b, h, w, g_values), device="cuda", generator=g).to(dtype)
         outs, works = {}, {}
         for _ in range(2):
             for (name, _), (lib, _) in libs.items():
@@ -441,12 +488,13 @@ def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
                 if takes_work:  # each variant's own workspace, as its wrapper allocates it
                     size = getattr(lib, f"{kernel}_backward_workspace")
                     size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_size_t
-                    work = (works.setdefault(name, torch.empty(size(b, h, w, c, 1), dtype=torch.uint8,
+                    work = (works.setdefault(name, torch.empty(size(b, h, w, c, int(not fp32)),
+                                                               dtype=torch.uint8,
                                                                device="cuda")).data_ptr(),)
 
                 def call():
                     err = fn(f1.data_ptr(), f2.data_ptr(), grad.data_ptr(), df[0].data_ptr(),
-                             df[1].data_ptr(), *work, b, h, w, c, 1, 1, stream)
+                             df[1].data_ptr(), *work, b, h, w, c, int(not fp32), 1, stream)
                     if err != 0:
                         raise RuntimeError(f"{name}: cudaError {err}")
 
@@ -462,11 +510,11 @@ def probe_backward(card: str, nvcc: str, kernel: str = "corr1d") -> dict:
     hmma = {name: sass(path).count("HMMA") for (name, _), (_, path) in libs.items()}
     for key, ts in times.items():
         tag, _, name = key.split(" ", 2)
-        print(f"[probe_band {kernel} backward] {key}: mean {', '.join(f'{t["mean"]:.4f}' for t in ts)} ms, "
+        print(f"[probe_band {kernel} backward {str(dtype)[6:]}] {key}: mean {', '.join(f'{t["mean"]:.4f}' for t in ts)} ms, "
               f"median {', '.join(f'{t["median"]:.4f}' for t in ts)} ms, max|d| vs kernel "
               f"{diff[f'{tag} {name}']:.4g}, {hmma[name]} HMMA in the library", flush=True)
     report = {"card": card, "nvcc": nvcc, "kernel": f"{kernel}_backward", "shapes": BWD_SHAPES,
-              "dtype": "bfloat16", "ms": times,
+              "dtype": str(dtype)[6:], "ms": times,
               "max_abs_diff_vs_kernel": diff, "hmma": hmma}
     print(json.dumps(report), flush=True)
     return report
@@ -482,6 +530,9 @@ def main() -> int:
                     help="the forward probe's f1 = f2 shape (NHWC)")
     ap.add_argument("--variants", default=None,
                     help="the forward variants to time, comma-separated (all by default)")
+    ap.add_argument("--fp32", action="store_true",
+                    help="probe corr2d's fp32 kernels (forward, or with --backward corr2d its "
+                         "backward) instead of the bf16 band kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_band: no CUDA device", file=sys.stderr)
@@ -492,21 +543,25 @@ def main() -> int:
     nvcc = subprocess.run([_kernels._nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-2]
     print(nvcc, flush=True)
+    if args.fp32 and args.backward not in (None, "corr2d"):
+        ap.error("--fp32 probes corr2d's kernels")
     if args.backward:
-        report = probe_backward(card, nvcc, args.backward)
+        report = probe_backward(card, nvcc, args.backward, args.fp32)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(report, f, indent=1)
         return 0
-    names = args.variants.split(",") if args.variants else list(VARIANTS)
-    unknown = sorted(set(names) - set(VARIANTS))
+    table = {n: (("corr2d",), e) for n, e in FWD32_VARIANTS.items()} if args.fp32 else VARIANTS
+    dtype = torch.float32 if args.fp32 else torch.bfloat16
+    names = args.variants.split(",") if args.variants else list(table)
+    unknown = sorted(set(names) - set(table))
     if unknown or "kernel" not in names:
         ap.error(f"--variants: unknown {unknown}, or no 'kernel' to hold the others against")
-    libs = build_variants({n: VARIANTS[n] for n in names})
+    libs = build_variants({n: table[n] for n in names})
     shape = tuple(args.shape)
     g = torch.Generator(device="cuda").manual_seed(0)
-    f1 = torch.randn(shape, device="cuda", generator=g).bfloat16()
-    f2 = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    f1 = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    f2 = torch.randn(shape, device="cuda", generator=g).to(dtype)
     b, h, w, c = shape
     stream = torch.cuda.current_stream().cuda_stream
     plans = {}  # each variant's plan at C: stages, boxes a stage, f1 resident, smem bytes
@@ -523,12 +578,12 @@ def main() -> int:
             fn = getattr(lib, f"{k}_forward")
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             ph, pw = PATCH[k]
-            out = outs.setdefault((name, k), torch.zeros((b, h, w, ph * pw), dtype=torch.bfloat16,
+            out = outs.setdefault((name, k), torch.zeros((b, h, w, ph * pw), dtype=dtype,
                                                          device="cuda"))
 
             def call():
-                err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c, ph, pw, 1, 1,
-                         stream)
+                err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c, ph, pw,
+                         int(not args.fp32), 1, stream)
                 if err != 0:
                     raise RuntimeError(f"{name} {k}: cudaError {err}")
 
@@ -538,7 +593,7 @@ def main() -> int:
     diff = {f"{k} {name}": (out.float() - outs[("kernel", k)].float()).abs().max().item()
             for (name, k), out in outs.items()}
     hmma = {f"{k} {name}": sass(path).count("HMMA") for (name, k), (_, path) in libs.items()}
-    report = {"card": card, "nvcc": nvcc, "shape": list(shape), "dtype": "bfloat16", "ms": times,
+    report = {"card": card, "nvcc": nvcc, "shape": list(shape), "dtype": str(dtype)[6:], "ms": times,
               "max_abs_diff_vs_kernel": diff, "hmma": hmma, "plan": plans}
     for key, ms in times.items():
         print(f"[probe_band] {key}: {', '.join(f'{t:.4f}' for t in ms)} ms, max|d| vs kernel "

@@ -2,7 +2,7 @@
 CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.profile_serve \
-        [--net sdnet_mini_ext] [--aspp 0|1|2] [--train] [--out report.json]
+        [--net sdnet_mini_ext] [--aspp 0|1|2] [--train] [--fp32] [--out report.json]
 
 Runs the eval forward of one net of the port (the flagship ``sdnet_mini_ext``
 by default; ``get_network`` + ``make_forward_fn`` with the bf16 policy, random
@@ -17,7 +17,9 @@ writes the same as JSON there. Exits non-zero without a card.
 ``--train`` profiles the net's train step instead (``make_train_step`` with
 the bf16 policy, the loss stack CE + Lovász + MultiTversky + OHEM and Adam,
 on batches of 8 stereo pairs of 256x512, the training shape of the JAX
-package's bench): two warm-up steps, then ``ITERS`` steps.
+package's bench): two warm-up steps, then ``ITERS`` steps. ``--fp32`` runs
+either in fp32, the CLI's default precision (no bf16 policy; cuDNN's TF32
+as the program leaves it).
 """
 from __future__ import annotations
 
@@ -79,6 +81,8 @@ def main(argv=None) -> int:
                     help="-aspp of the flagship family (default 0)")
     ap.add_argument("--train", action="store_true",
                     help="profile the net's train step instead of the serving forward")
+    ap.add_argument("--fp32", action="store_true",
+                    help="in fp32 (the CLI's default precision) instead of the bf16 policy")
     ap.add_argument("--out", default=None, help="write the report as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -90,7 +94,8 @@ def main(argv=None) -> int:
     cfg = PMTConfig()
     cfg.model.net = args.net
     cfg.model.aspp = args.aspp
-    cfg.parallel.bf16 = True
+    cfg.parallel.bf16 = not args.fp32
+    dtype = "fp32" if args.fp32 else "bf16"
     g = torch.Generator(device="cuda").manual_seed(2)
     # the ground truth too: some nets' forwards read it (dsnet_warp_disp's
     # disparity input, the heads deeplab and pspnet take from it)
@@ -136,7 +141,7 @@ def main(argv=None) -> int:
     report = {
         "card": card, "device": torch.cuda.get_device_name(0),
         "net": args.net, "aspp": args.aspp, "mode": "train" if args.train else "serve",
-        "shape": list(shape), "dtype": "bf16", "iters": ITERS,
+        "shape": list(shape), "dtype": dtype, "iters": ITERS,
         "wall_ms_per_batch": wall_ms / ITERS,
         "kernel_ms_per_batch": kernel_ms / ITERS,
         "device_busy_share": kernel_ms / wall_ms if wall_ms > 0 else None,
@@ -145,7 +150,8 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": n[:160], "ms_per_batch": ms / ITERS,
                          "calls_per_batch": c / ITERS} for n, (ms, c) in top],
     }
-    print(f"[profile] {report['mode']} {args.net} aspp {args.aspp} {'x'.join(map(str, shape))} bf16: wall {report['wall_ms_per_batch']:.3f} ms/batch, "
+    print(f"[profile] {report['mode']} {args.net} aspp {args.aspp} {'x'.join(map(str, shape))} {dtype}: "
+          f"wall {report['wall_ms_per_batch']:.3f} ms/batch, "
           f"kernels {report['kernel_ms_per_batch']:.3f} ms/batch, "
           f"device busy {report['device_busy_share']}", flush=True)
     for fam, ms in report["by_family_ms_per_batch"].items():

@@ -1,7 +1,8 @@
-"""corr2d's bf16 backward of two trees in turns, on one CUDA card.
+"""corr2d's bf16 backward, or its fp32 forward and backward, of two trees in
+turns, on one CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.turns_backward \
-        --parent DIR [--rounds 1] [--out report.json]
+        --parent DIR [--fp32] [--rounds 1] [--out report.json]
 
 ``DIR`` is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -15,6 +16,12 @@ a ~0.2 ms spin of the card, with the L2 flushed before it (256 MB written)
 and warm, 50 launches each, after a warm-up. The inputs come from one seed,
 so both trees see the same tensors; each turn also holds its gradients
 against ``correlation2d_vjp_plain`` (bf16 tolerance 1e-2 * max|ref|).
+
+``--fp32`` times the fp32 path at the same shapes instead: the forward
+wrapper ``correlation2d_cuda``, each launch timed alone, warm (it reads 65 to
+488 MB, most of which the L2 cannot keep between launches), and the backward
+as above, flushed and warm; each held against ``correlation_plain`` and
+``correlation2d_vjp_plain`` at the fp32 tolerance 1e-4 * max|ref|.
 
 Turns run parent, this tree, this tree, parent (``--rounds`` times). Prints
 each turn's times, the card's name and power limit, and one JSON line
@@ -58,32 +65,46 @@ def event_times(fn, iters: int, flush):
     return sum(times) / iters, times[iters // 2]
 
 
-def time_tree(root: str) -> dict:
-    """One turn: the wrapper of the tree at ``root``, timed at SHAPES."""
+def share_of_tolerance(got, ref, tol: float) -> float:
+    """max over the tensors of max|got - ref| / (tol * max|ref|)."""
+    return max(((a.float() - b.float()).abs().max() / (tol * b.float().abs().max())).item()
+               for a, b in zip(got, ref))
+
+
+def time_tree(root: str, fp32: bool = False) -> dict:
+    """One turn: the wrappers of the tree at ``root``, timed at SHAPES (bf16
+    backward, or with ``fp32`` the fp32 forward and backward)."""
     import torch
 
     sys.path.insert(0, root)
     correlation = importlib.import_module(f"{PACKAGE}.ops.correlation")
     assert Path(correlation.__file__).resolve().is_relative_to(Path(root).resolve()), correlation.__file__
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    dtype, tol = (torch.float32, 1e-4) if fp32 else (torch.bfloat16, 1e-2)
     out = {}
     for shape in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(0)
-        f1, f2 = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(2))
-        grad = torch.randn(shape[:3] + (289,), device="cuda", generator=g).bfloat16()
-        got = correlation.correlation2d_backward_cuda(f1, f2, grad)
-        ref = correlation.correlation2d_vjp_plain(f1, f2, grad, (17, 17))
-        share = max(((a.float() - b.float()).abs().max() / (1e-2 * b.float().abs().max())).item()
-                    for a, b in zip(got, ref))
+        f1, f2 = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(2))
+        grad = torch.randn(shape[:3] + (289,), device="cuda", generator=g).to(dtype)
+        key = "x".join(map(str, shape))
+        if fp32:
+            share = share_of_tolerance([correlation.correlation2d_cuda(f1, f2, (17, 17))],
+                                       [correlation.correlation_plain(f1, f2, (17, 17))], tol)
+            if share > 1:
+                raise SystemExit(f"{root} {shape} forward: max|d| is {share:.3g} of its tolerance")
+            fwd = event_times(lambda: correlation.correlation2d_cuda(f1, f2, (17, 17)), 50, None)
+            out[f"forward {key}"] = {"warm_mean": fwd[0], "warm_median": fwd[1],
+                                     "err_share_of_tolerance": share}
+        share = share_of_tolerance(correlation.correlation2d_backward_cuda(f1, f2, grad),
+                                   correlation.correlation2d_vjp_plain(f1, f2, grad, (17, 17)), tol)
         if share > 1:
             raise SystemExit(f"{root} {shape}: max|d| is {share:.3g} of its tolerance")
-        del got, ref
         run = lambda: correlation.correlation2d_backward_cuda(f1, f2, grad)  # noqa: E731
         flushed = event_times(run, 50, flush)
         warm = event_times(run, 50, None)
-        out["x".join(map(str, shape))] = {"flushed_mean": flushed[0], "flushed_median": flushed[1],
-                                          "warm_mean": warm[0], "warm_median": warm[1],
-                                          "err_share_of_tolerance": share}
+        out[f"backward {key}" if fp32 else key] = {
+            "flushed_mean": flushed[0], "flushed_median": flushed[1], "warm_mean": warm[0],
+            "warm_median": warm[1], "err_share_of_tolerance": share}
         del f1, f2, grad
     return out
 
@@ -93,6 +114,8 @@ def main() -> int:
     ap.add_argument("--parent", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1, help="rounds of parent, this, this, parent")
     ap.add_argument("--out", default=None, help="write the JSON report here")
+    ap.add_argument("--fp32", action="store_true",
+                    help="time the fp32 forward and backward instead of the bf16 backward")
     ap.add_argument("--time", metavar="ROOT", help=argparse.SUPPRESS)  # one turn, in its own process
     args = ap.parse_args()
     import torch
@@ -101,7 +124,7 @@ def main() -> int:
         print("turns_backward: no CUDA device", file=sys.stderr)
         return 2
     if args.time:
-        print(json.dumps(time_tree(args.time)), flush=True)
+        print(json.dumps(time_tree(args.time, args.fp32)), flush=True)
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -112,19 +135,22 @@ def main() -> int:
     turns = []
     for _ in range(args.rounds):
         for name in ("parent", "this", "this", "parent"):
-            proc = subprocess.run([sys.executable, __file__, "--time", trees[name]],
-                                  capture_output=True, text=True, timeout=1200)
+            proc = subprocess.run([sys.executable, __file__, "--time", trees[name]]
+                                  + ["--fp32"] * args.fp32, capture_output=True, text=True,
+                                  timeout=1200)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
                 return 1
             times = json.loads(proc.stdout.strip().splitlines()[-1])
             turns.append({"tree": name, "ms": times})
             for shape, t in times.items():
-                print(f"[turns {name}] {shape} bf16: {t['flushed_mean']:.4f} ms flushed (median "
-                      f"{t['flushed_median']:.4f}), {t['warm_mean']:.4f} ms warm (median "
-                      f"{t['warm_median']:.4f}); max|d| {t['err_share_of_tolerance']:.3g} of the "
-                      f"tolerance", flush=True)
-    report = {"card": card, "trees": trees, "turns": turns}
+                flushed = (f"{t['flushed_mean']:.4f} ms flushed (median {t['flushed_median']:.4f}), "
+                           if "flushed_mean" in t else "")
+                print(f"[turns {name}] {shape} {'fp32' if args.fp32 else 'bf16'}: {flushed}"
+                      f"{t['warm_mean']:.4f} ms warm (median {t['warm_median']:.4f}); max|d| "
+                      f"{t['err_share_of_tolerance']:.3g} of the tolerance", flush=True)
+    report = {"card": card, "dtype": "float32" if args.fp32 else "bfloat16", "trees": trees,
+              "turns": turns}
     print(json.dumps(report), flush=True)
     if args.out:
         with open(args.out, "w") as f:
