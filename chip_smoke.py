@@ -168,7 +168,28 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    evaluates the 5 test pairs (corr2d once a step and once an eval forward,
    its backward once a step, corr1d never). Phase 2 holds the fp32 kernels
    at their own edges too (4-row blocks, passes, stages; the backward's
-   items, channel groups and relayout).
+   items, channel groups and relayout);
+15. the port's learning gate, ``tools/overfit_smoke.py`` (the JAX package's
+   ``tools/overfit_smoke.py`` ported with its configuration: ``sdnet_mini``
+   on 8 synthetic ROSeS pairs of 96x160, 64x128 crops, batches of 8, Adam
+   at 5e-3 for 40 epochs of one step, evaluated on the same 8 pairs), at
+   full width and depth, each run a ``Session`` of its own from the seeded
+   init, TF32 as the program leaves it: ``sdnet_mini`` in fp32 and under
+   the bf16 policy at seeds 0, 1 and 2, the flagship at
+   ``scripts/train_flagship.sh``'s flags (CE + Lovász) in fp32 at seed 0,
+   and the negative control, ``sdnet_mini`` fp32 with its labels rolled
+   along each training batch (``overfit_smoke.LabelFault``). Holds each run
+   finite, corr1d once a train step and once an eval row and its backward
+   once a train step, exactly; the mIoU of head 2 with BatchNorm on the 8
+   pairs' own statistics (``overfit_smoke.batch_statistics_miou``) at least
+   ``OVERFIT_HELD_MIOU`` in every run that learns, with its last epoch's
+   train loss at most half its first's, and below it in the control.
+   Prints each run's tool line (the eval's mIoU of head 2 on the running
+   statistics and its ``pass``, mIoU > 0.9), its first and last train loss,
+   ms a step and peak memory, and each configuration's medians beside the
+   JAX package's CPU readings of the tool (``OVERFIT_JAX_CPU``): readings,
+   not held. Phase 2 holds corr1d at this path's shapes (C 352 at W 16 and
+   20) too.
 
 Phase 8's eval CLI runs at ``-show_results 1`` (the flag's default): the
 summary is printed and both confusion heatmaps decode.
@@ -194,7 +215,7 @@ phase 8 only, ``--options`` phase 9 only (``--serve flagship_aspp2`` and
 ``--train flagship_aspp2`` time that path alone), ``--trunks`` phase 10
 only (``--serve dlab``, ``--train flagship_resnet101`` and the like),
 ``--zoo`` phase 11 only (``--serve pspnet``, ``--train deeplab_mod`` and the
-like), ``--encdec`` phase 12 only.
+like), ``--encdec`` phase 12 only, ``--overfit`` phase 15 only.
 
     python3 chip_smoke.py --ddp
 
@@ -289,6 +310,9 @@ ASPP2_CASES = [(ASPP2_SERVE_SHAPE, torch.float32), (ASPP2_SERVE_SHAPE, torch.bfl
                (ASPP2_TRAIN_SHAPE, torch.float32), (ASPP2_TRAIN_SHAPE, torch.bfloat16)]
 # the forward shapes the kernel phase times (each kernel meets its own)
 TIMED_FORWARD = (CORR_SHAPE, ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE)
+# phase 15's training site: sdnet_mini's a_py2 (C 352 at /8) of one view at
+# the overfit tool's 8 crops of 64x128
+OVERFIT_TRAIN_CASES = [((8, 8, 16, 352), torch.float32), ((8, 8, 16, 352), torch.bfloat16)]
 # corr1d's backward against correlation1d_vjp_plain: the training shape per
 # view (main path) and the serving shape in both dtypes, then edge shapes of
 # the bf16 transposed band (64-column tiles with an 8-column halo, 64-channel
@@ -318,6 +342,7 @@ BACKWARD_CASES = [
     ((2, 3, 33, 37), torch.float32),        # C % 4 != 0: element staging and stores
     ((2, 3, 65, 36), torch.float32, 1),     # inputs off 16-byte alignment
     ((2, 3, 33, 37), torch.float32, 1),
+    *OVERFIT_TRAIN_CASES,                   # phase 15: sdnet_mini's 1/8 map a view
 ]
 # corr2d's backward against correlation2d_vjp_plain: the training and
 # serving shapes in both dtypes, then edge shapes: H and W against the 8-row
@@ -460,6 +485,9 @@ KERNELS = {
         ((2, 3, 40, 24), torch.bfloat16),    # C = a step and a half
         ((1, 3, 70, 360), torch.bfloat16),   # C = 360: a last box of 40 channels
         ((2, 3, 70, 352), torch.bfloat16, 2),  # misaligned inputs: element staging
+        *OVERFIT_TRAIN_CASES,                # phase 15: sdnet_mini's 1/8 map at the tool's
+        ((1, 12, 20, 352), torch.float32),   # 64x128 crops and its 96x160 eval rows (one a
+        ((1, 12, 20, 352), torch.bfloat16),  # forward): W 16 and 20, under one 64-column tile
     ]),
     "corr2d": ("correlation2d_cuda", f"{TPU_CORR}:221", [
         ((1, 5, 9, 20), torch.float32),      # H, W < 17, B = 1 (vector loads)
@@ -548,6 +576,43 @@ FP32_TRAIN_STEPS = 8
 FP32_FILES = ("-net sdnet -backbone densenet -corrType 2dcorr -crop 256 512 -b 8 -e 1 "
               "-loss cross_entropy lovasz_loss tversky_loss ohm_loss -output_activation linear "
               "-datasetName roses -train 1 -show_results 0").split()
+# phase 15: the port's learning gate (tools/overfit_smoke.py: sdnet_mini on
+# the tool's fixture of 8 training pairs of 96x160, evaluated on the same
+# pairs, 64x128 crops, batches of 8, Adam at 5e-3, OVERFIT_EPOCHS epochs of
+# one step) at full width and depth, each run a Session of its own from the
+# seeded init: sdnet_mini in fp32 and under the bf16 policy at each of
+# OVERFIT_SEEDS (cfg.run.seed; the fixture's own seed stays 0), and the
+# flagship at scripts/train_flagship.sh's flags (overfit_smoke.FLAGSHIP) in
+# fp32 at seed 0, with TF32 as the program leaves it; then the negative
+# control, sdnet_mini fp32 at seed 0 with its labels rolled along each
+# training batch (overfit_smoke.LabelFault)
+OVERFIT_EPOCHS = 40
+OVERFIT_SEEDS = (0, 1, 2)
+OVERFIT_STEPS_PER_EPOCH = 1  # the tool's 8 training pairs in batches of 8
+OVERFIT_EVAL_ROWS = 8        # the same 8 pairs, evaluated once, after the last epoch
+# sdnet_mini and the flagship correlate with corr1d: its forward once a
+# train step and once an eval row (the eval step runs each row alone), its
+# backward once a train step, corr2d never
+OVERFIT_LAUNCHES = {"corr1d": OVERFIT_EPOCHS * OVERFIT_STEPS_PER_EPOCH + OVERFIT_EVAL_ROWS,
+                    "corr1d_backward": OVERFIT_EPOCHS * OVERFIT_STEPS_PER_EPOCH,
+                    "corr2d": 0, "corr2d_backward": 0}
+# a run learns: its last epoch's train loss at most this share of its first's
+OVERFIT_LOSS_DROP = 0.5
+# the held readout: mIoU(head 2) on the 8 pairs with BatchNorm on their own
+# statistics (overfit_smoke.batch_statistics_miou) at OVERFIT_EPOCHS, at
+# least this in every run that learns and below it in the control. Halfway
+# between the card's readings of both (PERF.md section 6, the overfit gate:
+# tools/overfit_curve.py at 40 epochs): the sound runs' worst 0.6524 (25
+# runs: sdnet_mini fp32 and bf16 at seeds 0-9, the flagship at 0-4), the
+# label fault's best 0.4675 (15 runs: each configuration at seeds 0-4)
+OVERFIT_HELD_MIOU = 0.56
+# the JAX package's readings of the tool's mIoU(head 2) at 40 epochs on a CPU
+# of 8 cores, at the seeds phase 15 runs (PERF.md section 6, the overfit gate:
+# `JAX_PLATFORMS=cpu python tests/jax_overfit_curve.py`, the JAX tool's own
+# configuration). Printed beside the port's, not held: at 40 epochs the
+# tool's eval swings between neighbouring epochs in both packages
+OVERFIT_JAX_CPU = {"sdnet_mini fp32": (0.3497, 0.5179, 0.9376), "sdnet_mini bf16": (0.2940, 0.9675, 0.3756),
+                   "flagship fp32": (0.3182,)}
 
 
 class SmokeFailure(Exception):
@@ -2809,6 +2874,123 @@ def phase_fp32(card: str) -> dict:
     return out
 
 
+# ---- phase 15: the learning gate (tools/overfit_smoke.py) ----
+
+def overfit_run(tag: str, seed: int, bf16: bool, flagship: bool, card: str, fault: bool = False) -> dict:
+    """One run of the overfit tool's configuration on the card (the flagship
+    at ``overfit_smoke.FLAGSHIP`` where ``flagship``; the gate's negative
+    control ``overfit_smoke.LabelFault`` where ``fault``), in a Session of
+    its own from the seeded init ``seed``: the tool's line, the held readout
+    (``overfit_smoke.batch_statistics_miou``), the first and last epoch's
+    train loss, ms a step, peak memory and each kernel's launches in
+    ``fit``, the counts set to 0 just before it."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.tools import overfit_smoke as tool
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import Session
+
+    free_card()
+    tmp = tempfile.mkdtemp(prefix="pmt_overfit_")
+    try:
+        cfg = tool.overfit_config(tmp, OVERFIT_EPOCHS, bf16, seed, flagship)
+        session = (tool.LabelFault if fault else Session)(cfg)
+        check(session.device.type == "cuda", f"{tag}: the Session took {session.device}")
+        torch.cuda.reset_peak_memory_stats()
+        kernels = zero_counts()
+        t0 = time.perf_counter()
+        ev = tool.last_row(session)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        held = tool.batch_statistics_miou(session)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = tool.result(ev, OVERFIT_EPOCHS)
+    losses = [float(m["loss"]) for m in session.train_history]
+    t = session.timings
+    check(len(t["step_s"]) == OVERFIT_EPOCHS * OVERFIT_STEPS_PER_EPOCH == len(losses) * OVERFIT_STEPS_PER_EPOCH
+          and t["eval_rows"] == OVERFIT_EVAL_ROWS,
+          f"{tag}: {len(t['step_s'])} train steps and {t['eval_rows']} eval rows, expected "
+          f"{OVERFIT_EPOCHS * OVERFIT_STEPS_PER_EPOCH} and {OVERFIT_EVAL_ROWS}")
+    check(all(np.isfinite(v) for v in losses) and all(np.isfinite(float(v)) for v in ev.values())
+          and np.isfinite(held),
+          f"{tag}: a train loss or eval value is not finite: losses {losses}, eval {ev}, {held}")
+    check(launches == OVERFIT_LAUNCHES, f"{tag}: launches {launches}, expected {OVERFIT_LAUNCHES} "
+          f"({OVERFIT_EPOCHS * OVERFIT_STEPS_PER_EPOCH} train steps, {OVERFIT_EVAL_ROWS} eval rows)")
+    if fault:
+        check(held < OVERFIT_HELD_MIOU,
+              f"{tag}: the planted label fault reads {held:.4f}, not below the held limit "
+              f"{OVERFIT_HELD_MIOU}: the hold does not tell a port that learns from one that does not")
+    else:
+        check(held >= OVERFIT_HELD_MIOU,
+              f"{tag}: mIoU(head 2) with the batch's own statistics {held:.4f} < {OVERFIT_HELD_MIOU} "
+              f"(the tool's eval {float(ev['miou2']):.4f}): the port did not learn the 8 pairs")
+        check(losses[-1] <= OVERFIT_LOSS_DROP * losses[0],
+              f"{tag}: the last epoch's train loss {losses[-1]} is not at most {OVERFIT_LOSS_DROP} of "
+              f"the first's {losses[0]}")
+    after_first = t["step_s"][OVERFIT_STEPS_PER_EPOCH:]
+    out = {**line, "seed": seed, "miou2": float(ev["miou2"]), "batch_statistics_miou2": held,
+           "train_loss_first": losses[0], "train_loss_last": losses[-1],
+           "ms_per_step": 1e3 * float(np.mean(after_first)),
+           "load_wait_ms": 1e3 * float(np.mean(t["load_wait_s"][OVERFIT_STEPS_PER_EPOCH:])),
+           "peak_gib": peak, "seconds": seconds, "launches": launches}
+    print(f"[overfit {tag}] {json.dumps(line)} (the tool's gate: mIoU(head 2) > {tool.GATE}, a reading); "
+          f"held: mIoU(head 2) with the batch's own statistics {held:.6f} "
+          f"({'below' if fault else 'at least'} {OVERFIT_HELD_MIOU}); train loss, first epoch {losses[0]:.6g}, last "
+          f"{losses[-1]:.6g}; {out['ms_per_step']:.2f} ms a step after the first epoch (loader wait "
+          f"{out['load_wait_ms']:.2f}); peak memory {peak:.2f} GiB; {seconds:.1f} s; launches {launches} "
+          f"(expected {OVERFIT_LAUNCHES}); {card}", flush=True)
+    return out
+
+
+def phase_overfit(card: str) -> dict:
+    """Phase 15: the overfit tool's configuration on the card at full width
+    and depth: sdnet_mini in fp32 and under the bf16 policy at each of
+    ``OVERFIT_SEEDS``, the flagship in fp32 at seed 0, TF32 as the program
+    leaves it, then the negative control (``LabelFault``, fp32, seed 0).
+    Holds every run finite and its launches exact; every run that learns at
+    or above ``OVERFIT_HELD_MIOU`` on the held readout with its train loss
+    down to ``OVERFIT_LOSS_DROP`` of its first epoch's, and the control
+    below it. The tool's line (its eval on the running statistics and its
+    ``pass``) and each configuration's medians are printed beside the JAX
+    package's CPU readings (``OVERFIT_JAX_CPU``), not held: at 40 epochs
+    the tool's eval swings between neighbouring epochs in both packages
+    (PERF.md section 6, the overfit gate). Returns {sdnet_mini: each kernel's launches
+    in each run, flagship: its run's}."""
+    t0 = time.perf_counter()
+    runs = {}
+    with program_precision():
+        for bf16 in (False, True):
+            name = f"sdnet_mini {'bf16' if bf16 else 'fp32'}"
+            runs[name] = [overfit_run(f"{name} seed {s}", s, bf16, False, card) for s in OVERFIT_SEEDS]
+        runs["flagship fp32"] = [overfit_run("flagship fp32 seed 0", 0, False, True, card)]
+        control = overfit_run("sdnet_mini fp32 seed 0, labels rolled (the control)", 0, False, False, card,
+                              fault=True)
+    summary = {}
+    for name, rs in runs.items():
+        evals = [r["miou2"] for r in rs]
+        held = [r["batch_statistics_miou2"] for r in rs]
+        summary[name] = {"miou2": evals, "median": float(np.median(evals)), "pass": [r["pass"] for r in rs],
+                         "batch_statistics_miou2": held, "batch_statistics_median": float(np.median(held)),
+                         "jax_cpu_miou2": OVERFIT_JAX_CPU[name],
+                         "ms_per_step": [r["ms_per_step"] for r in rs], "peak_gib": [r["peak_gib"] for r in rs],
+                         "train_loss_first_last": [[r["train_loss_first"], r["train_loss_last"]] for r in rs]}
+        jax_median = float(np.median(OVERFIT_JAX_CPU[name]))
+        print(f"[overfit {name}] the tool's eval mIoU(head 2) {', '.join(f'{v:.4f}' for v in evals)} "
+              f"(median {summary[name]['median']:.4f}; the JAX tool's on the CPU at the same seeds "
+              f"{', '.join(f'{v:.4f}' for v in OVERFIT_JAX_CPU[name])}, median {jax_median:.4f}, "
+              f"the port's median {summary[name]['median'] - jax_median:+.4f} from it): readings, not held; held, "
+              f"with the batch's own statistics "
+              f"{', '.join(f'{v:.4f}' for v in held)} (at least {OVERFIT_HELD_MIOU} each)", flush=True)
+    summary["control"] = {"batch_statistics_miou2": control["batch_statistics_miou2"], "miou2": control["miou2"]}
+    seconds = time.perf_counter() - t0
+    print(f"[overfit] {sum(len(rs) for rs in runs.values())} runs and the control in {seconds:.1f} s; {card}",
+          flush=True)
+    print(json.dumps({"overfit": summary, "held_miou": OVERFIT_HELD_MIOU, "seconds": seconds}), flush=True)
+    return {"sdnet_mini": {k: [r["launches"][k] for name in ("sdnet_mini fp32", "sdnet_mini bf16")
+                               for r in runs[name]] for k in OVERFIT_LAUNCHES},
+            "flagship": runs["flagship fp32"][0]["launches"]}
+
+
 def phase_ddp_scale(ranks: list, card: str) -> dict:
     """--ddp: print the scaling steps' readings; returns {cards: {ms/step,
     pairs/s, the NCCL kernels' ms a step and share of it}} (rank 0's)."""
@@ -2872,6 +3054,11 @@ def main() -> int:
     ap.add_argument("--fp32", action="store_true",
                     help="with --serve or --train: in fp32 (the CLI's default precision), with "
                          "TF32 as the program leaves it; alone: phase 14 only")
+    ap.add_argument("--overfit", action="store_true",
+                    help="only run the learning gate (phase 15): tools/overfit_smoke.py's "
+                         "configuration, sdnet_mini in fp32 and bf16 at three seeds, the "
+                         "flagship in fp32 and the label-fault control, held on the "
+                         "batch-statistics mIoU and printed beside the JAX package's CPU readings")
     ap.add_argument("--zoo", action="store_true",
                     help="only run the rest of the CLI's nets (phase 11): deeplab_mod, dsnet_warp "
                          "and pspnet serve and train, every other configuration, deeplab's TTA, "
@@ -2888,7 +3075,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if (args.serve or args.train or args.backward or args.files or args.options or args.trunks
-            or args.zoo or args.encdec or args.ddp or args.fp32):
+            or args.zoo or args.encdec or args.ddp or args.fp32 or args.overfit):
         precision = program_precision() if args.fp32 else contextlib.nullcontext()
         try:
             if args.ddp:
@@ -2896,6 +3083,8 @@ def main() -> int:
                 phase_ddp(card, nccl=True)
             elif args.encdec:
                 phase_encdec(card)
+            elif args.overfit:
+                phase_overfit(card)
             elif args.files:
                 phase_files(card)
             elif args.zoo:
@@ -2995,6 +3184,12 @@ def main() -> int:
         for name in ("corr2d", "corr2d_backward"):
             records[name]["launches_fp32_train"] = paths["train"][name]
             records[name]["launches_fp32_cli"] = paths["cli"][name]
+        # phase 15: the learning gate; corr1d once a train step and once an
+        # eval row, its backward once a train step (OVERFIT_LAUNCHES a run)
+        paths = phase_overfit(card)
+        for name in ("corr1d", "corr1d_backward"):
+            records[name]["launches_overfit"] = paths["sdnet_mini"][name]
+            records[name]["launches_overfit_flagship"] = paths["flagship"][name]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -98,6 +98,7 @@ class Session:
         self.timings = {"step_s": [], "load_wait_s": [], "eval_batches": 0, "eval_rows": 0,
                         "eval_s": 0.0}
         self.accumulator = self.eval_summary = None
+        self.train_history = []  # each epoch's last train step's metrics, on the host
 
     # -- init ---------------------------------------------------------------
     def init_state(self, steps_per_epoch: int = 1) -> TrainState:
@@ -166,6 +167,7 @@ class Session:
         out = {k: v.cpu().numpy() for k, v in last.items()}
         if i:  # the card's tail of the last step
             self.timings["step_s"][-1] += time.perf_counter() - t_sync
+        self.train_history.append(out)
         return out
 
     def evaluate(self, loader: DataLoader, log=print,

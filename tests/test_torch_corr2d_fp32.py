@@ -19,6 +19,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from port_threads import torch_threads  # noqa: F401
 
 # by path: the package ``ops`` re-exports the function ``correlation`` over
 # its module's name

@@ -23,6 +23,7 @@ def test_importing_the_port_loads_no_jax():
         f"import {PORT}.ops.warp, {PORT}.ops.costvolume, {PORT}.evaluation.tta\n"
         f"import {PORT}.models.encdec, {PORT}.parallel, {PORT}.utils.analysis\n"
         f"import {PORT}.utils.viz, {PORT}.utils.profiling, {PORT}.parallel.mesh\n"
+        f"import {PORT}.tools.overfit_smoke, {PORT}.tools.overfit_curve\n"
         f"banned = {BANNED!r}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "print(bad)\n"

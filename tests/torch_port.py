@@ -9,8 +9,9 @@
   and compiles in seconds. Widths, heads, the pyramid, the weight mapping
   and the patch choice are those of the full net; full depth is held by the
   flagship's eval fixture and on the card.
-* ``torch_threads`` caps torch's CPU threads for a test module: the suite
-  runs several workers on one machine, each with its own thread pools.
+* ``torch_threads`` (from ``port_threads``) caps torch's CPU threads for a
+  test module: the suite runs several workers on one machine, each with its
+  own thread pools.
 * ``flax_to_port(tree)`` renames a flax tree (gradients or parameters) to the
   port's parameter names, kernels in the port's (O, I, kh, kw) layout.
 * ``variables_from_port(port, init, *args)`` is the flax variable tree that
@@ -47,6 +48,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from port_threads import torch_threads  # noqa: F401
 
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import models as tmodels
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
@@ -90,7 +92,6 @@ OPTION_CONFIGS = {
     "multitask2": ("sdnet_mini_ext", {"multaskloss": 2}),
 }
 ADAM_B1 = 0.9  # optax.adam's default, the JAX package's Adam
-TORCH_THREADS = 2
 
 
 # the densenets' (growth, initial features) and the other trunks' cuts
@@ -139,14 +140,6 @@ def reduced_depth():
         for module in (jdlab, tdlab):
             mp.setattr(module, "ResNetDeeplabFeatures", _reduced_dlab(module))
         yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(TORCH_THREADS)
-    yield
-    torch.set_num_threads(before)
 
 
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
