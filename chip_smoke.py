@@ -189,7 +189,29 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    ms a step and peak memory, and each configuration's medians beside the
    JAX package's CPU readings of the tool (``OVERFIT_JAX_CPU``): readings,
    not held. Phase 2 holds corr1d at this path's shapes (C 352 at W 16 and
-   20) too.
+   20) too;
+16. the repository's launch scripts in the port
+   (``pmt_..._torch/scripts/train_flagship.sh`` and ``eval_flagship.sh``,
+   the root scripts with the port's CLI module), run unmodified by bash
+   from a working directory of their own, each in a process of its own: a
+   roses fixture of 8 training, 2 val and 2 test pairs of 256x512 in the
+   scripts' manifests, ``reduced_size/*__small.txt`` written by the root
+   ``scripts/reduce_existent_dataset.py``; ``train_flagship.sh DATA small``
+   trains the flagship in the CLI's default fp32 (CE + Lovász, Adam, 100
+   epochs of one step of 8 pairs of 256x512, an eval every 10 epochs), then
+   ``eval_flagship.sh DATA CKPT`` evaluates its checkpoint at ``-b 1
+   -show_results 1``. A ``python`` first on ``PATH`` starts this script's
+   ``script_probe``, which runs the CLI module as it is and records each
+   kernel's launches in that process. Holds both scripts exit 0, the
+   checkpoint's files, the summary as the eval's last line and its result
+   images, every printed loss and metric finite, fp32 on the card, corr1d
+   once a train step and once an eval row and its backward once a train
+   step; the eval script's summary table equals ``cli.train.main`` run
+   here on the arguments the script passed, on the same checkpoint, within
+   ``FILES_EVAL_RTOL``. First it holds corr1d's fp32 forward at the path's
+   shapes against its plain version and times it. Prints ms a step with
+   loading and the loader's wait, eval pairs/s, peak memory and the phase's
+   seconds.
 
 Phase 8's eval CLI runs at ``-show_results 1`` (the flag's default): the
 summary is printed and both confusion heatmaps decode.
@@ -215,7 +237,8 @@ phase 8 only, ``--options`` phase 9 only (``--serve flagship_aspp2`` and
 ``--train flagship_aspp2`` time that path alone), ``--trunks`` phase 10
 only (``--serve dlab``, ``--train flagship_resnet101`` and the like),
 ``--zoo`` phase 11 only (``--serve pspnet``, ``--train deeplab_mod`` and the
-like), ``--encdec`` phase 12 only, ``--overfit`` phase 15 only.
+like), ``--encdec`` phase 12 only, ``--overfit`` phase 15 only,
+``--scripts`` phase 16 only.
 
     python3 chip_smoke.py --ddp
 
@@ -234,17 +257,21 @@ import json
 import contextlib
 import io
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
 PORT = "pmt_learning_for_semantic_segmentation_and_disparity_torch"
+ROOT = Path(__file__).resolve().parent  # the checkout
 TPU_CORR = "pmt_learning_for_semantic_segmentation_and_disparity_tpu/ops/correlation.py"
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 # dense peak operations per second by input type (H100 SXM data sheet):
@@ -613,6 +640,29 @@ OVERFIT_HELD_MIOU = 0.56
 # tool's eval swings between neighbouring epochs in both packages
 OVERFIT_JAX_CPU = {"sdnet_mini fp32": (0.3497, 0.5179, 0.9376), "sdnet_mini bf16": (0.2940, 0.9675, 0.3756),
                    "flagship fp32": (0.3182,)}
+# phase 16: the repository's launch scripts in the port
+# (pmt_..._torch/scripts/train_flagship.sh and eval_flagship.sh: the root
+# scripts with the port's CLI module), run unmodified by bash from a working
+# directory of their own: the flagship (densenet121, 1dcorr) in the CLI's
+# default fp32, 256x512 crops, batches of 8, 100 epochs, CE + Lovász, Adam,
+# an eval every 10 epochs (the config's eval_every), then the eval script at
+# -b 1 -show_results 1 on the checkpoint. The fixture: 8 training pairs (an
+# epoch is one step), 2 val and 2 test pairs of 256x512, the scripts' crop
+# (the eval pads them into the 512x960 bucket), in the scripts' manifests
+# with absolute paths; `small` reads reduced_size/*__small.txt, which the
+# root scripts/reduce_existent_dataset.py writes in the dataset directory
+SCRIPTS = f"{PORT}/scripts"
+SCRIPTS_HW = (256, 512)
+SCRIPTS_TRAIN_PAIRS, SCRIPTS_VAL_PAIRS, SCRIPTS_TEST_PAIRS = 8, 2, 2
+SCRIPTS_EPOCHS, SCRIPTS_EVAL_EVERY = 100, 10  # train_flagship.sh's -e 100; the config's eval_every
+SCRIPTS_STEPS = SCRIPTS_EPOCHS * SCRIPTS_TRAIN_PAIRS // TRAIN_BATCH
+SCRIPTS_TRAIN_EVAL_ROWS = SCRIPTS_EPOCHS // SCRIPTS_EVAL_EVERY * SCRIPTS_VAL_PAIRS
+# corr1d's fp32 forward at this path's shapes: a view's 1/8 map in a train
+# step, and an eval row's in the 512x960 bucket (the eval step runs each row
+# alone)
+SCRIPTS_CORR_SHAPES = {"train step": (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 352),
+                       "eval row": (1, H // 8, W // 8, 352)}
+SCRIPTS_TIMEOUT_S = 600  # each script's run
 
 
 class SmokeFailure(Exception):
@@ -2991,6 +3041,256 @@ def phase_overfit(card: str) -> dict:
             "flagship": runs["flagship fp32"][0]["launches"]}
 
 
+# ---- phase 16: the launch scripts, run unmodified ----
+
+def script_probe(argv: list) -> int:
+    """Phase 16's ``python`` (``chip_smoke.py --script-probe -m MODULE ARGS``):
+    a launch script's ``python -m MODULE ARGS``, run as it is by ``runpy``,
+    with every kernel's count set to 0 just before; then writes to the file
+    ``$PMT_SCRIPT_PROBE`` (JSON) the arguments, each kernel's launches, and
+    the run's last Session: its model id, precision, device, timings, train
+    losses, eval summary and rows, and the card's peak memory."""
+    import runpy
+
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.training import loop
+
+    if argv[:1] != ["-m"] or len(argv) < 2:
+        print(f"chip_smoke --script-probe: expected -m MODULE ARGS, got {argv}", file=sys.stderr)
+        return 2
+    sessions = []
+    init = loop.Session.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        sessions.append(self)
+
+    loop.Session.__init__ = record
+    kernels = zero_counts()
+    sys.argv = argv[1:]
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    session = sessions[-1]
+    out = {"argv": argv, "launches": {name: k.launches for name, k in kernels.items()},
+           "model_id": session.cfg.model_id(), "bf16": session.cfg.parallel.bf16,
+           "device": str(session.device), "timings": session.timings,
+           "train_loss": [float(m["loss"]) for m in session.train_history],
+           "summary": {k: float(v) for k, v in session.eval_summary.items()},
+           "summary_text": str(session.eval_summary),
+           "rows": [{k: float(v) for k, v in r.items()} for r in session.accumulator.rows],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    with open(os.environ["PMT_SCRIPT_PROBE"], "w") as f:
+        json.dump(out, f, default=float)
+    return 0
+
+
+def scripts_fixture(root: str) -> None:
+    """Phase 16's dataset directory ``root``: a roses fixture from the port's
+    ``make_roses_fixture`` (``SCRIPTS_TRAIN_PAIRS`` + ``SCRIPTS_VAL_PAIRS``
+    training and ``SCRIPTS_TEST_PAIRS`` test pairs of ``SCRIPTS_HW``) listed
+    in the scripts' manifests (``colorL_train.txt`` ... ``inst_val.txt``,
+    ``*_test.txt``, absolute paths); then the root
+    ``scripts/reduce_existent_dataset.py``, run there as users run it,
+    writes ``reduced_size/*__small.txt``."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import make_roses_fixture
+
+    fixture = make_roses_fixture(root, n_train=SCRIPTS_TRAIN_PAIRS + SCRIPTS_VAL_PAIRS,
+                                 n_test=SCRIPTS_TEST_PAIRS, hw=SCRIPTS_HW, seed=0)
+
+    def listed(key):
+        with open(fixture[key]) as f:
+            return [os.path.join(root, line.strip()) for line in f if line.strip()]
+
+    manifests = {}
+    for kind, key in (("colorL", "left"), ("colorR", "right"), ("seg", "seg"), ("disp", "disp"),
+                      ("inst", "inst")):
+        train = listed(key)
+        for split, files in (("train", train[:SCRIPTS_TRAIN_PAIRS]), ("val", train[SCRIPTS_TRAIN_PAIRS:]),
+                             ("test", listed(key + "_t"))):
+            manifests[f"{kind}_{split}.txt"] = files
+            with open(os.path.join(root, f"{kind}_{split}.txt"), "w") as f:
+                f.write("\n".join(files) + "\n")
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "reduce_existent_dataset.py"), *manifests],
+                          cwd=root, capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"[scripts] reduce_existent_dataset.py: {proc.stdout}{proc.stderr}")
+    for name, files in manifests.items():
+        with open(os.path.join(root, "reduced_size", name.replace(".txt", "__small.txt"))) as f:
+            check(f.read().split() == files, f"[scripts] reduced_size's {name} lists other files")
+
+
+def run_script(tag: str, argv: list, cwd: str, bin_dir: str, probe: str):
+    """``bash`` ``argv`` (a launch script and its arguments) in ``cwd`` with
+    phase 16's ``python`` (``bin_dir``) first on ``PATH`` and the checkout on
+    ``PYTHONPATH``; returns (its stdout, the probe's record, seconds). The
+    script's processes run in a session of their own, killed with it at
+    ``SCRIPTS_TIMEOUT_S`` or on any error here."""
+    env = {**os.environ, "PATH": os.pathsep.join([bin_dir, os.environ.get("PATH", "")]),
+           "PYTHONPATH": os.pathsep.join(p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p),
+           "PMT_SCRIPT_PROBE": probe}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(["bash", *argv], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        text, err = proc.communicate(timeout=SCRIPTS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"{tag}: {os.path.basename(argv[0])} still running after {SCRIPTS_TIMEOUT_S} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{tag}: {os.path.basename(argv[0])} exited {proc.returncode}; its "
+          f"output ends:\n{text[-3000:]}\n{err[-3000:]}")
+    with open(probe) as f:
+        record = json.load(f)
+    bad = re.findall(r".*\b(?:nan|inf)\b.*", text, re.I)
+    check(not bad, f"{tag}: a printed loss or metric is not finite: {bad[:3]}")
+    check(not record["bf16"] and record["device"].startswith("cuda"),
+          f"{tag}: ran with bf16 {record['bf16']} on {record['device']}, not fp32 on the card")
+    return text, record, seconds
+
+
+def scripts_corr1d(card: str) -> list:
+    """corr1d's fp32 forward at phase 16's shapes (``SCRIPTS_CORR_SHAPES``)
+    against ``correlation_plain`` (1e-4 * max|ref|), timed back to back and
+    each launch alone (warm, behind a card-side spin), beside its plain
+    version and its bound; returns a record a shape."""
+    correlation = correlation_module()
+    patch = correlation.KERNEL_PATCH["corr1d"]
+    fn = wrapper("corr1d")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    out = []
+    for where, shape in SCRIPTS_CORR_SHAPES.items():
+        f1, f2 = (inputs(shape, torch.float32, g) for _ in range(2))
+        got = fn(f1, f2, patch[1])
+        torch.cuda.synchronize()
+        ref = correlation.correlation_plain(f1, f2, patch)
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()
+        check(got.shape == ref.shape and err <= tol,
+              f"[scripts] corr1d fp32 {shape}: shape {tuple(got.shape)}, max|d| {err} > {tol}")
+        ms = cuda_time_ms(lambda: fn(f1, f2, patch[1]), iters=50)
+        alone_ms, _ = event_time_ms(lambda: fn(f1, f2, patch[1]), 50, flush=False)
+        plain_ms = cuda_time_ms(lambda: correlation.correlation_plain(f1, f2, patch), iters=3, warmup=1)
+        nbytes = (f1.numel() + f2.numel() + got.numel()) * f1.element_size()
+        bound_ms, bound_by = byte_bound_ms(nbytes, 2 * got.numel() * shape[-1], torch.float32)
+        print(f"[scripts] corr1d fp32 at the {where}'s {tuple(shape)}: max|d| = {err:.6g} (tolerance "
+              f"{tol:.6g} = 1e-4 * max|ref|); kernel {ms:.4f} ms back to back, {alone_ms:.4f} ms a launch "
+              f"alone (warm), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.1f} MB), {bound_ms / alone_ms:.1%} of the bound alone; {card}", flush=True)
+        out.append({"where": where, "shape": list(shape), "dtype": "float32", "ms": ms, "ms_alone": alone_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err})
+        del f1, f2, got, ref
+    return out
+
+
+def phase_scripts(card: str) -> dict:
+    """Phase 16: the port's copies of the launch scripts, run unmodified by
+    bash from a working directory of their own with a ``python`` first on
+    ``PATH`` that starts ``script_probe``: ``train_flagship.sh DATA small``
+    (the flagship in fp32, ``SCRIPTS_STEPS`` steps, an eval every
+    ``SCRIPTS_EVAL_EVERY`` epochs), then ``eval_flagship.sh DATA CKPT`` on
+    its checkpoint. Holds both exit 0, the checkpoint's files, the eval's
+    summary as its last line and its result images, every printed number
+    finite, fp32 on the card, corr1d once a train step and once an eval row
+    and its backward once a train step, in each script's process; and the
+    eval script's summary table against ``cli.train.main`` run here on the
+    same arguments and checkpoint within ``FILES_EVAL_RTOL``. Holds and
+    times corr1d's fp32 forward at the path's shapes first. Returns
+    {train, eval: each kernel's launches in that script's process,
+    corr1d_fp32: the timed shapes}."""
+    from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import png
+
+    t0 = time.perf_counter()
+    free_card()
+    timed = scripts_corr1d(card)
+    free_card()
+    scripts = ROOT / SCRIPTS
+    tmp = tempfile.mkdtemp(prefix="pmt_scripts_")
+    try:
+        data, work, bin_dir = (os.path.join(tmp, d) for d in ("roses", "work", "bin"))
+        for d in (work, bin_dir):
+            os.makedirs(d)
+        scripts_fixture(data)
+        shim = os.path.join(bin_dir, "python")
+        with open(shim, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "{os.path.abspath(__file__)}" --script-probe "$@"\n')
+        os.chmod(shim, 0o755)
+
+        # (a), (b): training, 100 epochs of one step
+        text, train, seconds = run_script("[scripts train]", [str(scripts / "train_flagship.sh"), data, "small"],
+                                          work, bin_dir, os.path.join(tmp, "train.json"))
+        t = train["timings"]
+        check(len(t["step_s"]) == SCRIPTS_STEPS and t["eval_rows"] == SCRIPTS_TRAIN_EVAL_ROWS,
+              f"[scripts train] {len(t['step_s'])} steps and {t['eval_rows']} eval rows, expected "
+              f"{SCRIPTS_STEPS} and {SCRIPTS_TRAIN_EVAL_ROWS}")
+        check(all(np.isfinite(train["train_loss"])) and all(np.isfinite(list(train["summary"].values()))),
+              f"[scripts train] a train loss or eval value is not finite: {train['train_loss']}, "
+              f"{train['summary']}")
+        hold_cli_launches("[scripts train]", types.SimpleNamespace(timings=t), train["launches"])
+        ckpt = os.path.join(work, "results", train["model_id"])
+        files = sorted(os.listdir(ckpt))
+        best = [f for f in files if f.startswith("model_best_IOU") and "_Derr" in f]
+        check(any(f.startswith("meta_") and f.endswith(".json") for f in files) and "best.json" in files
+              and len(best) == 1, f"[scripts train] checkpoint directory {ckpt}: {files}")
+        train_out = {"seconds": seconds, "ms_per_step": 1e3 * float(np.mean(t["step_s"][1:])),
+                     "load_wait_ms": 1e3 * float(np.mean(t["load_wait_s"][1:])),
+                     "first_step_ms": 1e3 * t["step_s"][0], "eval_pairs_per_s": t["eval_rows"] / t["eval_s"],
+                     "peak_gib": train["peak_gib"], "train_loss_first_last": [train["train_loss"][0],
+                                                                              train["train_loss"][-1]],
+                     "launches": train["launches"]}
+        print(f"[scripts train] bash {SCRIPTS}/train_flagship.sh DATA small: the flagship densenet121 fp32 (no "
+              f"-f16) from PNGs, {TRAIN_BATCH} pairs of {TRAIN_H}x{TRAIN_W} a step, {SCRIPTS_STEPS} steps: "
+              f"{train_out['ms_per_step']:.2f} ms a step with loading over steps 2-{SCRIPTS_STEPS}, of which the "
+              f"loader wait {train_out['load_wait_ms']:.2f} (the first step {train_out['first_step_ms']:.1f}); "
+              f"train loss {train['train_loss'][0]:.4f} -> {train['train_loss'][-1]:.4f}; "
+              f"{t['eval_rows']} eval rows at 512x960: {train_out['eval_pairs_per_s']:.2f} pairs/s; peak "
+              f"memory {train['peak_gib']:.2f} GiB; launches {train['launches']}; {seconds:.1f} s for the "
+              f"script; checkpoint {files}; {card}", flush=True)
+
+        # (a), (b): the eval script on that checkpoint
+        text, ev, seconds = run_script("[scripts eval]", [str(scripts / "eval_flagship.sh"), data, ckpt],
+                                       work, bin_dir, os.path.join(tmp, "eval.json"))
+        t = ev["timings"]
+        check(t["eval_rows"] == SCRIPTS_TEST_PAIRS and not t["step_s"], f"[scripts eval] {t}")
+        check(text.strip().splitlines()[-1] == ev["summary_text"],
+              "[scripts eval] the summary is not the last line printed")
+        check(all(np.isfinite(list(ev["summary"].values()))), f"[scripts eval] {ev['summary']}")
+        hold_cli_launches("[scripts eval]", types.SimpleNamespace(timings=t), ev["launches"])
+        results = os.path.join(work, "testResults")
+        shown = sorted(os.listdir(results))
+        for head in (1, 2):
+            heatmap = png.read(os.path.join(results, f"confusion_head{head}.png"))
+            check(heatmap.ndim == 3 and heatmap.shape[2] == 3 and heatmap.shape[0] == heatmap.shape[1] > 0,
+                  f"[scripts eval] confusion_head{head}.png decodes to {heatmap.shape}")
+        check(sum(f.endswith(".jpg") for f in shown) == 4 * SCRIPTS_TEST_PAIRS,
+              f"[scripts eval] testResults holds {shown}")
+        eval_out = {"seconds": seconds, "pairs_per_s": t["eval_rows"] / t["eval_s"], "peak_gib": ev["peak_gib"],
+                    "launches": ev["launches"]}
+        print(f"[scripts eval] bash {SCRIPTS}/eval_flagship.sh DATA CKPT: {t['eval_rows']} pairs at -b 1 "
+              f"-show_results 1 in the 512x960 bucket: {eval_out['pairs_per_s']:.2f} pairs/s (host, loading and "
+              f"the result images included); the summary is the last line; testResults: {shown}; peak memory "
+              f"{ev['peak_gib']:.2f} GiB; launches {ev['launches']}; {seconds:.1f} s for the script; {card}",
+              flush=True)
+
+        # (c): the eval script's summary against cli.train.main on its arguments here
+        cwd = os.path.join(tmp, "in_process")
+        os.makedirs(cwd)
+        with program_precision(), contextlib.chdir(cwd):
+            session, _, launches = cli_run(ev["argv"][2:], counters())
+        hold_cli_launches("[scripts eval in process]", session, launches)
+        hold_eval_tables("[scripts] the eval script vs cli.train.main on its arguments",
+                         eval_table(ev["rows"], ev["summary"]),
+                         eval_table(session.accumulator.rows, session.eval_summary))
+        del session
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"[scripts] phase 16 in {seconds:.1f} s; {card}", flush=True)
+    print(json.dumps({"scripts": {"train": train_out, "eval": eval_out, "corr1d_fp32": timed,
+                                  "seconds": seconds}}), flush=True)
+    return {"train": train["launches"], "eval": ev["launches"], "corr1d_fp32": timed}
+
+
 def phase_ddp_scale(ranks: list, card: str) -> dict:
     """--ddp: print the scaling steps' readings; returns {cards: {ms/step,
     pairs/s, the NCCL kernels' ms a step and share of it}} (rank 0's)."""
@@ -3021,6 +3321,8 @@ def phase_ddp_scale(ranks: list, card: str) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--script-probe"]:  # phase 16's python, inside a launch script
+        return script_probe(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--serve", choices=sorted(SERVE), help="only serve this net (or flagship_aspp2) "
                     "and time it")
@@ -3059,6 +3361,9 @@ def main() -> int:
                          "configuration, sdnet_mini in fp32 and bf16 at three seeds, the "
                          "flagship in fp32 and the label-fault control, held on the "
                          "batch-statistics mIoU and printed beside the JAX package's CPU readings")
+    ap.add_argument("--scripts", action="store_true",
+                    help="only run the launch scripts (phase 16): the port's train_flagship.sh "
+                         "and eval_flagship.sh, unmodified, on a fixture of 256x512 pairs")
     ap.add_argument("--zoo", action="store_true",
                     help="only run the rest of the CLI's nets (phase 11): deeplab_mod, dsnet_warp "
                          "and pspnet serve and train, every other configuration, deeplab's TTA, "
@@ -3075,7 +3380,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if (args.serve or args.train or args.backward or args.files or args.options or args.trunks
-            or args.zoo or args.encdec or args.ddp or args.fp32 or args.overfit):
+            or args.zoo or args.encdec or args.ddp or args.fp32 or args.overfit or args.scripts):
         precision = program_precision() if args.fp32 else contextlib.nullcontext()
         try:
             if args.ddp:
@@ -3085,6 +3390,9 @@ def main() -> int:
                 phase_encdec(card)
             elif args.overfit:
                 phase_overfit(card)
+            elif args.scripts:
+                phase_build()  # once, before the scripts' processes load the kernels
+                phase_scripts(card)
             elif args.files:
                 phase_files(card)
             elif args.zoo:
@@ -3190,6 +3498,13 @@ def main() -> int:
         for name in ("corr1d", "corr1d_backward"):
             records[name]["launches_overfit"] = paths["sdnet_mini"][name]
             records[name]["launches_overfit_flagship"] = paths["flagship"][name]
+        # phase 16: the launch scripts, each in its own process: corr1d once a
+        # train step and once an eval row, its backward once a train step
+        paths = phase_scripts(card)
+        for name in records:
+            records[name]["launches_scripts_train"] = paths["train"][name]
+            records[name]["launches_scripts_eval"] = paths["eval"][name]
+        records["corr1d"]["scripts_fp32"] = paths["corr1d_fp32"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

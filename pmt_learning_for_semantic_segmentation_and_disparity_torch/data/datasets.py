@@ -225,10 +225,22 @@ class StereoSegDataset:
         return sample
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return self.load(*self.draw(idx))
+
+    def draw(self, idx: int) -> Tuple[np.random.Generator, int, int]:
+        """Sample ``idx``'s generator and what the class balancer draws with
+        it: (rng, the index to load, the balanced class or -1). The
+        balancer is stateful, so draws made in sample order give the
+        batches of a serial ``__getitem__``; ``DataLoader`` makes them on
+        its dispatching thread."""
         rng = np.random.default_rng((self.seed * 1_000_003 + idx) & 0x7FFFFFFF)
         class_indx = -1
         if self._balancer is not None:
             idx, class_indx = self._balancer.next_index(rng)
+        return rng, idx, class_indx
+
+    def load(self, rng: np.random.Generator, idx: int, class_indx: int) -> Dict[str, np.ndarray]:
+        """The sample of a ``draw``: decode, augmentation, normalisation."""
         sample = self.load_raw(idx)
         if self.transform is not None:
             sample = self.transform(sample, rng, class_indx)

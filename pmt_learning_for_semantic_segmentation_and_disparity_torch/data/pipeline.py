@@ -1,10 +1,15 @@
 """Input pipeline: threaded host-side loading and a prefetching copy to the
 card (the port's counterpart of the JAX package's ``data/pipeline.py``).
 
-``DataLoader`` and ``pad_to_bucket`` are the JAX package's, unchanged: the
-same index permutation, per-epoch seeding, ``pad_batch`` and ``valid``, and
-with ``process_index``/``process_count`` each rank loads only its slice of
-every global batch, so both packages yield the same batches.
+``DataLoader`` and ``pad_to_bucket`` are the JAX package's: the same index
+permutation, per-epoch seeding, ``pad_batch`` and ``valid``, and with
+``process_index``/``process_count`` each rank loads only its slice of every
+global batch. One change: each sample's draw (``StereoSegDataset.draw``:
+its generator and the stateful class balancer's pick) is made on the
+dispatching thread in sample order, and the worker threads only decode and
+augment. So a batch never depends on which thread gets there first, and
+the batches equal the JAX loader's at one worker; at more, the JAX loader's
+balanced draws follow its threads' timing.
 ``prefetch_to_device``: a thread loads the next batches into pinned host
 memory while the card works, and each is copied to the device with
 ``non_blocking``; ``prefetch_to_mesh`` does so for a rank's slice onto its
@@ -131,7 +136,10 @@ class DataLoader:
                 # this rank's contiguous slice of the global batch
                 chunk = chunk[self.process_index * local:
                               (self.process_index + 1) * local]
-                samples = list(pool.map(self.dataset.__getitem__, chunk))
+                # the class balancer's stateful draws here, in sample
+                # order; the threads only decode and augment
+                drawn = [self.dataset.draw(i) for i in chunk]
+                samples = list(pool.map(lambda d: self.dataset.load(*d), drawn))
                 batch = _stack(samples)
                 if self.bucket_hw is not None:
                     batch = pad_to_bucket(batch, self.bucket_hw)

@@ -1,5 +1,6 @@
 """The port's correlation (plain PyTorch path) against the JAX package's
-``correlation_lax`` and its Pallas kernels in interpret mode, fp32, abs 1e-5;
+``correlation_lax``, fp32, abs 1e-5 (against its Pallas kernels in
+interpret mode: ``test_torch_correlation_pallas.py``);
 its plain gradients against ``jax.vjp`` of the JAX package's ``correlation``
 (whose backward is ``_corr1d_bwd_lax`` / ``_corr2d_bwd_lax``) and against
 autograd through ``correlation_plain``; the arithmetic of both backward
@@ -47,15 +48,6 @@ def test_corr1d_plain_matches_lax(shape, pw):
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 16, 12), (1, 4, 10, 20)])
-def test_corr1d_plain_matches_pallas_interpret(shape):
-    f1, f2 = _pair(1, shape)
-    ref = np.asarray(jcorr.correlation1d_pallas(jnp.asarray(f1), jnp.asarray(f2), 17,
-                                                interpret=True))
-    got = tcorr.correlation_plain(torch.from_numpy(f1), torch.from_numpy(f2), (1, 17)).numpy()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
-
-
 @pytest.mark.parametrize("patch", [(5, 5), (3, 7)])
 def test_corr2d_plain_normalized_matches_lax(patch):
     f1, f2 = _pair(2, (1, 6, 10, 8))
@@ -86,22 +78,6 @@ def test_dispatcher_on_cpu_matches_jax_dispatcher(patch, normalize):
                                        normalize=normalize))
     got = tcorr.correlation(torch.from_numpy(f1), torch.from_numpy(f2), patch,
                             normalize=normalize).numpy()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
-
-
-@pytest.mark.parametrize("patch,normalize", [
-    ((17, 17), True), ((17, 17), False), ((5, 5), True), ((5, 5), False)])
-@pytest.mark.parametrize("shape", [
-    (1, 8, 12, 4),     # H, W < 17: the halo is larger than the map
-    (2, 8, 20, 6),
-])
-def test_corr2d_plain_matches_pallas_interpret(shape, patch, normalize):
-    f1, f2 = _pair(5, shape)
-    ref = np.asarray(jcorr.correlation2d_pallas(jnp.asarray(f1), jnp.asarray(f2), patch,
-                                                normalize=normalize, h_tile=4, interpret=True))
-    got = tcorr.correlation_plain(torch.from_numpy(f1), torch.from_numpy(f2), patch,
-                                  normalize=normalize).numpy()
-    assert got.shape == ref.shape == shape[:3] + (patch[0] * patch[1],)
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
 
 

@@ -25,12 +25,19 @@ package reads and writes PNGs with and resizes with).
   every key over two training epochs and the padded eval loader, native
   decoder on and off, ``left``/``right`` within 1/255 (the rescale's
   rounding, which the balancer's draws make hard to attribute to a row).
+  The port's loader runs on its 2 threads and the JAX loader's training
+  batches at one worker: the port draws from the balancer in sample order,
+  the JAX loader on its threads. With each chunk's first sample forced to
+  finish last, the port's batches equal its one-thread batches bit for bit.
 * ``utils/analysis.py`` over the port's datasets against the JAX package's
   over its own, on both fixtures: mean/std and disparity statistics in
   float64 exactly, the class-occurrence matrix and CSV text identical.
 """
+import concurrent.futures as futures
 import dataclasses
 import os
+import threading
+import types
 
 import cv2
 import numpy as np
@@ -39,6 +46,7 @@ import pytest
 from pmt_learning_for_semantic_segmentation_and_disparity_torch import data as TD
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.core import PMTConfig
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import augment, png
+from pmt_learning_for_semantic_segmentation_and_disparity_torch.data import pipeline as tpipeline
 from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import analysis as tanalysis
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu import data as JD
 from pmt_learning_for_semantic_segmentation_and_disparity_tpu.core import PMTConfig as JaxConfig
@@ -149,8 +157,8 @@ def _datasets(package, manifests, native_io, crop=(48, 96), dataset="roses"):
     return tuple(dataclasses.replace(d, native_io=native_io) for d in (train, test))
 
 
-def _batches(package, dataset, epochs, **loader):
-    dl = package.DataLoader(dataset, 2, num_workers=2, seed=5, **loader)
+def _batches(package, dataset, epochs, num_workers=2, **loader):
+    dl = package.DataLoader(dataset, 2, num_workers=num_workers, seed=5, **loader)
     out = []
     for epoch in range(epochs):
         dl.set_epoch(epoch)
@@ -211,7 +219,10 @@ def test_cityscapes_loader_batches_match_jax(city_fixtures, native_io):
                                         for pkg, m in ((TD, port_m), (JD, jax_m)))
     assert (ptrain._native is None) == (native_io == "off") == (jtrain._native is None)
     assert ptrain._balancer is not None and jtrain._balancer is not None
-    train = list(zip(_batches(TD, ptrain, 2), _batches(JD, jtrain, 2)))
+    # the reference at one worker: the JAX loader draws from the balancer on
+    # its threads, so at two its batches follow their timing (ROADMAP.md
+    # queue 3 item 4); the port's draws are made in sample order
+    train = list(zip(_batches(TD, ptrain, 2), _batches(JD, jtrain, 2, num_workers=1)))
     assert len(train) == 6  # 3 batches of 2 an epoch
     for a, b in train:
         assert sorted(a) == sorted(b)
@@ -232,6 +243,51 @@ def test_cityscapes_loader_batches_match_jax(city_fixtures, native_io):
         assert sorted(a) == sorted(b)
         for k in a:
             if k not in ("meta", "valid"):
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+class _LateFirstPool(futures.ThreadPoolExecutor):
+    """A pool whose first task of each ``map`` starts only once its second
+    has finished, so a chunk's samples finish in the opposite order;
+    ``finished`` records each task's place in its chunk as it ends."""
+
+    finished = []
+
+    def map(self, fn, items):
+        second = threading.Event()
+
+        def task(k, item):
+            if k == 0:
+                assert second.wait(60), "the second sample never finished"
+            try:
+                return fn(item)
+            finally:
+                self.finished.append(k)
+                if k == 1:
+                    second.set()
+
+        tasks = [self.submit(task, k, item) for k, item in enumerate(items)]
+        return [t.result() for t in tasks]
+
+
+def test_cityscapes_loader_draws_in_sample_order(city_fixtures, monkeypatch):
+    """The port's loader on its 2 threads with each chunk's first sample held
+    back until the second's decode is done gives the batches of a run on one
+    thread, bit for bit: the class balancer's draws do not follow the
+    threads."""
+    port_m, _ = city_fixtures
+    serial = _batches(TD, _datasets(TD, port_m, "off", dataset="cityscapes")[0], 2, num_workers=1)
+    monkeypatch.setattr(tpipeline, "futures", types.SimpleNamespace(ThreadPoolExecutor=_LateFirstPool))
+    _LateFirstPool.finished = []
+    late = _batches(TD, _datasets(TD, port_m, "off", dataset="cityscapes")[0], 2)
+    assert _LateFirstPool.finished == [1, 0] * 6  # 3 chunks of 2 an epoch, 2 epochs
+    assert len(late) == len(serial) == 6
+    for a, b in zip(late, serial):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            if k == "meta":
+                assert a[k] == b[k]
+            else:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 

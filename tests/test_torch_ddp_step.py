@@ -33,6 +33,7 @@ from torch_port import (  # noqa: F401
     ADAM_B1,
     flax_stats_to_port,
     flax_to_port,
+    float64_convolutions_as_dots,
     join_ranks,
     numpy_batch,
     reduced_depth,
@@ -70,8 +71,9 @@ def _f64(tree):
 
 
 def _jax_mesh(port, batch):
-    """The JAX package in float64 on a 2-device mesh from the port's
-    weights: {mode: (metrics, parameters, gradients, statistics)} after one
+    """The JAX package in float64 (its convolutions compiled as windows and
+    matmuls, ``float64_convolutions_as_dots``) on a 2-device mesh from the
+    port's weights: {mode: (metrics, parameters, gradients, statistics)} after one
     step, and the sharded eval step's per-row metrics at the initial
     weights."""
     cfg = JaxConfig()
@@ -80,7 +82,7 @@ def _jax_mesh(port, batch):
     mesh = make_mesh(n_devices=RANKS)
     key = jax.random.PRNGKey(0)
     out = {}
-    with jax.enable_x64(True):
+    with jax.enable_x64(True), float64_convolutions_as_dots():
         for mode, axis_name in MODES.items():
             model = jmodels.get_network(cfg, axis_name=axis_name)
             variables = _f64(variables_from_port(

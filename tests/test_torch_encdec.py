@@ -10,7 +10,8 @@ non-zero (``torch_port.nonzero_leaves``: the attention's zero-initialised
   1e-3 * max|ref| (read: 1e-6 to 3e-6);
 * the train-mode forward (batch statistics) and every running statistic
   of ``unet_scse`` and ``unet_seibn``, in float64 (the JAX package under
-  ``jax.enable_x64``, a float64 copy of the port): within 1e-4 of max|ref|
+  ``jax.enable_x64``, its convolutions compiled as windows and matmuls by
+  ``torch_port.float64_convolutions_as_dots``, a float64 copy of the port): within 1e-4 of max|ref|
   and of each statistic's layer scale (``torch_port._stat_error``; read:
   5e-12). In fp32 the resnet50 encoder's train mode is ill-conditioned at
   64x64: layer 4 normalises 2x2 maps by their own statistics, and the port
@@ -36,6 +37,7 @@ import torch
 from torch_port import (  # noqa: F401
     _stat_error,
     flax_stats_to_port,
+    float64_convolutions_as_dots,
     nonzero_leaves,
     port_stats,
     torch_threads,
@@ -96,7 +98,7 @@ def test_eval_forward_matches_jax(dec_type):
 def test_train_forward_and_running_stats_match_jax(dec_type):
     model, port, variables = pair(dec_type, seed=3)
     x = image(4).astype(np.float64)
-    with jax.enable_x64(True):
+    with jax.enable_x64(True), float64_convolutions_as_dots():
         variables = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
         ref, updated = jax.jit(lambda v, a: model.apply(v, a, train=True, mutable=["batch_stats"]))(
             variables, x)

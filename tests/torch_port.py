@@ -26,6 +26,9 @@
 * ``float64_steps(net, corr_type)`` holds the port's ``make_train_step``
   against the JAX package's in float64 (two steps from the same variables
   and batch, the bench loss stack, Adam; see ``jax_float64_reference``).
+* ``float64_convolutions_as_dots()`` compiles the JAX package's float64
+  convolutions on the CPU as strided windows and one matmul each, the same
+  sums that XLA's own loops take ~25x longer over.
 * ``spawn_ranks(world, out_dir, **spec)`` runs ``torch_ddp_worker.py`` as
   the ranks of one gloo group on the CPU and returns what each computed;
   ``start_ranks``/``join_ranks`` split it, so a caller can work while the
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import socket
@@ -45,6 +49,8 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
+from jax._src.interpreters import mlir
 import optax
 import pytest
 import torch
@@ -341,6 +347,72 @@ _tversky_float64.defvjp(
     jtversky._fwd, lambda res, g: (jtversky._bwd(res, g)[0].astype(jnp.float64), None))
 
 
+def _conv_as_dots(lhs, rhs, *, window_strides, padding, lhs_dilation, rhs_dilation,
+                  dimension_numbers, **_):
+    """``lax.conv_general_dilated`` with one feature and one batch group,
+    written as x's dilated and padded windows and one ``dot_general``: for
+    each spatial dim, stacked over its kernel taps (a strided slice of the
+    output positions each) or, where the output is the shorter, over its
+    output positions (a window of the kernel's extent each)."""
+    lhs_spec, rhs_spec, out_spec = dimension_numbers
+    x = jnp.transpose(lhs, lhs_spec)  # (N, C, *spatial)
+    w = jnp.transpose(rhs, rhs_spec)  # (O, C, *kernel)
+    nd = x.ndim - 2
+    zero = np.zeros((), x.dtype)
+    x = lax.pad(x, zero, [(0, 0, 0)] * 2 + [(0, 0, d - 1) for d in lhs_dilation])
+    x = lax.pad(x, zero, [(0, 0, 0)] * 2 + [(lo, hi, 0) for lo, hi in padding])
+    kernel = w.shape[2:]
+    out = tuple((s - (k - 1) * d - 1) // st + 1
+                for s, k, d, st in zip(x.shape[2:], kernel, rhs_dilation, window_strides))
+    taps = []
+    for i, (k, m, d, st) in enumerate(zip(kernel, out, rhs_dilation, window_strides)):
+        ax = 2 + 2 * i  # the dims before it are two axes each by now
+
+        def window(first, size, step):
+            start, limit, strides = [0] * x.ndim, list(x.shape), [1] * x.ndim
+            start[ax], limit[ax], strides[ax] = first, first + (size - 1) * step + 1, step
+            return lax.slice(x, start, limit, strides)
+
+        if k <= m:
+            x = jnp.stack([window(t * d, m, st) for t in range(k)], ax)
+            taps.append(ax)
+        else:
+            x = jnp.stack([window(p * st, k, d) for p in range(m)], ax)
+            taps.append(ax + 1)
+    y = lax.dot_general(x, w, (((1, *taps), tuple(range(1, 2 + nd))), ((), ())))  # (N, *out, O)
+    return jnp.transpose(jnp.moveaxis(y, -1, 1), np.argsort(out_spec))
+
+
+@contextlib.contextmanager
+def float64_convolutions_as_dots():
+    """Inside the block, the CPU lowering of ``lax.conv_general_dilated``
+    (forward and both transposes) takes float64 operands with one feature
+    and one batch group through ``_conv_as_dots``; every other convolution
+    keeps XLA's own. XLA's CPU backend runs float64 convolutions as plain
+    loops: one 5x5, 64-channel gradient at 1x64x128 takes 2.0 s against
+    0.08 s in fp32, and the JAX package's float64 train step of
+    ``sdnet_mini`` at reduced depth 5.5 s a step on 7 cores. As windows and
+    matmuls the same sums, in another order, take ~1.4 s
+    (``tests/test_torch_float64_convs.py`` holds the two lowerings within
+    1e-13). The JAX package's programs are unchanged; only how XLA compiles
+    their float64 convolutions on the CPU."""
+    table = mlir._platform_specific_lowerings["cpu"]
+    held = table[lax.conv_general_dilated_p]
+
+    def rule(ctx, lhs, rhs, **params):
+        if (all(a.dtype == np.float64 for a in ctx.avals_in)
+                and params["feature_group_count"] == params["batch_group_count"] == 1):
+            return mlir.lower_fun(functools.partial(_conv_as_dots, **params),
+                                  multiple_results=False)(ctx, lhs, rhs)
+        return held.rule(ctx, lhs, rhs, **params)
+
+    table[lax.conv_general_dilated_p] = mlir.LoweringRuleEntry(rule, held.inline)
+    try:
+        yield
+    finally:
+        table[lax.conv_general_dilated_p] = held
+
+
 def jax_float64_reference(variables, batch, key, net="sdnet_mini_ext", corr_type="1dcorr",
                           losses=STACK):
     """The JAX package in float64 (``jax.enable_x64``): two steps of its
@@ -354,8 +426,9 @@ def jax_float64_reference(variables, batch, key, net="sdnet_mini_ext", corr_type
     statistics in fp32, so it runs the plain heads (the same function,
     ``tests/test_s2d.py``); and ``focal_binary_tversky``'s backward returns
     fp32, which a float64 ``custom_vjp`` refuses, so it runs the same forward
-    and backward with that result cast to float64. Call it inside
-    ``reduced_depth()``."""
+    and backward with that result cast to float64. Its float64
+    convolutions compile as windows and matmuls
+    (``float64_convolutions_as_dots``). Call it inside ``reduced_depth()``."""
     cfg = JaxConfig()
     cfg.model.net = net
     cfg.model.corr_type = corr_type
@@ -364,7 +437,7 @@ def jax_float64_reference(variables, batch, key, net="sdnet_mini_ext", corr_type
     model = jmodels.get_network(cfg)
     # numpy casts: a jnp cast compiles once for each shape
     f64 = lambda tree: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)  # noqa: E731
-    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+    with jax.enable_x64(True), float64_convolutions_as_dots(), pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtversky, "focal_binary_tversky", _tversky_float64)
         params, stats, batch = f64(variables["params"]), f64(variables["batch_stats"]), f64(batch)
         tx = jtraining.build_optimizer(cfg.optim, cfg.model.net, len(losses), 1)
