@@ -21,7 +21,10 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    bf16 function, time it warm and
    with the L2 flushed before each launch, and hold the gradients that
    ``torch.autograd.grad`` takes through ``correlation`` (forward kernel,
-   then backward kernel) at the training shape;
+   then backward kernel) at the training shape; hold corr1d's fp32 forward
+   (``corr1d_fp32_kernel``, the CLI's default precision) at the main paths'
+   shapes (``FP32_CORR1D_SHAPES``: serving, a view of the training step, an
+   eval row) and time each launch alone, warm, beside its byte bound;
 3. hold the eval forward on the card against the same model with the same
    weights on the CPU at 1x64x128 in fp32: the flagship (1dcorr), sdnet, and
    the flagship with 2dcorr; and one fp32 train step of the flagship and one
@@ -89,7 +92,8 @@ Phases, each fatal on failure (exit code 1; no result line is printed):
    (``TRUNK_SITES``: C = 480, 608, 1024, 136 at the serving and training
    shapes, 144-160 at the training shape) and corr2d's at 608 and 1024,
    both dtypes, printing the plan each bf16 launch takes and timing the
-   serving-shape forwards against their byte bounds. The flagship on
+   serving-shape forwards against their byte bounds (in fp32 corr1d's
+   forward, a launch alone, and its backward, flushed, at every site). The flagship on
    resnet101 and ``sdnet_mini_ext_dlab`` serve 16
    pairs of 512x960 (corr1d once a batch) and train at 8x256x512 (corr1d
    and its backward once a step); every other trunk under the flagship
@@ -337,6 +341,10 @@ ASPP2_CASES = [(ASPP2_SERVE_SHAPE, torch.float32), (ASPP2_SERVE_SHAPE, torch.bfl
                (ASPP2_TRAIN_SHAPE, torch.float32), (ASPP2_TRAIN_SHAPE, torch.bfloat16)]
 # the forward shapes the kernel phase times (each kernel meets its own)
 TIMED_FORWARD = (CORR_SHAPE, ASPP2_SERVE_SHAPE, ASPP2_TRAIN_SHAPE)
+# corr1d's fp32 forward (the CLI's default precision) on the main paths:
+# serving's a_py2, a view's in the training step, and an eval row's (the eval
+# step runs each row alone); phase 2 holds each and times a launch alone
+FP32_CORR1D_SHAPES = {"serving": CORR_SHAPE, "training step": TRAIN_SHAPE, "eval row": (1, H // 8, W // 8, 352)}
 # phase 15's training site: sdnet_mini's a_py2 (C 352 at /8) of one view at
 # the overfit tool's 8 crops of 64x128
 OVERFIT_TRAIN_CASES = [((8, 8, 16, 352), torch.float32), ((8, 8, 16, 352), torch.bfloat16)]
@@ -493,7 +501,8 @@ FLUSH_BYTES = 256 * 2**20
 # where it is not 0); its patch is ops/correlation.py's KERNEL_PATCH. bf16
 # runs corr_band.cuh's tensor-core band tile (64-column tiles, 64-channel
 # boxes of 16-channel mma steps; corr2d two rows a block); fp32 corr1d
-# corr_tile.cuh's row tile, fp32 corr2d corr2d.cu's own FFMA kernel (4 rows a
+# corr_tile.cuh's corr1d_fp32_kernel (64-column row tiles, a cp.async ring of
+# 32-channel stages), fp32 corr2d corr2d.cu's own FFMA kernel (4 rows a
 # block).
 KERNELS = {
     "corr1d": ("correlation1d_cuda", f"{TPU_CORR}:159", [
@@ -515,6 +524,15 @@ KERNELS = {
         *OVERFIT_TRAIN_CASES,                # phase 15: sdnet_mini's 1/8 map at the tool's
         ((1, 12, 20, 352), torch.float32),   # 64x128 crops and its 96x160 eval rows (one a
         ((1, 12, 20, 352), torch.bfloat16),  # forward): W 16 and 20, under one 64-column tile
+        # the fp32 kernel's edges: 64-column row tiles, 32-channel stages in a
+        # ring of 4, cp.async copies or (C % 4 != 0, misaligned) element loads
+        ((1, 2, 16, 8), torch.float32),      # C below one stage; W < 17
+        ((1, 1, 17, 352), torch.float32),    # H = 1, W = 17; 11 stages: the ring wraps
+        ((1, 3, 65, 136), torch.float32),    # W = 65: a last tile of one column; a last
+                                             # stage of 8 channels
+        ((2, 3, 33, 37), torch.float32, 1),  # C % 4 != 0 and misaligned: element loads
+        ((2, 3, 70, 352), torch.float32, 1),  # C % 4 == 0, misaligned: element loads
+        ((1, 2, 120, 1024), torch.float32),  # C = 1024: 32 stages; tiles of 64 and 56 columns
     ]),
     "corr2d": ("correlation2d_cuda", f"{TPU_CORR}:221", [
         ((1, 5, 9, 20), torch.float32),      # H, W < 17, B = 1 (vector loads)
@@ -660,8 +678,7 @@ SCRIPTS_TRAIN_EVAL_ROWS = SCRIPTS_EPOCHS // SCRIPTS_EVAL_EVERY * SCRIPTS_VAL_PAI
 # corr1d's fp32 forward at this path's shapes: a view's 1/8 map in a train
 # step, and an eval row's in the 512x960 bucket (the eval step runs each row
 # alone)
-SCRIPTS_CORR_SHAPES = {"train step": (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 352),
-                       "eval row": (1, H // 8, W // 8, 352)}
+SCRIPTS_CORR_SHAPES = {k: FP32_CORR1D_SHAPES[k] for k in ("training step", "eval row")}
 SCRIPTS_TIMEOUT_S = 600  # each script's run
 
 
@@ -1007,7 +1024,9 @@ def phase_sites(name: str) -> list:
     (``forward_plan``) printed; the bf16 forward at corr1d's serving shapes
     and corr2d's training shapes timed, a launch alone (warm) and back to
     back, against its byte bound; each bf16 backward timed alone with the L2
-    flushed. Returns one record a case."""
+    flushed; corr1d's fp32 forward and backward at every case the same way
+    (the forward alone and warm, the backward flushed). Returns one record a
+    case."""
     correlation = correlation_module()
     patch = correlation.KERNEL_PATCH[name]
     arg = patch[1] if name == "corr1d" else patch
@@ -1061,6 +1080,20 @@ def phase_sites(name: str) -> list:
             line += (f"; backward {rec['backward_ms_flushed']:.4f} ms flushed (bound "
                      f"{rec['backward_bound_ms']:.4f}, {rec['backward_bound_ms'] / rec['backward_ms_flushed']:.1%})")
             print(line, flush=True)
+        elif name == "corr1d":  # the CLI's default precision: corr1d_fp32_kernel and the fp32 backward
+            nbytes = (f1.numel() + f2.numel() + f1.numel() // shape[-1] * patch[1]) * 4
+            ops = 2 * f1.numel() * patch[1]
+            rec["bound_ms"], rec["bound_by"] = byte_bound_ms(nbytes, ops, dtype)
+            rec["ms"], rec["ms_median"] = event_time_ms(lambda: fn(f1, f2, arg), 30, flush=False)
+            bbytes = (4 * f1.numel() + grad.numel()) * 4
+            rec["backward_bound_ms"], _ = byte_bound_ms(bbytes, 2 * ops, dtype)
+            rec["backward_ms_flushed"], rec["backward_ms_flushed_median"] = event_time_ms(
+                lambda: bwd(f1, f2, grad), 20, flush=True)
+            print(f"{tag}: {rec['ms']:.4f} ms a launch alone (median {rec['ms_median']:.4f}; bound "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, {rec['bound_ms'] / rec['ms']:.1%}); backward "
+                  f"{rec['backward_ms_flushed']:.4f} ms flushed (median {rec['backward_ms_flushed_median']:.4f}; "
+                  f"bound {rec['backward_bound_ms']:.4f}, {rec['backward_bound_ms'] / rec['backward_ms_flushed']:.1%})",
+                  flush=True)
         records.append(rec)
         del f1, f2, grad
     return records
@@ -3149,17 +3182,17 @@ def run_script(tag: str, argv: list, cwd: str, bin_dir: str, probe: str):
     return text, record, seconds
 
 
-def scripts_corr1d(card: str) -> list:
-    """corr1d's fp32 forward at phase 16's shapes (``SCRIPTS_CORR_SHAPES``)
-    against ``correlation_plain`` (1e-4 * max|ref|), timed back to back and
-    each launch alone (warm, behind a card-side spin), beside its plain
-    version and its bound; returns a record a shape."""
+def corr1d_fp32_times(shapes: dict, tag: str, card: str) -> list:
+    """corr1d's fp32 forward at ``shapes`` (where -> shape) against
+    ``correlation_plain`` (1e-4 * max|ref|), timed back to back and each
+    launch alone (warm, behind a card-side spin), beside its plain version
+    and its bound; returns a record a shape."""
     correlation = correlation_module()
     patch = correlation.KERNEL_PATCH["corr1d"]
     fn = wrapper("corr1d")
     g = torch.Generator(device="cuda").manual_seed(16)
     out = []
-    for where, shape in SCRIPTS_CORR_SHAPES.items():
+    for where, shape in shapes.items():
         f1, f2 = (inputs(shape, torch.float32, g) for _ in range(2))
         got = fn(f1, f2, patch[1])
         torch.cuda.synchronize()
@@ -3167,18 +3200,20 @@ def scripts_corr1d(card: str) -> list:
         err = (got - ref).abs().max().item()
         tol = 1e-4 * ref.abs().max().item()
         check(got.shape == ref.shape and err <= tol,
-              f"[scripts] corr1d fp32 {shape}: shape {tuple(got.shape)}, max|d| {err} > {tol}")
+              f"{tag} corr1d fp32 {shape}: shape {tuple(got.shape)}, max|d| {err} > {tol}")
         ms = cuda_time_ms(lambda: fn(f1, f2, patch[1]), iters=50)
-        alone_ms, _ = event_time_ms(lambda: fn(f1, f2, patch[1]), 50, flush=False)
+        alone_ms, alone_median = event_time_ms(lambda: fn(f1, f2, patch[1]), 50, flush=False)
         plain_ms = cuda_time_ms(lambda: correlation.correlation_plain(f1, f2, patch), iters=3, warmup=1)
         nbytes = (f1.numel() + f2.numel() + got.numel()) * f1.element_size()
         bound_ms, bound_by = byte_bound_ms(nbytes, 2 * got.numel() * shape[-1], torch.float32)
-        print(f"[scripts] corr1d fp32 at the {where}'s {tuple(shape)}: max|d| = {err:.6g} (tolerance "
+        print(f"{tag} corr1d fp32 at the {where}'s {tuple(shape)}: max|d| = {err:.6g} (tolerance "
               f"{tol:.6g} = 1e-4 * max|ref|); kernel {ms:.4f} ms back to back, {alone_ms:.4f} ms a launch "
-              f"alone (warm), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.1f} MB), {bound_ms / alone_ms:.1%} of the bound alone; {card}", flush=True)
+              f"alone (warm; median {alone_median:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({nbytes / 1e6:.1f} MB), {bound_ms / alone_ms:.1%} of the bound alone; {card}",
+              flush=True)
         out.append({"where": where, "shape": list(shape), "dtype": "float32", "ms": ms, "ms_alone": alone_ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err})
+                    "ms_alone_median": alone_median, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": err})
         del f1, f2, got, ref
     return out
 
@@ -3202,7 +3237,7 @@ def phase_scripts(card: str) -> dict:
 
     t0 = time.perf_counter()
     free_card()
-    timed = scripts_corr1d(card)
+    timed = corr1d_fp32_times(SCRIPTS_CORR_SHAPES, "[scripts]", card)
     free_card()
     scripts = ROOT / SCRIPTS
     tmp = tempfile.mkdtemp(prefix="pmt_scripts_")
@@ -3418,6 +3453,8 @@ def main() -> int:
     try:
         sass = phase_build()
         records = {name: phase_kernel(name, sass) for name in KERNELS}
+        # the fp32 forward on the main paths, each launch alone
+        records["corr1d"]["fp32_main"] = corr1d_fp32_times(FP32_CORR1D_SHAPES, "[corr1d]", card)
         for name in BACKWARDS:
             records[f"{name}_backward"] = phase_backward(name, sass)
         for name in KERNELS:  # the trunks' sites: each case's forward and backward

@@ -27,9 +27,14 @@
 // is widened to fp32 in shared memory, and each warp stores its bands
 // straight from the accumulators.
 //
-// fp32: corr_tile.cuh's row tile on the CUDA cores: each channel chunk of
-// f1's columns and of f2's columns with their 8-column halo is staged once
-// through shared memory, and every shift reads it there.
+// fp32 (corr_tile.cuh's corr1d_fp32_kernel, on the CUDA cores): bound by
+// bytes too, 2 x 173 MB + 8.4 MB at the flagship shape, 0.1058 ms. A block
+// owns a row tile of 64 columns; 32-channel stages of f1's 64 and f2's 80
+// columns come in by 16-byte cp.async copies through a 4-stage ring (3 in
+// flight, 3 blocks an SM), and a thread sums 4 columns x 17 shifts of one
+// quad of each stage in registers. Every fp32 input takes this kernel: vec
+// inputs by cp.async, the rest (C % 4 != 0, or off 16-byte alignment) by
+// element loads into the same layout.
 //
 // Backward (corr1d_backward). Replaces the lax VJP of the JAX package's
 // _corr1d (ops/correlation.py:_corr1d_bwd_lax), which the TPU ran as XLA code
@@ -96,18 +101,6 @@ namespace {
 constexpr size_t kSmemBudget = 233472 / 2 - 1024;
 constexpr int kBoxes = 3;   // 64-channel boxes per stage of the bf16 ring
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(corr::kThreads, 4)
-corr1d_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out,
-              int H, int W, int C) {
-  using namespace corr;
-  __shared__ __align__(16) float s1[kTX * kS];
-  __shared__ __align__(16) float s2[kF2Rows * kS];
-  const size_t row = (size_t)blockIdx.z * H + blockIdx.y;
-  row_tile<T, kVec>(f1 + row * W * C, f2 + row * W * C, out + row * W * kPW, kPW,
-                    blockIdx.x * kTX, W, C, s1, s2);
-}
-
 template <bool kTma>
 __global__ void __launch_bounds__(band::kThreads, 2)
 corr1d_band_kernel(const __grid_constant__ CUtensorMap tm1, const __grid_constant__ CUtensorMap tm2,
@@ -120,19 +113,8 @@ corr1d_band_kernel(const __grid_constant__ CUtensorMap tm1, const __grid_constan
                            f1_res != 0, smem);
 }
 
-template <typename T>
-int launch(const void* f1, const void* f2, void* out, int B, int H, int W, int C, bool vec,
-           cudaStream_t stream) {
-  const dim3 grid((W + corr::kTX - 1) / corr::kTX, H, B);
-  auto kernel = vec ? corr1d_kernel<T, true> : corr1d_kernel<T, false>;
-  kernel<<<grid, corr::kThreads, 0, stream>>>(static_cast<const T*>(f1), static_cast<const T*>(f2),
-                                              static_cast<T*>(out), H, W, C);
-  return (int)cudaGetLastError();
-}
-
-template <>
-int launch<band::bf16>(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
-                       bool vec, cudaStream_t stream) {
+int launch_bf16(const void* f1, const void* f2, void* out, int B, int H, int W, int C, bool vec,
+                cudaStream_t stream) {
   const band::Plan p = band::plan(C, 1, kBoxes, kSmemBudget);
   // vec (C a multiple of 8, 16-byte aligned inputs) is what a tensor map takes
   CUtensorMap tm1{}, tm2{};
@@ -375,8 +357,8 @@ int corr1d_forward(const void* f1, const void* f2, void* out, int B, int H, int 
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<band::bf16>(f1, f2, out, B, H, W, C, vec != 0, s)
-                 : launch<float>(f1, f2, out, B, H, W, C, vec != 0, s);
+  return is_bf16 ? launch_bf16(f1, f2, out, B, H, W, C, vec != 0, s)
+                 : corr::launch_fwd_fp32(f1, f2, out, B, H, W, C, vec != 0, s);
 }
 
 // The plan the bf16 band's launch takes for C channels: out = {stages,

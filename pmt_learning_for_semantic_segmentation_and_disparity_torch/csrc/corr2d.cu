@@ -193,32 +193,12 @@ constexpr int kPatch = kPH * band::kPW;  // 289 outputs per pixel
 constexpr int kRows = 2;                 // output rows per bf16 block
 constexpr int kBoxes = 6;                // 64-channel boxes per stage of the bf16 ring
 
-// 16-byte copies from global to shared memory by cp.async (the fp32 kernels'
-// ring): zero-filled, and nothing read, where !in (src must still be a valid
-// address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(band::smem_u32(dst)),
-               "l"(reinterpret_cast<uint64_t>(src)), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of the thread's cp.async groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// the fp32 kernels' rings: 16-byte cp.async copies (corr_band.cuh)
+using band::cp_async16;
+using band::cp_async_commit;
+using band::cp_async_wait;
+using band::load4;
 
-// 4 channels c .. c+3 of one pixel (row points at its channel 0), zero past C.
-__device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, int C) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  float* e = &v.x;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (c + k < C) e[k] = row[c + k];
-  return v;
-}
 
 namespace fwd32 {
 

@@ -1,28 +1,55 @@
-// corr1d's fp32 tiles (corr1d.cu), on the CUDA cores; bf16 inputs take the
+// corr1d's fp32 kernels (corr1d.cu), on the CUDA cores; bf16 inputs take the
 // tensor-core band tiles of corr_band.cuh instead, and corr2d's fp32 kernels
 // are corr2d.cu's own.
 //
-// The row tile: one block of kThreads threads computes, for one image row
-// (NHWC) of f1 and the same row of f2, kTX = 64 output columns x kPW = 17
-// horizontal shifts:
+// The forward (corr1d_fp32_kernel). Replaces the fp32 case of the TPU kernel
+// pmt_learning_for_semantic_segmentation_and_disparity_tpu/ops/
+// correlation.py:_corr1d_kernel:
 //
-//   out[x, d] = sum_c f1[x, c] * f2[x + d - 8, c],  x in [x0, x0 + 64), d in [0, 17),
+//   out[b,y,x,d] = sum_c f1[b,y,x,c] * f2[b,y,x+d-8,c],  d in [0,17),
 //
-// zero where x + d - 8 falls outside [0, W); products and sums in fp32 on the
+// zero where x+d-8 falls outside [0,W); products and sums in fp32 FMAs on the
 // CUDA cores (TF32 tensor cores would not hold fp32's tolerance).
 //
-// Design. The block walks the channels in chunks of kCC: each chunk of f1's
-// 64 columns and of f2's 64 + 16 columns (the 8-column halo on each side,
-// zero outside [0,W), so no padded copy of f2 is ever written to device
-// memory) is staged once through shared memory as fp32. Every shift then
-// reads shared memory only. Each thread owns kXPT = 4 adjacent columns and
-// all 17 shifts (68 fp32 accumulators in registers), so one shared-memory
-// read of f2 feeds up to 4 products; the kCG = 8 lanes that share a column
-// group split the chunk's channels and are summed with warp shuffles at the
-// end. The row stride kS = kCC + 2 keeps the shared-memory reads of a warp
-// free of bank conflicts (4 column groups at row distance 4 land 8 banks
-// apart; the 8 channel lanes fill the gaps). The staging is single-buffered;
-// at 52-65% of its bound (PERF.md §6) the tile was left as it is.
+// Bound: bytes. It must read f1 and f2 once and write the output once:
+// (8,32,64,352), a view of the training step, 47.3 MB, 0.0141 ms at
+// 3.35 TB/s; (1,64,120,352), an eval row, 22.1 MB, 0.0066 ms; (16,64,120,352),
+// serving, 354.4 MB, 0.1058 ms. Its FMAs (0.10 G at the training shape) take
+// 0.003 ms at the 67 TFLOP/s fp32 peak. So what matters is keeping bytes in
+// flight on every SM.
+//
+// Design. A block owns a row tile: 64 output columns of one image row
+// (b, y); it reads f1's 64 columns and f2's 80 (the 8-column halo each side,
+// zero outside [0,W), so no padded copy of f2 is written). The channels come
+// in stages of 32: a stage holds the 32 channels of all 144 columns, 18,432
+// bytes, each column's 128 bytes as a row of 8 16-byte quads. Every thread
+// issues 16-byte cp.async copies of 9 quads a stage (zero-filled outside the
+// image and past C) into a ring of 4 stages, so three stages are in flight
+// while one is summed, with one barrier a stage: 73,728 bytes a block, 3
+// blocks an SM, ~166 KB in flight on an SM. A block of 128 threads: thread t
+// owns the 4 adjacent columns 4(t/8) .. +3 and all 17 shifts (68 fp32 sums
+// in registers) and, of each stage, the quad t % 8: it reads its 4 f1 values
+// and 20 f2 window columns as 16-byte loads, 24 loads for 272 FMAs.
+// The 8 lanes of a load phase read one column's 8 quads, 128 contiguous
+// bytes: no bank conflict and no pad. At the end the 8 lanes that split a
+// column group's channels are summed by a butterfly of warp shuffles, the
+// sums go through the ring into a 64 x 17 tile, and the tile's outputs, one
+// run of 17 x columns floats in the output, are stored by consecutive
+// threads. Every output has one owner: deterministic.
+// Which inputs take which path: one kernel for every shape; vec (C % 4 == 0,
+// f1 and f2 16-byte aligned) copies with cp.async, any other input stages the
+// same layout by element loads (kVec = false).
+// What holds it (tools/probe_band.py --fp32 corr1d on an H100 SXM at 700 W,
+// PERF.md section 6): the copies. With the products cut out it takes 0.1284
+// of its 0.1332 ms at serving (the copies at 82% of the byte bound), 0.0227
+// of 0.0242 ms at the training step's shape; at an eval row's (128 blocks
+// for 132 SMs) copies and products take about as long alone (0.0087 and
+// 0.0104 of 0.0115 ms).
+// Tried and measured slower or no faster: a cluster of 2 or 4 CTAs splitting
+// a tile's stages, summed through distributed shared memory (0.0174 ms
+// against 0.0129 at the eval row); rings of 2, 3 and 6 stages; 16 lanes a
+// column group with 64-channel stages; an L2 prefetch of the tile's pixels;
+// 256-byte L2 fetches; 32-column tiles were within 1-4%.
 //
 // The backward tile (bwd_fp32_kernel, below), in gather form on the CUDA
 // cores. With g = dL/dout (17 values a pixel):
@@ -41,69 +68,69 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "corr_band.cuh"
+
 namespace corr {
 
-constexpr int kPW = 17;                  // horizontal shifts of a row tile
-constexpr int kTX = 64;                  // output columns per block
+using band::cp_async16;
+using band::cp_async_commit;
+using band::cp_async_wait;
+using band::load4;
+
+constexpr int kPW = 17;                  // horizontal shifts
+constexpr int kHalo = kPW / 2;           // 8
+
+// ---- the fp32 forward ----
+constexpr int kTX = 64;                  // output columns of a row tile
+constexpr int kWin = kTX + kPW - 1;      // f2 columns a row tile reads (80)
 constexpr int kXPT = 4;                  // output columns per thread
-constexpr int kCG = 8;                   // lanes splitting one column group's channels
+constexpr int kCG = 8;                   // lanes splitting a column group's channels
 constexpr int kThreads = (kTX / kXPT) * kCG;  // 128
-constexpr int kCC = 32;                  // channels staged per chunk
-constexpr int kS = kCC + 2;              // shared-memory row stride in floats
-constexpr int kF2Rows = kTX + kPW - 1;   // f2 columns a block needs (with halo)
+constexpr int kCS = 4 * kCG;             // channels a stage: one 16-byte quad a lane (32)
+constexpr int kQuads = kCS / 4;          // quads of a staged column (8: 128 bytes)
+constexpr int kStageQuads = (kTX + kWin) * kQuads;  // 1,152 quads (18,432 bytes)
+constexpr int kStages = 4;               // stages of the ring
+constexpr int kBlocksPerSM = 3;          // blocks the ring's shared memory lets an SM hold
+constexpr size_t kFwdSmem = (size_t)kStages * kStageQuads * 16;  // 73,728 bytes
+static_assert(kStageQuads % kThreads == 0, "a stage's copies split evenly over the threads");
+static_assert(kTX * kPW * sizeof(float) <= kFwdSmem, "the output tile fits the ring");
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-// Stage columns [x_begin, x_begin + rows) x channels [c0, c0 + kCC) of one
-// image row into dst[r * kS + c] as fp32; zero outside [0, W) x [0, C).
-// kVec: 16-byte loads, valid when C is a multiple of the vector width and the
-// row pointer is 16-byte aligned (the wrapper checks both).
-template <typename T, bool kVec>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ row,
-                                      int x_begin, int rows, int W, int C, int c0) {
-  if (kVec) {
-    constexpr int V = 16 / sizeof(T);
-    constexpr int kVPR = kCC / V;
-    for (int i = threadIdx.x; i < rows * kVPR; i += kThreads) {
-      const int r = i / kVPR;
-      const int cl = (i % kVPR) * V;
-      const int x = x_begin + r;
-      const int c = c0 + cl;
-      float v[V];
-      if (x >= 0 && x < W && c < C) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(row + (size_t)x * C + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
+// Stage the channels c0 .. c0+31 of a row tile into st: quad i is channels
+// c0 + 4(i % 8) .. +3 of staged column i / 8, f1's column x0 + col for col <
+// 64, else f2's column x0 - 8 + col - 64; zero outside [0, W) and past C.
+// r1, r2 point at the row's column 0.
+template <bool kVec>
+__device__ __forceinline__ void fwd_stage(float4* __restrict__ st, const float* __restrict__ r1,
+                                          const float* __restrict__ r2, int x0, int W, int C,
+                                          int c0) {
 #pragma unroll
-        for (int k = 0; k < V; ++k) v[k] = to_float(e[k]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k) v[k] = 0.f;
-      }
-      float* d = dst + r * kS + cl;
-#pragma unroll
-      for (int k = 0; k < V; k += 2) *reinterpret_cast<float2*>(d + k) = make_float2(v[k], v[k + 1]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * kCC; i += kThreads) {
-      const int r = i / kCC;
-      const int cl = i % kCC;
-      const int x = x_begin + r;
-      const int c = c0 + cl;
-      dst[r * kS + cl] = (x >= 0 && x < W && c < C) ? to_float(row[(size_t)x * C + c]) : 0.f;
-    }
+  for (int k = 0; k < kStageQuads / kThreads; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    const int col = i / kQuads, c = c0 + 4 * (i % kQuads);
+    const bool one = col < kTX;
+    const int x = one ? x0 + col : x0 - kHalo + (col - kTX);
+    const bool in = x >= 0 && x < W && c < C;
+    const float* src = (one ? r1 : r2) + (in ? (size_t)x * C + c : 0);
+    if (kVec)
+      cp_async16(st + i, src, in);
+    else
+      st[i] = in ? load4(src - c, c, C) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// The block's row tile: r1, r2 point at column 0 of their rows; out[x, d]
-// is stored at o + x * out_stride + d for x in [x0, min(x0 + kTX, W)).
-// s1: kTX * kS floats, s2: kF2Rows * kS floats of shared memory.
-template <typename T, bool kVec>
-__device__ __forceinline__ void row_tile(const T* __restrict__ r1, const T* __restrict__ r2,
-                                         T* __restrict__ o, int out_stride, int x0, int W, int C,
-                                         float* s1, float* s2) {
-  const int cg = threadIdx.x % kCG;
-  const int xl = (threadIdx.x / kCG) * kXPT;
+// grid (row tiles, H, B), kThreads threads, kFwdSmem bytes of dynamic
+// shared memory.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+corr1d_fp32_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                   float* __restrict__ out, int H, int W, int C) {
+  extern __shared__ __align__(16) float4 fwd_ring[];
+  const int x0 = blockIdx.x * kTX;
+  const size_t row = (size_t)blockIdx.z * H + blockIdx.y;
+  const float* r1 = f1 + row * W * C;
+  const float* r2 = f2 + row * W * C;
+  const int nst = (C + kCS - 1) / kCS;
+  const int q = threadIdx.x % kCG, xl = (threadIdx.x / kCG) * kXPT;
 
   float acc[kXPT][kPW];
 #pragma unroll
@@ -111,25 +138,37 @@ __device__ __forceinline__ void row_tile(const T* __restrict__ r1, const T* __re
 #pragma unroll
     for (int d = 0; d < kPW; ++d) acc[i][d] = 0.f;
 
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    stage<T, kVec>(s1, r1, x0, kTX, W, C, c0);
-    stage<T, kVec>(s2, r2, x0 - kPW / 2, kF2Rows, W, C, c0);
-    __syncthreads();
+  // stage j into buffer j % kStages; one cp.async group a stage, empty or not
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < nst) fwd_stage<kVec>(fwd_ring + j * kStageQuads, r1, r2, x0, W, C, j * kCS);
+    cp_async_commit();
+  }
+  for (int j = 0; j < nst; ++j) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of stage j are in
+    __syncthreads();               // ... every thread's; stage j - 1 is read
+    const int jn = j + kStages - 1;  // into stage j - 1's buffer
+    if (jn < nst)
+      fwd_stage<kVec>(fwd_ring + (jn % kStages) * kStageQuads, r1, r2, x0, W, C, jn * kCS);
+    cp_async_commit();
+    const float4* st = fwd_ring + (j % kStages) * kStageQuads;
+    float4 a[kXPT];
 #pragma unroll
-    for (int kk = 0; kk < kCC / kCG; ++kk) {
-      const int k = kk * kCG + cg;
-      float a[kXPT];
-      float v[kXPT + kPW - 1];
+    for (int i = 0; i < kXPT; ++i) a[i] = st[(xl + i) * kQuads + q];
+    const float4* s2 = st + (kTX + xl) * kQuads + q;  // f2 window column xl + w at s2[8w]
 #pragma unroll
-      for (int i = 0; i < kXPT; ++i) a[i] = s1[(xl + i) * kS + k];
+    for (int w = 0; w < kXPT + kPW - 1; ++w) {
+      const float4 v = s2[w * kQuads];
 #pragma unroll
-      for (int j = 0; j < kXPT + kPW - 1; ++j) v[j] = s2[(xl + j) * kS + k];
-#pragma unroll
-      for (int i = 0; i < kXPT; ++i)
-#pragma unroll
-        for (int d = 0; d < kPW; ++d) acc[i][d] = fmaf(a[i], v[i + d], acc[i][d]);
+      for (int i = 0; i < kXPT; ++i) {
+        const int d = w - i;  // the shift of column xl + i that meets it
+        if (d < 0 || d >= kPW) continue;
+        float t = acc[i][d];
+        t = fmaf(a[i].x, v.x, t);
+        t = fmaf(a[i].y, v.y, t);
+        t = fmaf(a[i].z, v.z, t);
+        acc[i][d] = fmaf(a[i].w, v.w, t);
+      }
     }
-    __syncthreads();
   }
 
   // Sum over the kCG adjacent lanes that split this column group's channels.
@@ -138,22 +177,38 @@ __device__ __forceinline__ void row_tile(const T* __restrict__ r1, const T* __re
 #pragma unroll
     for (int d = 0; d < kPW; ++d)
 #pragma unroll
-      for (int m = kCG / 2; m > 0; m >>= 1)
-        acc[i][d] += __shfl_xor_sync(0xffffffffu, acc[i][d], m);
+      for (int m = kCG / 2; m > 0; m >>= 1) acc[i][d] += __shfl_xor_sync(0xffffffffu, acc[i][d], m);
 
-  // The group's kXPT columns x kPW shifts: lane cg stores every kCG-th of
-  // them, so the 8 lanes write each column's 17 outputs side by side.
+  // The tile's sums, out[x0 + x, d] at tile[x * 17 + d], through the ring
+  // (free once every warp is done with it): lane q writes every kCG-th of its
+  // group's 4 x 17 sums; then the tile's outputs, one run of 17 x columns
+  // floats in the output, go out by consecutive threads.
+  __syncthreads();
+  float* tile = reinterpret_cast<float*>(fwd_ring);
 #pragma unroll
-  for (int n = 0; n < kXPT * kPW; ++n) {
-    const int x = x0 + xl + n / kPW;
-    if (n % kCG == cg && x < W) store(o + (size_t)x * out_stride + n % kPW, acc[n / kPW][n % kPW]);
-  }
+  for (int n = 0; n < kXPT * kPW; ++n)
+    if (n % kCG == q) tile[xl * kPW + n] = acc[n / kPW][n % kPW];
+  __syncthreads();
+  float* o = out + (row * W + x0) * kPW;
+  for (int i = threadIdx.x; i < min(kTX, W - x0) * kPW; i += kThreads) o[i] = tile[i];
+}
+
+inline int launch_fwd_fp32(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
+                           bool vec, cudaStream_t stream) {
+  auto kernel = vec ? corr1d_fp32_kernel<true> : corr1d_fp32_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + kTX - 1) / kTX, H, B);
+  kernel<<<grid, kThreads, kFwdSmem, stream>>>(static_cast<const float*>(f1),
+                                               static_cast<const float*>(f2),
+                                               static_cast<float*>(out), H, W, C);
+  return (int)cudaGetLastError();
 }
 
 // ---- the fp32 backward tile ----
 constexpr int kBX = 64;                   // output columns per block
 constexpr int kBC = 64;                   // channels per block
-constexpr int kHalo = kPW / 2;            // 8
 constexpr int kBWin = kBX + 2 * kHalo;    // window columns staged (80)
 constexpr int kRun = 4;                   // adjacent output columns per thread
 constexpr int kQ = 4;                     // adjacent channels per thread: one float4

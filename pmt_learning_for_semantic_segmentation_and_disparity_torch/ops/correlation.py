@@ -30,10 +30,14 @@ channel count.
   ``correlation2d_cuda``'s backward launches.
 
   Both kernels run bf16 inputs on the tensor cores (the band tile of
-  ``csrc/corr_band.cuh``) and fp32 inputs on the CUDA cores (corr1d the row
-  tile of ``csrc/corr_tile.cuh``, corr2d its own kernel of 4-row blocks in
-  ``csrc/corr2d.cu``); either takes any C, H and W the checks below let
-  through.
+  ``csrc/corr_band.cuh``) and fp32 inputs on the CUDA cores (corr1d
+  ``corr1d_fp32_kernel`` of ``csrc/corr_tile.cuh``: 64-column row tiles fed
+  by a ring of 32-channel ``cp.async`` stages; corr2d its own kernel of 4-row
+  blocks in ``csrc/corr2d.cu``); either takes any C, H and W the checks
+  below let through. Which copies a launch takes is chosen by shape and
+  alignment before it: ``vec`` inputs (C a multiple of 16 bytes' elements,
+  16-byte aligned) are copied by the copy engine or ``cp.async``, the rest
+  staged by element loads in the same kernel.
 * ``correlation``        -- the dispatcher: CPU tensors take the plain
   version, any other tensor the kernel of its patch (``ph == 1``: corr1d,
   else corr2d), which raises if the tensors are not on the card or the kernel

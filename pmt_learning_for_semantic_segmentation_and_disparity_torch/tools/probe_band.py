@@ -2,7 +2,7 @@
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.probe_band \
         [--shape B H W C] [--variants kernel,staged-f1]
-        [--backward [corr1d|corr2d]] [--out report.json]
+        [--backward [corr1d|corr2d]] [--fp32 [corr2d|corr1d]] [--out report.json]
 
 Builds the bf16 band kernels of ``csrc/`` (corr1d, corr2d) as they are and in
 variants with one part cut out, each from a copy of the sources under
@@ -109,6 +109,30 @@ shapes with g of 289 channels and each variant's own workspace:
 * ``no-stores``    -- no output is stored.
 
 The first eight compute the same gradients; the rest are wrong by
+construction.
+
+``--fp32 corr1d`` probes corr1d's fp32 forward (``corr1d_fp32_kernel``,
+``csrc/corr_tile.cuh``) at the training step's (8, 32, 64, 352), an eval
+row's (1, 64, 120, 352) and the serving shape (16, 64, 120, 352) (or
+``--shape``), each launch timed alone by its own events behind a card-side
+spin, warm, 30 launches, variants in turns, twice over:
+
+* ``kernel``      -- the sources as they are (a 4-stage ring, 3 blocks an SM);
+* ``stages-3``, ``stages-6`` -- a ring of 3 stages (4 blocks an SM) or 6
+  (2 blocks an SM);
+* ``lanes-16``    -- 16 lanes a column group and 64-channel stages (256
+  threads, a 3-stage ring, 2 blocks an SM);
+* ``tile-32``     -- 32-column row tiles (twice the blocks; f2's halo read
+  1.5 times);
+* ``prefetch-l2`` -- one bulk L2 prefetch of the tile's f1 and f2 pixels
+  before the ring's copies;
+* ``l2-256b``     -- each ``cp.async`` asks the L2 for 256 bytes on a miss;
+* ``no-loads``    -- no global read: the ring is written with zeros;
+* ``no-products`` -- no product nor its shared-memory reads: the copies,
+  barriers and stores;
+* ``no-stores``   -- the outputs are not stored.
+
+The first seven compute the same outputs; the last three are wrong by
 construction.
 
 Prints the card's name and power limit, the nvcc release and one JSON
@@ -371,6 +395,53 @@ BWD32_VARIANTS = {
 }
 
 
+# corr1d's fp32 forward (corr_tile.cuh's corr1d_fp32_kernel): variant -> edits
+def _tile_consts(**values) -> tuple:
+    # corr_tile.cuh's constants of the forward set to other values
+    now = {"kTX": 64, "kCG": 8, "kStages": 4, "kBlocksPerSM": 3}
+    return tuple(("corr_tile.cuh", f"constexpr int {k} = {now[k]};", f"constexpr int {k} = {v};")
+                 for k, v in values.items())
+
+
+FWD1_32_COPY = "      cp_async16(st + i, src, in);"
+FWD1_32_NST = "  const int nst = (C + kCS - 1) / kCS;\n"
+FWD1_32_PREFETCH = """  if (kVec && threadIdx.x == 0) {
+    const int a = max(0, x0 - kHalo), e1 = min(W, x0 + kTX), e2 = min(W, x0 + kTX + kHalo);
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\\n" ::"l"(r1 + (size_t)x0 * C),
+                 "r"((e1 - x0) * C * 4) : "memory");
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\\n" ::"l"(r2 + (size_t)a * C),
+                 "r"((e2 - a) * C * 4) : "memory");
+  }
+"""
+FWD1_32_PRODUCTS = "    for (int w = 0; w < kXPT + kPW - 1; ++w) {"
+FWD1_32_STORE = "o[i] = tile[i];"
+FWD1_32_VARIANTS = {
+    "kernel": (),
+    # a shallower or deeper ring: more or fewer blocks an SM (shared memory
+    # and registers allowing)
+    "stages-3": _tile_consts(kStages=3, kBlocksPerSM=4),
+    "stages-6": _tile_consts(kStages=6, kBlocksPerSM=2),
+    # 16 lanes a column group, 64-channel stages: 256 threads, 2 blocks an SM
+    "lanes-16": _tile_consts(kCG=16, kStages=3, kBlocksPerSM=2),
+    # 32-column row tiles: twice the blocks, f2's halo read 1.5 times
+    "tile-32": _tile_consts(kTX=32, kBlocksPerSM=5),
+    # one bulk L2 prefetch of the tile's f1 and f2 pixels (contiguous runs of
+    # whole pixels) before the ring's copies
+    "prefetch-l2": (("corr_tile.cuh", FWD1_32_NST, FWD1_32_NST + FWD1_32_PREFETCH),),
+    # each cp.async asks the L2 for 256 bytes on a miss (the next stage's quads)
+    "l2-256b": (("corr_band.cuh", "cp.async.cg.shared.global [%0]",
+                 "cp.async.cg.shared.global.L2::256B [%0]"),),
+    # no global read: the ring is written with zeros (its barriers remain)
+    "no-loads": (("corr_tile.cuh", FWD1_32_COPY,
+                  "      st[i] = make_float4(0.f, 0.f, 0.f, 0.f);"),),
+    # the copies, barriers and stores; no product (nor its shared-memory reads)
+    "no-products": (("corr_tile.cuh", FWD1_32_PRODUCTS, "    for (int w = 0; w < 0; ++w) {"),),
+    # the outputs are not stored (a test that never holds keeps the sums)
+    "no-stores": (("corr_tile.cuh", FWD1_32_STORE, "if (tile[i] == 1.5e-38f) o[i] = tile[i];"),),
+}
+FWD1_32_SHAPES = {"train": (8, 32, 64, 352), "eval row": (1, 64, 120, 352), "serve": (16, 64, 120, 352)}
+
+
 def apply_edits(name: str, edits, read) -> dict:
     """The sources of variant ``name`` after its (file, text, replacement)
     edits in turn, file -> text; ``read(file)`` gives today's source. Raises
@@ -391,6 +462,7 @@ def all_variants() -> dict:
         out.update({f"{kernel}-backward {n}": edits for n, edits in variants.items()})
     out.update({f"fp32 forward {n}": edits for n, edits in FWD32_VARIANTS.items()})
     out.update({f"fp32 corr2d-backward {n}": edits for n, edits in BWD32_VARIANTS.items()})
+    out.update({f"fp32 corr1d-forward {n}": edits for n, edits in FWD1_32_VARIANTS.items()})
     return out
 
 
@@ -520,6 +592,49 @@ def probe_backward(card: str, nvcc: str, kernel: str = "corr1d", fp32: bool = Fa
     return report
 
 
+def probe_fwd1_fp32(card: str, nvcc: str, shapes: dict, names) -> dict:
+    """Time corr1d's fp32 forward and its variants (``names`` of
+    ``FWD1_32_VARIANTS``) at ``shapes``, each launch alone (its own events
+    behind a card-side spin), warm, 30 launches, variants in turns, twice
+    over; returns the report."""
+    libs = build_variants({n: (("corr1d",), FWD1_32_VARIANTS[n]) for n in names}, prefix="fwd1-")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    times, diff = {}, {}
+    for tag, shape in shapes.items():
+        b, h, w, c = shape
+        f1, f2 = (torch.randn(shape, device="cuda", generator=g) for _ in range(2))
+        outs = {}
+        for _ in range(2):
+            for (name, _), (lib, _) in libs.items():
+                fn = lib.corr1d_forward
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                out = outs.setdefault(name, torch.zeros((b, h, w, 17), device="cuda"))
+
+                def call():
+                    err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c, 1, 17, 0, 1, stream)
+                    if err != 0:
+                        raise RuntimeError(f"{name}: cudaError {err}")
+
+                ts = sorted(event_times_ms(call, 30))
+                times.setdefault(f"{tag} {name}", []).append(
+                    {"mean": sum(ts) / len(ts), "median": ts[len(ts) // 2]})
+        for name, out in outs.items():
+            diff[f"{tag} {name}"] = (out - outs["kernel"]).abs().max().item()
+        bound = (2 * f1.numel() + b * h * w * 17) * 4 / 3.35e12 * 1e3
+        for name in outs:
+            key = f"{tag} {name}"
+            print(f"[probe_band corr1d fp32] {key} {shape}: median "
+                  f"{', '.join(f'{t['median']:.4f}' for t in times[key])} ms (mean "
+                  f"{', '.join(f'{t['mean']:.4f}' for t in times[key])}), byte bound {bound:.4f} ms, "
+                  f"max|d| vs kernel {diff[key]:.4g}", flush=True)
+        del f1, f2, outs
+    report = {"card": card, "nvcc": nvcc, "kernel": "corr1d_fp32_kernel", "shapes": shapes,
+              "dtype": "float32", "ms": times, "max_abs_diff_vs_kernel": diff}
+    print(json.dumps(report), flush=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write the JSON report here")
@@ -530,9 +645,11 @@ def main() -> int:
                     help="the forward probe's f1 = f2 shape (NHWC)")
     ap.add_argument("--variants", default=None,
                     help="the forward variants to time, comma-separated (all by default)")
-    ap.add_argument("--fp32", action="store_true",
-                    help="probe corr2d's fp32 kernels (forward, or with --backward corr2d its "
-                         "backward) instead of the bf16 band kernels")
+    ap.add_argument("--fp32", nargs="?", const="corr2d", choices=("corr2d", "corr1d"),
+                    help="probe the fp32 kernels instead of the bf16 band kernels: corr2d's "
+                         "(forward, or with --backward corr2d its backward; the default), or "
+                         "corr1d's forward (at the training, eval-row and serving shapes, or "
+                         "--shape)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_band: no CUDA device", file=sys.stderr)
@@ -543,6 +660,18 @@ def main() -> int:
     nvcc = subprocess.run([_kernels._nvcc(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[-2]
     print(nvcc, flush=True)
+    if args.fp32 == "corr1d":
+        if args.backward:
+            ap.error("--fp32 corr1d probes corr1d's fp32 forward")
+        names = args.variants.split(",") if args.variants else list(FWD1_32_VARIANTS)
+        if sorted(set(names) - set(FWD1_32_VARIANTS)) or "kernel" not in names:
+            ap.error(f"--variants: one of {sorted(FWD1_32_VARIANTS)}, with 'kernel'")
+        shapes = {"shape": tuple(args.shape)} if tuple(args.shape) != SHAPE else FWD1_32_SHAPES
+        report = probe_fwd1_fp32(card, nvcc, shapes, names)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1)
+        return 0
     if args.fp32 and args.backward not in (None, "corr2d"):
         ap.error("--fp32 probes corr2d's kernels")
     if args.backward:

@@ -1,8 +1,8 @@
-"""corr2d's bf16 backward, or its fp32 forward and backward, of two trees in
-turns, on one CUDA card.
+"""corr2d's bf16 backward, or its fp32 forward and backward, or corr1d's fp32
+forward, of two trees in turns, on one CUDA card.
 
     python -m pmt_learning_for_semantic_segmentation_and_disparity_torch.tools.turns_backward \
-        --parent DIR [--fp32] [--rounds 1] [--out report.json]
+        --parent DIR [--fp32 | --corr1d-fp32] [--rounds 1] [--out report.json]
 
 ``DIR`` is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -23,6 +23,13 @@ wrapper ``correlation2d_cuda``, each launch timed alone, warm (it reads 65 to
 as above, flushed and warm; each held against ``correlation_plain`` and
 ``correlation2d_vjp_plain`` at the fp32 tolerance 1e-4 * max|ref|.
 
+``--corr1d-fp32`` times corr1d's fp32 forward instead, the wrapper
+``correlation1d_cuda`` as the CLI's default precision calls it, at the main
+paths' shapes (serving (16, 64, 120, 352), a view of the training step
+(8, 32, 64, 352), an eval row (1, 64, 120, 352)) and at C = 608 and 1024 at
+the serving and training shapes: each launch timed alone, warm, 50 launches,
+each held against ``correlation_plain`` at 1e-4 * max|ref|.
+
 Turns run parent, this tree, this tree, parent (``--rounds`` times). Prints
 each turn's times, the card's name and power limit, and one JSON line
 (written to ``--out`` too). Exits non-zero without a card or when a turn
@@ -38,6 +45,8 @@ import sys
 from pathlib import Path
 
 SHAPES = ((8, 32, 64, 352), (16, 64, 120, 352), (8, 32, 64, 608), (8, 32, 64, 1024))
+CORR1D_SHAPES = ((16, 64, 120, 352), (8, 32, 64, 352), (1, 64, 120, 352), (16, 64, 120, 608),
+                 (8, 32, 64, 608), (16, 64, 120, 1024), (8, 32, 64, 1024))
 FLUSH_BYTES = 256 * 2**20
 PACKAGE = "pmt_learning_for_semantic_segmentation_and_disparity_torch"
 THIS_ROOT = Path(__file__).resolve().parents[2]
@@ -71,14 +80,37 @@ def share_of_tolerance(got, ref, tol: float) -> float:
                for a, b in zip(got, ref))
 
 
-def time_tree(root: str, fp32: bool = False) -> dict:
+def time_corr1d(correlation) -> dict:
+    """corr1d's fp32 forward wrapper at CORR1D_SHAPES, each launch alone,
+    warm, held at 1e-4 * max|ref|."""
+    import torch
+
+    out = {}
+    for shape in CORR1D_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        f1, f2 = (torch.randn(shape, device="cuda", generator=g) for _ in range(2))
+        share = share_of_tolerance([correlation.correlation1d_cuda(f1, f2, 17)],
+                                   [correlation.correlation_plain(f1, f2, (1, 17))], 1e-4)
+        if share > 1:
+            raise SystemExit(f"corr1d {shape}: max|d| is {share:.3g} of its tolerance")
+        mean, median = event_times(lambda: correlation.correlation1d_cuda(f1, f2, 17), 50, None)
+        out[f"corr1d forward {'x'.join(map(str, shape))}"] = {
+            "warm_mean": mean, "warm_median": median, "err_share_of_tolerance": share}
+        del f1, f2
+    return out
+
+
+def time_tree(root: str, fp32: bool = False, corr1d: bool = False) -> dict:
     """One turn: the wrappers of the tree at ``root``, timed at SHAPES (bf16
-    backward, or with ``fp32`` the fp32 forward and backward)."""
+    backward, or with ``fp32`` the fp32 forward and backward), or with
+    ``corr1d`` corr1d's fp32 forward at CORR1D_SHAPES."""
     import torch
 
     sys.path.insert(0, root)
     correlation = importlib.import_module(f"{PACKAGE}.ops.correlation")
     assert Path(correlation.__file__).resolve().is_relative_to(Path(root).resolve()), correlation.__file__
+    if corr1d:
+        return time_corr1d(correlation)
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     dtype, tol = (torch.float32, 1e-4) if fp32 else (torch.bfloat16, 1e-2)
     out = {}
@@ -116,15 +148,19 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="write the JSON report here")
     ap.add_argument("--fp32", action="store_true",
                     help="time the fp32 forward and backward instead of the bf16 backward")
+    ap.add_argument("--corr1d-fp32", action="store_true",
+                    help="time corr1d's fp32 forward instead (each launch alone, warm)")
     ap.add_argument("--time", metavar="ROOT", help=argparse.SUPPRESS)  # one turn, in its own process
     args = ap.parse_args()
+    if args.fp32 and args.corr1d_fp32:
+        ap.error("--fp32 and --corr1d-fp32 time different kernels: pick one")
     import torch
 
     if not torch.cuda.is_available():
         print("turns_backward: no CUDA device", file=sys.stderr)
         return 2
     if args.time:
-        print(json.dumps(time_tree(args.time, args.fp32)), flush=True)
+        print(json.dumps(time_tree(args.time, args.fp32, args.corr1d_fp32)), flush=True)
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -136,8 +172,8 @@ def main() -> int:
     for _ in range(args.rounds):
         for name in ("parent", "this", "this", "parent"):
             proc = subprocess.run([sys.executable, __file__, "--time", trees[name]]
-                                  + ["--fp32"] * args.fp32, capture_output=True, text=True,
-                                  timeout=1200)
+                                  + ["--fp32"] * args.fp32 + ["--corr1d-fp32"] * args.corr1d_fp32,
+                                  capture_output=True, text=True, timeout=1200)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
                 return 1
@@ -146,10 +182,10 @@ def main() -> int:
             for shape, t in times.items():
                 flushed = (f"{t['flushed_mean']:.4f} ms flushed (median {t['flushed_median']:.4f}), "
                            if "flushed_mean" in t else "")
-                print(f"[turns {name}] {shape} {'fp32' if args.fp32 else 'bf16'}: {flushed}"
+                print(f"[turns {name}] {shape} {'fp32' if args.fp32 or args.corr1d_fp32 else 'bf16'}: {flushed}"
                       f"{t['warm_mean']:.4f} ms warm (median {t['warm_median']:.4f}); max|d| "
                       f"{t['err_share_of_tolerance']:.3g} of the tolerance", flush=True)
-    report = {"card": card, "dtype": "float32" if args.fp32 else "bfloat16", "trees": trees,
+    report = {"card": card, "dtype": "float32" if args.fp32 or args.corr1d_fp32 else "bfloat16", "trees": trees,
               "turns": turns}
     print(json.dumps(report), flush=True)
     if args.out:
