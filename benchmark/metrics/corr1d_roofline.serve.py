@@ -1,0 +1,7 @@
+"""corr1d's forward kernel: its share of its roofline at the serving
+site."""
+from benchmark import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "serve", "corr1d", backward=False)
