@@ -28,6 +28,7 @@ from ..core.registry import MODELS
 from ..losses.multitask import multitask_loss
 from ..ops.correlation import correlation
 from ..ops.resize import resize_bilinear, resize_nearest, upsample_nearest
+from ..utils.profiling import span
 from .aspp import ASPP
 from .blocks import Conv2DownUp, ConvBN, ConvOut, conv2d
 from .hanet import HANetConv
@@ -82,9 +83,11 @@ def channels_last(t: torch.Tensor) -> torch.Tensor:
 def cost_volume(a: torch.Tensor, b: torch.Tensor, patch: Tuple[int, int],
                 normalize: bool) -> torch.Tensor:
     """The correlation of two NCHW feature maps, as NCHW (B, ph*pw, H, W);
-    the NHWC views in and out are free for channels_last tensors."""
-    return correlation(nhwc(a).contiguous(), nhwc(b).contiguous(), patch,
-                       normalize=normalize).permute(0, 3, 1, 2)
+    the NHWC views in and out are free for channels_last tensors. The span
+    ``model.correlation`` covers the copies and the kernel."""
+    with span("model.correlation"):
+        return correlation(nhwc(a).contiguous(), nhwc(b).contiguous(), patch,
+                           normalize=normalize).permute(0, 3, 1, 2)
 
 
 class SegNetHead(nn.Module):
@@ -260,7 +263,8 @@ class MiniDSNetExt(nn.Module):
         full_hw = tuple(left.shape[-2:])
 
         # taps 0..4, then the enriched b2, b1, b0 (indices 5, 6, 7)
-        a, b = both_views(self.features, left, right)
+        with span("model.trunk"):
+            a, b = both_views(self.features, left, right)
         a0, a1, a3, a4, a_py2, a_py1, a_py0 = (a[i] for i in (0, 1, 3, 4, 5, 6, 7))
         b3, b4, b_py2, b_py1 = (b[i] for i in (3, 4, 5, 6))
         if self.multaskloss == 2:
@@ -394,7 +398,8 @@ class MiniDSNet(nn.Module):
         image = nchw_channels_last(input_a)
         left, right = nchw_channels_last(input_a[..., :3]), nchw_channels_last(input_b[..., :3])
         full_hw = tuple(left.shape[-2:])
-        a, b = both_views(self.features, left, right)
+        with span("model.trunk"):
+            a, b = both_views(self.features, left, right)
         a4, a_py2 = a[4], a[5]
         b4, b_py2 = b[4], b[5]
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from ..core.config import ModelConfig
 from ..core.registry import MODELS
 from ..ops.resize import resize_bilinear, upsample_nearest
+from ..utils.profiling import span
 from .blocks import Conv2DownUp, ConvBN, ConvOut, DeconvBN
 from .pyramid import PiramidNetV1
 from .sdnet import (
@@ -113,8 +114,9 @@ class DSNet(nn.Module):
     def forward(self, input_a: torch.Tensor, input_b: torch.Tensor, **_) -> Dict[str, torch.Tensor]:
         left = nchw_channels_last(input_a)
         n = input_a.shape[-1] if self.TRUNK_TAKES_EDGES else 3
-        a, b = both_views(self.features, nchw_channels_last(input_a[..., :n]),
-                          nchw_channels_last(input_b[..., :n]))
+        with span("model.trunk"):
+            a, b = both_views(self.features, nchw_channels_last(input_a[..., :n]),
+                              nchw_channels_last(input_b[..., :n]))
         full_hw = tuple(left.shape[-2:])
         a0, a1, a4, a_py2, a_py0 = (a[i] for i in (0, 1, 4, 5, 6))
         b4, b_py2, b_py0 = (b[i] for i in (4, 5, 6))

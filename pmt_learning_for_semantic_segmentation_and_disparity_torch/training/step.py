@@ -33,6 +33,7 @@ from ..losses.edge import balanced_edge_bce
 from ..metrics.dispmetrics import disp_metrics
 from ..metrics.segmetrics import seg_batch_metrics
 from ..parallel.mesh import Mesh, all_reduce, fold_in, gather_rows, mesh_size
+from ..utils.profiling import span
 from .state import TrainState
 
 def _is_bn(m: torch.nn.Module) -> bool:
@@ -146,10 +147,13 @@ def make_forward_fn(cfg: PMTConfig, model: torch.nn.Module,
         left, right = _model_images(cfg, batch, device)
         kwargs = _model_kwargs(cfg, batch, device, bf16)
         if not bf16:
-            return _postprocess(cfg, model(left, right, **kwargs), batch)
+            with span("model"):
+                out = model(left, right, **kwargs)
+            return _postprocess(cfg, out, batch)
         weights = {n: p.to(torch.bfloat16) for n, p in cast}
-        out = functional_call(model, weights, (left.to(torch.bfloat16), right.to(torch.bfloat16)),
-                              kwargs)
+        with span("model"):
+            out = functional_call(model, weights,
+                                  (left.to(torch.bfloat16), right.to(torch.bfloat16)), kwargs)
         out = {k: v if v is None else tuple(t.float() for t in v) if isinstance(v, tuple)
                else v.float() for k, v in out.items()}
         return _postprocess(cfg, out, batch)
@@ -249,8 +253,10 @@ def make_loss_fn(cfg: PMTConfig, model: torch.nn.Module,
 
     def loss_fn(batch, train: bool = True):
         batch = {k: v.to(device) for k, v in batch.items()}
-        out = forward(batch, train)
-        loss, logs = losses(out, batch)
+        with span("step.forward", allocated=True):
+            out = forward(batch, train)
+        with span("step.losses"):
+            loss, logs = losses(out, batch)
         return loss, (out, logs)
 
     return loss_fn
@@ -293,10 +299,15 @@ def _reduce_over_mesh(mesh: Mesh, model: torch.nn.Module,
 def make_train_step(cfg: PMTConfig, model: torch.nn.Module,
                     device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
     """Returns ``step(state, batch) -> (state, metrics)``: the train-mode
-    forward, the configured losses, the backward, ``freeze_bn``, one
-    optimizer update and the metrics (``compute_metrics`` plus the loss
-    logs), on ``device`` (the card by default). ``state`` is updated in place
-    and returned.
+    forward, the configured losses, the backward, the metrics
+    (``compute_metrics`` plus the loss logs), ``freeze_bn`` and one optimizer
+    update, on ``device`` (the card by default). ``state`` is updated in
+    place and returned. Under a profiler each phase is a span
+    (``utils/profiling.py``): ``step.forward``, ``step.losses``,
+    ``step.backward``, ``step.metrics`` (``step.reduce`` under a mesh) and
+    ``step.optimizer``, in that order, after the ``zero_grad`` that opens the
+    step in a ``step.optimizer`` span of its own (it drops the last step's
+    gradients, which a caller may read until then).
 
     With a ``mesh`` of several ranks, ``batch`` is this rank's slice of the
     global batch; each rank's forward draws from its own random stream (a
@@ -314,12 +325,14 @@ def make_train_step(cfg: PMTConfig, model: torch.nn.Module,
 
     def forward_backward(batch):
         loss, (out, logs) = loss_fn(batch, True)
-        loss.backward()
+        with span("step.backward", allocated=True):
+            loss.backward()
         return out, logs
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         batch = {k: v.to(device) for k, v in batch.items()}
-        state.optimizer.zero_grad()
+        with span("step.optimizer"):
+            state.optimizer.zero_grad()
         if mesh is None:
             out, logs = forward_backward(batch)
         else:
@@ -327,15 +340,18 @@ def make_train_step(cfg: PMTConfig, model: torch.nn.Module,
             with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
                 torch.manual_seed(seed)
                 out, logs = forward_backward(batch)
-        if cfg.optim.freeze_bn:
-            _zero_bn_grads(state.model)
-        with torch.no_grad():
+        with span("step.metrics"), torch.no_grad():
             metrics = compute_metrics(cfg, {k: v.detach() for k, v in out.items()
                                             if isinstance(v, torch.Tensor)}, batch)
             metrics.update({k: v.detach() for k, v in logs.items()})
-            if mesh is not None:
+            del out, logs  # the forward's graph goes with them: its teardown stays in the span
+        if mesh is not None:
+            with span("step.reduce"), torch.no_grad():
                 metrics = _reduce_over_mesh(mesh, state.model, metrics)
-        return state.apply_gradients(), metrics
+        with span("step.optimizer"):
+            if cfg.optim.freeze_bn:
+                _zero_bn_grads(state.model)
+            return state.apply_gradients(), metrics
 
     return step
 

@@ -2,10 +2,20 @@
 ``utils/profiling.py``.
 
 The reference has no tracing at all — wall-clock prints every 5 iters
-(SURVEY.md §5). Here: ``trace`` records the enclosed steps with
-``torch.profiler`` (the CPU operators, and the card's kernels where a card
-is present) into a Chrome trace file that Perfetto and TensorBoard open,
-plus a tiny step timer.
+(SURVEY.md §5). Here:
+
+* ``trace`` records the enclosed steps with ``torch.profiler`` (the CPU
+  operators, and the card's kernels where a card is present) into a Chrome
+  trace file that Perfetto and TensorBoard open;
+* ``span(name)`` marks a part of the program (a phase of the train step, a
+  part of the model) as the range ``pmt.<name>`` while a profiler records,
+  so the range lands in the same trace as the card's kernels, on its clock;
+* ``counters`` holds what a span counts while a profiler records: the bytes
+  allocated on the card at the entry of the spans opened with
+  ``allocated=True``, under ``<name>.allocated_bytes``.
+
+With no profiler recording, ``span`` costs one check and returns one shared
+no-op context: no torch op, no clock read, nothing written to ``counters``.
 
 The JAX package's ``start_profiler_server`` (an endpoint TensorBoard
 connects to and captures from on demand) has no torch counterpart:
@@ -16,10 +26,13 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Optional
+from typing import Dict
 
 import torch
+
+PREFIX = "pmt."
+counters: Dict[str, int] = {}
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -35,27 +48,13 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-class StepTimer:
-    """Rolling step-time statistics (replaces the reference's raw
-    time.time() prints, torch_implementation.py:346-379)."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.times = []
-        self._last: Optional[float] = None
-        self._count = 0
-
-    def tick(self):
-        now = time.perf_counter()
-        if self._last is not None:
-            self._count += 1
-            if self._count > self.warmup:
-                self.times.append(now - self._last)
-        self._last = now
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / len(self.times) if self.times else 0.0
-
-    def throughput(self, batch: int) -> float:
-        return batch / self.mean if self.mean > 0 else 0.0
+def span(name: str, allocated: bool = False):
+    """The range ``pmt.<name>`` while a profiler records, else a shared no-op
+    context. ``allocated``: also count the card's allocated bytes at its
+    entry (no sync; the peak statistics are left alone)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if allocated:
+        counters[f"{name}.allocated_bytes"] = (torch.cuda.memory_allocated()
+                                               if torch.cuda.is_initialized() else 0)
+    return torch.profiler.record_function(PREFIX + name)

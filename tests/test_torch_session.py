@@ -1,7 +1,6 @@
-"""The port's user path on the CPU (torch only, but for ``StepTimer``'s
-reference): the CLI (``cli.train.main``) trains the flagship with the
-trunk at ``reduced_depth()`` from the files of a 4+3-image roses fixture
-of 64x128, at ``-b 2``, with the eval bucket at 72x136 (so ``pad_mask``
+"""The port's user path on the CPU (torch only): the CLI
+(``cli.train.main``) trains the flagship with the trunk at
+``reduced_depth()`` from the files of a 4+3-image roses fixture of 64x128, at ``-b 2``, with the eval bucket at 72x136 (so ``pad_mask``
 matters) and an eval every epoch.
 
 * A run of ``-e 1`` resumed to ``-e 2`` equals an uninterrupted ``-e 2``:
@@ -17,9 +16,8 @@ matters) and an eval every epoch.
 * The eval CLI at ``-show_results 1`` (the flag's default) with matplotlib
   hidden, as on the card's machine: it prints its summary and writes both
   confusion heatmaps, which decode through the port's PNG codec.
-* ``utils/profiling.py``: ``StepTimer`` equal to the JAX package's on the
-  same patched clock (intervals, mean and throughput), and ``trace``
-  writing a Chrome trace file of the steps it wraps.
+* ``utils/profiling.py``: ``trace`` writing a Chrome trace file of the
+  steps it wraps.
 """
 import json
 import os
@@ -206,26 +204,6 @@ def test_eval_cli_show_results_without_matplotlib(runs, monkeypatch, tmp_path, c
         assert heatmap.shape == (64, 64, 3)  # 2 classes, 32 pixels a cell
     assert sorted(os.listdir(tmp_path / "testResults"))[:2] == ["confusion_head1.png",
                                                                  "confusion_head2.png"]
-
-
-def test_step_timer_on_a_patched_clock(monkeypatch):
-    from pmt_learning_for_semantic_segmentation_and_disparity_torch.utils import profiling
-    from pmt_learning_for_semantic_segmentation_and_disparity_tpu.utils import profiling as jprofiling
-
-    clock = np.cumsum(np.random.default_rng(8).uniform(0.01, 2.0, 9)).tolist()
-    timers = {}
-    for name, module in (("port", profiling), ("jax", jprofiling)):
-        ticks = iter(clock)
-        monkeypatch.setattr(module.time, "perf_counter", lambda: next(ticks))
-        timer = module.StepTimer(warmup=3)
-        assert (timer.mean, timer.throughput(8)) == (0.0, 0.0)
-        for _ in clock:
-            timer.tick()
-        timers[name] = timer
-    port, ref = timers["port"], timers["jax"]
-    assert port.times == ref.times and len(port.times) == 5  # the first three intervals warm up
-    assert port.mean == ref.mean and port.throughput(8) == ref.throughput(8)
-    assert port.mean == pytest.approx((clock[-1] - clock[3]) / 5)
 
 
 def test_trace_writes_a_trace_file(tmp_path):
